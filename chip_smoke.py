@@ -10,7 +10,9 @@ Phases (any failure exits non-zero, without the final result line):
   3. hold each kernel against its plain PyTorch version on the card;
   4. replay the ``methylseq`` workflow at scale 1.0 through
      ``SizeyMethod(device="cuda")`` with the launch counters zeroed just
-     before; every kernel must have launched, once per predictor dispatch;
+     before; every kernel must have launched, once per predictor dispatch,
+     and the wastage and failures must lie within the JAX reference's own
+     spread; every shape the kernels were given is then checked as in 3;
   5. replay the same workflow at a small scale on the card and on the CPU
      through the port and compare the decisions;
   6. time each kernel, its plain version and a one-call library yardstick
@@ -37,6 +39,17 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 MAIN_SCALE = 1.0      # phase 4: the whole methylseq trace (953 tasks)
+# phase 4 against the JAX reference, which this script cannot import: its
+# replay of the same trace on a CPU and the spread of that replay under
+# 1-ulp moves of the MLP's initial weights (tools/port_tolerance.py
+# --scale 1.0: wastage 5738.82..5826.43 GB.h, 1.011e-2 relative at most;
+# failures 71..73, 2 at most). At this scale one rounding difference in a
+# 300-step Adam fit moves tens of integer choices, so the port is held to
+# twice that spread, not to the reference's decisions.
+REF_WASTAGE_GBH = 5768.136342526117
+REF_FAILURES = 71
+REF_WASTAGE_RTOL = 2e-2
+REF_FAILURES_TOL = 4
 # phase 5, card vs CPU: the scale at which the reference's own replay keeps
 # every integer choice under 1-ulp moves of the MLP's initial weights
 # (tools/port_tolerance.py: none moves at 0.05; at 0.1 two to four move
@@ -50,16 +63,21 @@ ALLOC_RTOL = 1e-2
 WASTAGE_RTOL = 2e-4
 K1_TOL = 1e-5         # |kernel - plain| <= K1_TOL * (1 + |plain|)
 
-K1_SHAPES = [(1, 1, 1, 32), (1, 7, 1, 32), (1, 128, 1, 32),
+# (M, T, d, h) and (Q, T, d). The main path gives K1 (1, K, 1, 32) on a
+# predict of K tasks and (1, CAP, 1, 32) on an observe or refresh, and K2
+# (K, CAP, 1) and (CAP, CAP, 1): the in-sample refresh queries every row of
+# the pool's buffer, CAP = 128 rows, doubled to 256 by methylseq's largest
+# pool at scale 1.0. Phase 4 records the shapes it launched, and any it
+# launched that is not listed here is checked after it.
+K1_SHAPES = [(1, 1, 1, 32), (1, 7, 1, 32), (1, 128, 1, 32), (1, 256, 1, 32),
              (1, 1024, 1, 32), (3, 300, 4, 32)]
-K2_SHAPES = [(1, 128, 1), (64, 128, 1), (1024, 1024, 1), (37, 300, 4)]
-K1_TIMED = [1, 64, 128, 1024]
-K2_TIMED = [(1, 128), (64, 128), (1024, 1024)]
-# the shapes of the JSON rows: the in-sample refresh of a 128-row pool,
-# which every observe dispatch runs (methylseq at scale 1.0 keeps all but
-# one pool within 128 rows)
-K1_ROW_T = 128
-K2_ROW_QT = (64, 128)
+K2_SHAPES = [(1, 128, 1), (64, 128, 1), (128, 128, 1), (256, 256, 1),
+             (1024, 1024, 1), (37, 300, 4)]
+# K2 keeps its k nearest in a register list of 5 for k <= 5 (the main
+# path's k = 5) and of 32 above: both are checked
+K2_KS = (5, 1, 8, 32)
+K1_TIMED = [1, 64, 128, 256, 1024]
+K2_TIMED = [(1, 128), (64, 128), (128, 128), (256, 256), (1024, 1024)]
 
 
 def gpu_line() -> str:
@@ -84,7 +102,8 @@ def build_kernels():
           + ", ".join(f"{k}={v:.2f}s" for k, v in times.items()))
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("Function properties", "registers",
+                                       "spill", "smem")):
                 print(f"[build] {name}: {line.strip()}")
 
 
@@ -118,9 +137,11 @@ def _k2_inputs(q, t, d, seed, dev, ties: bool):
     return to(qs), to(hist), to(ys), to(mask), to(scale)
 
 
-def check_kernels() -> dict:
-    """Every kernel against its plain version on the card. Returns the
-    largest absolute difference per kernel."""
+def check_kernels(k1_shapes=K1_SHAPES, k2_shapes=K2_SHAPES,
+                  ks=K2_KS) -> dict:
+    """Every kernel against its plain version on the card, K2 with and
+    without ties and at each k of ``ks``. Returns the largest absolute
+    difference per kernel."""
     import torch
     from repro_torch.kernels.ensemble_mlp.ops import ensemble_mlp_forward
     from repro_torch.kernels.ensemble_mlp.ref import ensemble_mlp_ref
@@ -129,7 +150,7 @@ def check_kernels() -> dict:
                                              pairwise_sq_dists_ref)
     dev = torch.device("cuda")
     err = {"ensemble_mlp": 0.0, "knn_predict": 0.0}
-    for i, (m, t, d, h) in enumerate(K1_SHAPES):
+    for i, (m, t, d, h) in enumerate(k1_shapes):
         args = _k1_inputs(m, t, d, h, i, dev)
         got = ensemble_mlp_forward(*args)
         want = ensemble_mlp_ref(*args)
@@ -142,20 +163,22 @@ def check_kernels() -> dict:
         if not ok:
             _fail(f"ensemble_mlp disagrees at {(m, t, d, h)}")
         err["ensemble_mlp"] = max(err["ensemble_mlp"], e)
-    for i, (q, t, d) in enumerate(K2_SHAPES):
+    for i, (q, t, d) in enumerate(k2_shapes):
         for ties in (False, True):
             qs, hist, ys, mask, scale = _k2_inputs(q, t, d, 100 + i, dev,
                                                    ties)
-            got = knn_predict(qs, hist, ys, mask, scale, 5)
-            want = knn_predict_ref(qs, hist, ys, mask, scale, 5)
-            torch.cuda.synchronize()
-            e = float((got - want).abs().max())
-            equal = bool(torch.equal(got, want))
-            print(f"[check] knn_predict Q={q} T={t} d={d} ties={ties}: max "
-                  f"abs err {e:.3e} (tol: bitwise equal) "
-                  f"{'ok' if equal else 'FAIL'}")
-            if not equal:
-                _fail(f"knn_predict disagrees at {(q, t, d, ties)}")
+            e = 0.0
+            for k in ks:
+                got = knn_predict(qs, hist, ys, mask, scale, k)
+                want = knn_predict_ref(qs, hist, ys, mask, scale, k)
+                torch.cuda.synchronize()
+                e = max(e, float((got - want).abs().max()))
+                if not torch.equal(got, want):
+                    _fail(f"knn_predict disagrees at {(q, t, d, ties)}, "
+                          f"k={k}")
+            print(f"[check] knn_predict Q={q} T={t} d={d} ties={ties} "
+                  f"k={','.join(map(str, ks))}: max abs err {e:.3e} (tol: "
+                  f"bitwise equal) ok")
             err["knn_predict"] = max(err["knn_predict"], e)
             one = torch.ones_like(scale)
             got = pairwise_sq_dists(qs, hist, mask)
@@ -168,8 +191,9 @@ def check_kernels() -> dict:
             if not torch.equal(nn, knn_predict_ref(qs, hist, ys, mask,
                                                    one, 5)):
                 _fail(f"knn_predict (scale 1) disagrees at {(q, t, d)}")
-    print("[check] pairwise_sq_dists (the TPU kernel's own function): "
-          "bitwise equal to its plain version at every K2 shape")
+    if k2_shapes:
+        print("[check] pairwise_sq_dists (the TPU kernel's own function): "
+              "bitwise equal to its plain version at these K2 shapes")
     return err
 
 
@@ -201,14 +225,43 @@ def _replay(scale: float, device: str):
     return res, decisions, wall
 
 
+def _recording_shapes():
+    """Wrap the models' kernel calls to count the shapes they pass: K1 as
+    (M, T, d, h), K2 as (Q, T, d). The wrappers' own counters are left to
+    count the launches."""
+    from collections import Counter
+
+    from repro_torch.core.models import knn, mlp
+    shapes = {"ensemble_mlp": Counter(), "knn_predict": Counter()}
+    k1, k2 = mlp.ensemble_mlp_forward, knn.knn_predict
+
+    def rec_k1(x, w1, *a):
+        shapes["ensemble_mlp"][(*x.shape, w1.shape[2])] += 1
+        return k1(x, w1, *a)
+
+    def rec_k2(queries, hist, *a):
+        shapes["knn_predict"][(*queries.shape[:1], *hist.shape)] += 1
+        return k2(queries, hist, *a)
+
+    mlp.ensemble_mlp_forward, knn.knn_predict = rec_k1, rec_k2
+
+    def restore():
+        mlp.ensemble_mlp_forward, knn.knn_predict = k1, k2
+    return shapes, restore
+
+
 def main_path() -> dict:
     import torch
     from repro_torch.core import predictor as P
     from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
     before = dict(P.DISPATCH_COUNTS)
+    shapes, restore = _recording_shapes()
     reset_launch_counts()
-    res, _decs, wall = _replay(MAIN_SCALE, "cuda")
-    torch.cuda.synchronize()
+    try:
+        res, _decs, wall = _replay(MAIN_SCALE, "cuda")
+        torch.cuda.synchronize()
+    finally:
+        restore()
     launches = dict(KERNEL_LAUNCHES)
     disp = {k: P.DISPATCH_COUNTS[k] - before.get(k, 0)
             for k in ("predict_pool", "observe_pool", "refresh_pool")}
@@ -217,6 +270,17 @@ def main_path() -> dict:
           f"wastage_gbh={res.wastage_gbh!r} n_failures={res.n_failures} "
           f"wall_s={wall:.3f} tasks_per_s={n / wall:.3f}")
     print(f"[main] dispatches {disp}; kernel launches {launches}")
+    for name, counts in shapes.items():
+        print(f"[main] {name} shapes, most launched first: "
+              + ", ".join(f"{s}x{c}" for s, c in counts.most_common()))
+    wrel = abs(res.wastage_gbh - REF_WASTAGE_GBH) / REF_WASTAGE_GBH
+    print(f"[main] against the reference's replay (wastage_gbh "
+          f"{REF_WASTAGE_GBH!r}, n_failures {REF_FAILURES}): wastage rel "
+          f"diff {wrel:.3e} (tol {REF_WASTAGE_RTOL:g}), failures diff "
+          f"{res.n_failures - REF_FAILURES} (tol {REF_FAILURES_TOL})")
+    if wrel > REF_WASTAGE_RTOL \
+            or abs(res.n_failures - REF_FAILURES) > REF_FAILURES_TOL:
+        _fail("the card's replay is outside the reference's spread")
     expect = sum(disp.values())
     for name in ("ensemble_mlp", "knn_predict"):
         if launches.get(name, 0) <= 0:
@@ -224,7 +288,9 @@ def main_path() -> dict:
         if launches[name] != expect:
             _fail(f"{name}: {launches[name]} launches, expected one per "
                   f"dispatch ({expect})")
-    return {"launches": launches, "tasks": n, "wall_s": wall}
+    return {"launches": launches, "tasks": n, "wall_s": wall,
+            "shapes": shapes, "wastage_gbh": res.wastage_gbh,
+            "n_failures": res.n_failures}
 
 
 def card_vs_cpu() -> None:
@@ -306,7 +372,7 @@ def _k2_bound(q, t, d, n_valid):
                   q * n_valid * (3 * d + 1))
 
 
-def time_kernels() -> dict:
+def time_kernels(k1_ts=K1_TIMED, k2_qts=K2_TIMED) -> dict:
     import torch
     from repro_torch.kernels.ensemble_mlp.ops import ensemble_mlp_forward
     from repro_torch.kernels.ensemble_mlp.ref import ensemble_mlp_ref
@@ -314,7 +380,7 @@ def time_kernels() -> dict:
     from repro_torch.kernels.knn.ref import knn_predict_ref
     dev = torch.device("cuda")
     rows = {}
-    for t in K1_TIMED:
+    for t in k1_ts:
         x, w1, b1, w2, b2 = _k1_inputs(1, t, 1, 32, 7, dev)
 
         def library(x=x, w1=w1, b1=b1, w2=w2, b2=b2):
@@ -332,7 +398,7 @@ def time_kernels() -> dict:
               f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
               f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.3e} ms "
               f"({by})")
-    for q, t in K2_TIMED:
+    for q, t in k2_qts:
         qs, hist, ys, mask, scale = _k2_inputs(q, t, 1, 11, dev, False)
         n_valid = int((mask > 0).sum())
 
@@ -375,10 +441,26 @@ def main() -> int:
     build_kernels()
     errors = check_kernels()
     main = main_path()
+    # every shape the main path launched is held against the plain version
+    k1_seen = [s for s in main["shapes"]["ensemble_mlp"] if s not in K1_SHAPES]
+    k2_seen = [s for s in main["shapes"]["knn_predict"] if s not in K2_SHAPES]
+    if k1_seen or k2_seen:
+        more = check_kernels(k1_seen, k2_seen, ks=(5,))
+        errors = {k: max(v, more[k]) for k, v in errors.items()}
     card_vs_cpu()
-    timings = time_kernels()
-    k1 = timings[("ensemble_mlp", K1_ROW_T)]
-    k2 = timings[("knn_predict", K2_ROW_QT)]
+    # the JSON rows are timed at the shape the main path launched most
+    # (d = 1, h = 32 on this path: the timed inputs use those)
+    k1_row = main["shapes"]["ensemble_mlp"].most_common(1)[0][0]
+    k2_row = main["shapes"]["knn_predict"].most_common(1)[0][0]
+    if k1_row[0] != 1 or k1_row[2:] != (1, 32) or k2_row[2] != 1:
+        _fail(f"main path launched unexpected shapes {k1_row}, {k2_row}")
+    timings = time_kernels(
+        sorted(set(K1_TIMED) | {k1_row[1]}),
+        sorted(set(K2_TIMED) | {k2_row[:2]}))
+    k1 = timings[("ensemble_mlp", k1_row[1])]
+    k2 = timings[("knn_predict", k2_row[:2])]
+    print(f"[time] JSON rows at the most launched shapes: ensemble_mlp "
+          f"(M,T,d,h)={k1_row}, knn_predict (Q,T,d)={k2_row}")
     kernels = [
         {"name": "ensemble_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/ensemble_mlp/kernel.cu",

@@ -17,11 +17,16 @@
 // history rows, d = 1, k = 5) it reads a few KB to a few tens of KB and does
 // ~5*Q*T*d FLOPs plus the selection: launch latency dominates. Design: one
 // thread per query, the history streamed through shared memory in tiles of
-// 256 rows shared by the block's 128 queries, and a k-long insertion list in
-// registers scanned in index order with a strict '<', which keeps the lower
-// index on ties. Arithmetic uses the _rn intrinsics so that nvcc contracts no
-// multiply-add: the distances and the sum of targets are then bitwise those of
-// the plain PyTorch version (kernels/knn/ref.py).
+// 256 rows shared by the block's 128 queries, and a sorted list of the best
+// KCAP >= k rows scanned in index order. A new row goes after every kept row
+// at a distance <= its own, which keeps the lower index on ties. KCAP is a
+// template parameter (5 for k <= 5, Sizey's k = 5; 32 above) and the list
+// is only ever indexed by unrolled constants: the list of 5 stays in
+// registers (ptxas: no stack frame), while ptxas gives the list of 32 a
+// 128-byte stack frame, which only k > 5 reaches.
+// Arithmetic uses the _rn intrinsics so that nvcc contracts no multiply-add:
+// the distances and the sum of targets are then bitwise those of the plain
+// PyTorch version (kernels/knn/ref.py).
 //
 // pairwise_sq_dists_f32 is the TPU kernel's own function (scale = 1): the
 // masked (Q, T) distance matrix with 3.4e38 at masked columns.
@@ -33,6 +38,7 @@ constexpr int kThreads = 128;
 constexpr int kTile = 256;
 constexpr int kMaxK = 32;
 
+template <int KCAP>
 __global__ void knn_predict_kernel(const float* __restrict__ queries,
                                    const float* __restrict__ hist,
                                    const float* __restrict__ ys,
@@ -50,9 +56,12 @@ __global__ void knn_predict_kernel(const float* __restrict__ queries,
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = qi < Q;
   const float* qr = queries + static_cast<size_t>(active ? qi : 0) * d;
-  float best_d[kMaxK];
-  float best_y[kMaxK];
-  int n = 0;
+  float best_d[KCAP];
+  float best_y[KCAP];
+#pragma unroll
+  for (int i = 0; i < KCAP; ++i) best_d[i] = best_y[i] = 0.0f;
+  int n = 0;          // rows kept, <= k
+  float kth = 0.0f;   // best_d[k - 1] once n == k
 
   for (int t0 = 0; t0 < T; t0 += kTile) {
     const int nt = min(kTile, T - t0);
@@ -73,22 +82,38 @@ __global__ void knn_predict_kernel(const float* __restrict__ queries,
         dist = __fadd_rn(dist, __fmul_rn(diff, diff));
       }
       if (dist != dist) continue;  // NaN never ranks
-      if (n < k || dist < best_d[n - 1]) {
-        int p = n < k ? n : k - 1;
-        while (p > 0 && best_d[p - 1] > dist) {
-          best_d[p] = best_d[p - 1];
-          best_y[p] = best_y[p - 1];
-          --p;
+      if (n < k || dist < kth) {
+        // slot p = the number of kept rows at a distance <= dist
+        int p = 0;
+#pragma unroll
+        for (int i = 0; i < KCAP; ++i) p += (i < n && best_d[i] <= dist);
+        const float y = sy[j];
+#pragma unroll
+        for (int i = KCAP - 1; i > 0; --i) {
+          if (i > p) {
+            best_d[i] = best_d[i - 1];
+            best_y[i] = best_y[i - 1];
+          } else if (i == p) {
+            best_d[i] = dist;
+            best_y[i] = y;
+          }
         }
-        best_d[p] = dist;
-        best_y[p] = sy[j];
+        if (p == 0) {
+          best_d[0] = dist;
+          best_y[0] = y;
+        }
         if (n < k) ++n;
+#pragma unroll
+        for (int i = 0; i < KCAP; ++i)
+          if (i == k - 1) kth = best_d[i];
       }
     }
   }
   if (!active) return;
   float s = 0.0f;
-  for (int i = 0; i < n; ++i) s = __fadd_rn(s, best_y[i]);
+#pragma unroll
+  for (int i = 0; i < KCAP; ++i)
+    if (i < n) s = __fadd_rn(s, best_y[i]);
   out[qi] = n > 0 ? __fdiv_rn(s, static_cast<float>(n)) : 0.0f;
 }
 
@@ -120,8 +145,12 @@ extern "C" int knn_predict_f32(const float* queries, const float* hist,
                                int d, int k, cudaStream_t stream) {
   const dim3 grid((Q + kThreads - 1) / kThreads);
   const size_t smem = sizeof(float) * (static_cast<size_t>(kTile) * (d + 2) + d);
-  knn_predict_kernel<<<grid, kThreads, smem, stream>>>(queries, hist, ys, mask,
-                                                       scale, out, Q, T, d, k);
+  if (k <= 5)
+    knn_predict_kernel<5><<<grid, kThreads, smem, stream>>>(
+        queries, hist, ys, mask, scale, out, Q, T, d, k);
+  else
+    knn_predict_kernel<kMaxK><<<grid, kThreads, smem, stream>>>(
+        queries, hist, ys, mask, scale, out, Q, T, d, k);
   return static_cast<int>(cudaGetLastError());
 }
 

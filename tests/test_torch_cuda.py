@@ -46,10 +46,14 @@ def test_ensemble_mlp_kernel_matches_plain(cuda, m, t, d, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q,t,d,ties", [(1, 128, 1, False),
-                                        (64, 128, 1, True),
-                                        (37, 300, 4, True)])
-def test_knn_kernels_equal_plain(cuda, q, t, d, ties):
+# k <= 5 and k > 5 run different register lists in the kernel
+@pytest.mark.parametrize("q,t,d,ties,k", [(1, 128, 1, False, 5),
+                                          (64, 128, 1, True, 5),
+                                          (37, 300, 4, True, 5),
+                                          (37, 300, 2, True, 1),
+                                          (37, 300, 2, True, 6),
+                                          (37, 300, 2, True, 32)])
+def test_knn_kernels_equal_plain(cuda, q, t, d, ties, k):
     rng = np.random.default_rng(q)
     if ties:
         qs = torch.from_numpy(rng.integers(0, 5, (q, d)).astype(np.float32))
@@ -63,8 +67,8 @@ def test_knn_kernels_equal_plain(cuda, q, t, d, ties):
             ).to(torch.float32).to(cuda)
     scale = torch.linspace(0.5, 2.0, d, device=cuda)
     before = KERNEL_LAUNCHES["knn_predict"]
-    assert torch.equal(knn_predict(qs, hist, ys, mask, scale, 5),
-                       knn_predict_ref(qs, hist, ys, mask, scale, 5))
+    assert torch.equal(knn_predict(qs, hist, ys, mask, scale, k),
+                       knn_predict_ref(qs, hist, ys, mask, scale, k))
     assert KERNEL_LAUNCHES["knn_predict"] == before + 1
     assert torch.equal(pairwise_sq_dists(qs, hist, mask),
                        pairwise_sq_dists_ref(qs, hist, mask))

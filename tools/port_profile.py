@@ -4,11 +4,14 @@
 
 Replays ``methylseq`` through ``SizeyMethod(device="cuda")``, timing
 every predict (``allocate``) and every observe (``complete``) on the host
-clock, each ending in a device synchronisation. Over a window of
-completed tasks (``--window a:b``) it traces the device with
-``torch.profiler`` and prints the device-busy share of that window's wall
-time, the number of kernel launches and the kernels that take most device
-time. Prints the card's name and power limit first. Needs a CUDA device.
+clock, each ending in a device synchronisation, and the wall time of a
+window of completed tasks (``--window a:b``). It then replays the same
+trace again, which takes the same decisions, and traces that window with
+``torch.profiler``: it prints the device-busy time, its share of the
+traced and of the untraced window's wall time (the profiler slows the
+host, not the kernels), the number of kernel launches and the kernels
+that take most device time. Prints the card's name and power limit
+first. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -41,44 +44,55 @@ def main() -> None:
                          text=True, timeout=60).stdout.strip())
     _build.build()
     lo, hi = (int(v) for v in args.window.split(":"))
-    method = SizeyMethod(device="cuda")
-    walls = {"predict": 0.0, "observe": 0.0}
-    state = {"done": 0, "prof": None, "t0": 0.0, "wall": 0.0}
-    allocate, complete = method.allocate, method.complete
+    trace = generate_workflow("methylseq", scale=args.scale)
 
-    def timed_allocate(task):
+    def replay(traced: bool):
+        method = SizeyMethod(device="cuda")
+        walls = {"predict": 0.0, "observe": 0.0}
+        state = {"done": 0, "prof": None, "t0": 0.0, "wall": 0.0}
+        allocate, complete = method.allocate, method.complete
+
+        def timed_allocate(task):
+            t0 = time.perf_counter()
+            out = allocate(task)
+            walls["predict"] += time.perf_counter() - t0
+            return out
+
+        def timed_complete(task, first, attempts):
+            if state["done"] == lo:
+                torch.cuda.synchronize()
+                if traced:
+                    state["prof"] = profile(activities=[
+                        ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    state["prof"].start()
+                state["t0"] = time.perf_counter()
+            t0 = time.perf_counter()
+            complete(task, first, attempts)
+            walls["observe"] += time.perf_counter() - t0
+            state["done"] += 1
+            if state["done"] == hi:
+                torch.cuda.synchronize()
+                state["wall"] = time.perf_counter() - state["t0"]
+                if traced:
+                    state["prof"].stop()
+
+        method.allocate, method.complete = timed_allocate, timed_complete
         t0 = time.perf_counter()
-        out = allocate(task)
-        walls["predict"] += time.perf_counter() - t0
-        return out
+        res = simulate(trace, method)
+        total = time.perf_counter() - t0
+        n = len(res.outcomes)
+        print(f"replay ({'traced' if traced else 'untraced'} window): {n} "
+              f"tasks in {total:.3f} s ({n / total:.3f} tasks/s); predict "
+              f"{walls['predict']:.3f} s, observe {walls['observe']:.3f} s, "
+              f"rest {total - walls['predict'] - walls['observe']:.3f} s; "
+              f"window {lo}..{hi} wall {state['wall'] * 1e3:.3f} ms; "
+              f"wastage_gbh {res.wastage_gbh!r}")
+        return state
 
-    def timed_complete(task, first, attempts):
-        if state["done"] == lo:
-            torch.cuda.synchronize()
-            state["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA])
-            state["prof"].start()
-            state["t0"] = time.perf_counter()
-        t0 = time.perf_counter()
-        complete(task, first, attempts)
-        walls["observe"] += time.perf_counter() - t0
-        state["done"] += 1
-        if state["done"] == hi and state["prof"] is not None:
-            torch.cuda.synchronize()
-            state["wall"] = time.perf_counter() - state["t0"]
-            state["prof"].stop()
-
-    method.allocate, method.complete = timed_allocate, timed_complete
-    t0 = time.perf_counter()
-    res = simulate(generate_workflow("methylseq", scale=args.scale), method)
-    total = time.perf_counter() - t0
-    n = len(res.outcomes)
-    print(f"replay: {n} tasks in {total:.3f} s ({n / total:.3f} tasks/s); "
-          f"predict {walls['predict']:.3f} s, observe "
-          f"{walls['observe']:.3f} s, rest "
-          f"{total - walls['predict'] - walls['observe']:.3f} s")
+    plain_wall_us = replay(traced=False)["wall"] * 1e6
+    state = replay(traced=True)
     prof = state["prof"]
-    if prof is None:
+    if prof is None or plain_wall_us == 0:
         print("window not reached: not measured")
         return
     # device-side entries only (kernels and copies): the aten operators
@@ -92,9 +106,13 @@ def main() -> None:
     if busy_us == 0:
         print("profiler saw no device time: busy share not measured")
         return
-    print(f"window tasks {lo}..{hi}: wall {wall_us / 1e3:.3f} ms, device "
-          f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.2f} %), "
-          f"idle {100 * (1 - busy_us / wall_us):.2f} %, {launches} kernels "
+    print(f"window tasks {lo}..{hi}: device busy {busy_us / 1e3:.3f} ms; "
+          f"traced wall {wall_us / 1e3:.3f} ms, busy "
+          f"{100 * busy_us / wall_us:.2f} %, idle "
+          f"{100 * (1 - busy_us / wall_us):.2f} %; untraced wall "
+          f"{plain_wall_us / 1e3:.3f} ms, busy "
+          f"{100 * busy_us / plain_wall_us:.2f} %, idle "
+          f"{100 * (1 - busy_us / plain_wall_us):.2f} %; {launches} kernels "
           f"and copies, {launches / (hi - lo):.0f} per task")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:7d}x  "
