@@ -7,15 +7,24 @@ Phases (any failure exits non-zero, without the final result line):
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit;
   2. build the CUDA kernels from the sources in the checkout (one nvcc per
      source, all at once) and print the build time and ptxas report;
-  3. hold each kernel against its plain PyTorch version on the card;
+  3. hold each kernel against its plain PyTorch version on the card (the
+     segment-DP kernel bit for bit, over profile kinds, M, G and k);
   4. replay the ``methylseq`` workflow at scale 1.0 through
-     ``SizeyMethod(device="cuda")`` with the launch counters zeroed just
-     before; every kernel must have launched, once per predictor dispatch,
-     and the wastage and failures must lie within the JAX reference's own
-     spread; every shape the kernels were given is then checked as in 3;
-  5. replay the same workflow at a small scale on the card and on the CPU
+     ``SizeyMethod(device="cuda")`` (the peak path) with the launch
+     counters zeroed just before; every kernel of the path must have
+     launched, once per predictor dispatch, and the wastage and failures
+     must lie within the JAX reference's own spread;
+  5. replay it through ``make_method("sizey_temporal", device="cuda")``
+     (the temporal path), counters zeroed again: the segment-DP kernel
+     must have launched once per boundary fit, every decision's boundaries
+     must be the reference oracle's on the pool's profiles, and the
+     time-integrated wastage and failures must lie within the reference's
+     spread; then through ``make_method("ks_plus", device="cuda")``, which
+     must give the reference's totals exactly; every shape the kernels
+     were given in 4 and 5 is then checked as in 3;
+  6. replay a small scale of both Sizey paths on the card and on the CPU
      through the port and compare the decisions;
-  6. time each kernel, its plain version and a one-call library yardstick
+  7. time each kernel, its plain version and a one-call library yardstick
      with CUDA events, beside the least time the card could take.
 
 The last three lines are the card's name and power limit, one JSON object
@@ -50,11 +59,11 @@ REF_WASTAGE_GBH = 5768.136342526117
 REF_FAILURES = 71
 REF_WASTAGE_RTOL = 2e-2
 REF_FAILURES_TOL = 4
-# phase 5, card vs CPU: the scale at which the reference's own replay keeps
-# every integer choice under 1-ulp moves of the MLP's initial weights
-# (tools/port_tolerance.py: none moves at 0.05; at 0.1 two to four move
-# and one allocation moves by 1.5e-2, so equal integer choices cannot be
-# asked of two devices there)
+# phase 6, card vs CPU on the peak path: the scale at which the reference's
+# own replay keeps every integer choice under 1-ulp moves of the MLP's
+# initial weights (tools/port_tolerance.py: none moves at 0.05; at 0.1 two
+# to four move and one allocation moves by 1.5e-2, so equal integer
+# choices cannot be asked of two devices there)
 SMALL_SCALE = 0.05
 # the same tolerances as the port-vs-reference test (tests/test_torch_slice.py):
 # twice the reference's own spread at SMALL_SCALE (5.3e-3 on an
@@ -63,12 +72,41 @@ ALLOC_RTOL = 1e-2
 WASTAGE_RTOL = 2e-4
 K1_TOL = 1e-5         # |kernel - plain| <= K1_TOL * (1 + |plain|)
 
+# phase 5, the temporal path against the JAX reference: its replay of the
+# same trace on a CPU and that replay's boundary fits, and the spread of
+# the replay under 16 1-ulp moves of the MLP's initial weights
+# (tools/port_tolerance.py --method sizey_temporal --scale 1.0 --samples
+# 16: time-integrated wastage 10495.04..10657.68 GB.h, 9.418e-3 relative
+# at most; failures 243..250, 4 at most; 388 to 684 integer choices moved,
+# no boundary). The port is held to twice that spread.
+REF_TW_GBH = 10558.23942791997
+REF_T_FAILURES = 246
+REF_TW_RTOL = 1.9e-2
+REF_T_FAILURES_TOL = 8
+REF_FITS = 926
+# KS+ is numpy apart from its boundary fits, which K3 computes bit for bit:
+# the reference's totals exactly (the same replay of the JAX package)
+REF_KSP_TW_GBH = 15197.024585115007
+REF_KSP_FAILURES = 537
+# phase 6, the temporal path card vs CPU at SMALL_SCALE: twice the
+# reference's own spread there (tools/port_tolerance.py --method
+# sizey_temporal --samples 16: allocations 1.615e-1, time-integrated
+# wastage 2.991e-4, no boundary or failure moved). Its 1-ulp moves change
+# up to 4 integer choices (offset index or best model) at this scale, so
+# the card may differ from the CPU in as many; boundaries and failures
+# must be equal.
+T_ALLOC_RTOL = 3.3e-1
+T_TW_RTOL = 6e-4
+T_INT_MOVES = 4
+
 # (M, T, d, h) and (Q, T, d). The main path gives K1 (1, K, 1, 32) on a
 # predict of K tasks and (1, CAP, 1, 32) on an observe or refresh, and K2
 # (K, CAP, 1) and (CAP, CAP, 1): the in-sample refresh queries every row of
 # the pool's buffer, CAP = 128 rows, doubled to 256 by methylseq's largest
-# pool at scale 1.0. Phase 4 records the shapes it launched, and any it
-# launched that is not listed here is checked after it.
+# pool at scale 1.0. The temporal path gives both d = 2 (the segment
+# centre is a feature) and four rows per task, so buffers of up to 1024
+# rows. Phases 4 and 5 record the shapes they launched, and any launched
+# that is not listed here is checked after them.
 K1_SHAPES = [(1, 1, 1, 32), (1, 7, 1, 32), (1, 128, 1, 32), (1, 256, 1, 32),
              (1, 1024, 1, 32), (3, 300, 4, 32)]
 K2_SHAPES = [(1, 128, 1), (64, 128, 1), (128, 128, 1), (256, 256, 1),
@@ -76,6 +114,13 @@ K2_SHAPES = [(1, 128, 1), (64, 128, 1), (128, 128, 1), (256, 256, 1),
 # K2 keeps its k nearest in a register list of 5 for k <= 5 (the main
 # path's k = 5) and of 32 above: both are checked
 K2_KS = (5, 1, 8, 32)
+# K3: the profile kinds, M (a young pool to PROFILE_WINDOW = 512), G (the
+# main path's 32 and edges) and k in {1, 2, 4, G} it is held to, bitwise;
+# the temporal path gives it (M, 32, 4) with M = 3..129 at scale 1.0
+K3_KINDS = ("random", "ties", "step", "constant", "zero")
+K3_MS = (1, 3, 5, 64, 128, 512)
+K3_GS = (4, 32, 33)
+K3_TIMED = (8, 32, 128, 512)
 K1_TIMED = [1, 64, 128, 256, 1024]
 K2_TIMED = [(1, 128), (64, 128), (128, 128), (256, 256), (1024, 1024)]
 
@@ -197,43 +242,137 @@ def check_kernels(k1_shapes=K1_SHAPES, k2_shapes=K2_SHAPES,
     return err
 
 
-# ----------------------------------------------------------- phase 4/5
-def _replay(scale: float, device: str):
+# ----------------------------------------------------------- phase 3, K3
+def k3_profiles(kind: str, m: int, g: int, seed: int):
+    """(m, g) float32 profiles of one kind, made with numpy from ``seed``
+    (the maker of tests/test_torch_segment_dp.py)."""
     import numpy as np
-    from repro_torch.baselines import SizeyMethod
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.uniform(0.0, 10.0, (m, g)).astype(np.float32)
+    if kind == "ties":          # small integers: many equal costs
+        return rng.integers(0, 4, (m, g)).astype(np.float32)
+    if kind == "step":          # one change point per profile
+        cut = rng.integers(1, max(g, 2), m)
+        lo = rng.uniform(1.0, 2.0, m)
+        hi = rng.uniform(3.0, 9.0, m)
+        cols = np.arange(g)[None, :]
+        return np.where(cols < cut[:, None], lo[:, None],
+                        hi[:, None]).astype(np.float32)
+    if kind == "constant":
+        return np.full((m, g), 2.5, np.float32)
+    return np.zeros((m, g), np.float32)
+
+
+def check_segment_dp(shapes=None) -> float:
+    """K3 against its plain version on the card, bit for bit: the cut
+    indices of ``fit_cuts`` and the whole (G+1)^2 cost matrix of
+    ``segment_cost``, both also against the reference's numpy oracle
+    (copied in ``ref.py``). ``shapes`` are (M, G, k); by default the listed
+    ones. Every profile kind is checked at each. Returns the largest
+    absolute difference of a finite cost entry (0.0: bitwise)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.segment_dp.ops import fit_cuts, segment_cost
+    from repro_torch.kernels.segment_dp.ref import (cost_matrix_plain,
+                                                    cost_matrix_ref,
+                                                    fit_cuts_plain,
+                                                    fit_cuts_ref)
+    dev = torch.device("cuda")
+    if shapes is None:
+        shapes = [(m, g, k) for m in K3_MS for g in K3_GS
+                  for k in sorted({1, 2, 4, g})]
+    by_mg: dict = {}
+    for m, g, k in shapes:
+        by_mg.setdefault((m, g), set()).add(k)
+    err, fits = 0.0, 0
+    for (m, g), ks in sorted(by_mg.items()):
+        for kind in K3_KINDS:
+            P = k3_profiles(kind, m, g, seed=m * 100 + g)
+            tP = torch.from_numpy(P).to(dev)
+            cost, plain = segment_cost(tP), cost_matrix_plain(tP)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(plain)
+            if not torch.equal(torch.isfinite(cost), fin):
+                _fail(f"segment_cost: inf pattern differs at {kind} M={m} "
+                      f"G={g}")
+            err = max(err, float((cost - plain)[fin].abs().max()))
+            if not (torch.equal(cost, plain) and np.array_equal(
+                    cost.cpu().numpy(), cost_matrix_ref(P))):
+                _fail(f"segment_cost disagrees at {kind} M={m} G={g}")
+            for k in sorted(ks):
+                got, want = fit_cuts(tP, k), fit_cuts_plain(tP, k)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and np.array_equal(
+                        got.cpu().numpy(), fit_cuts_ref(P, k))):
+                    _fail(f"segment_dp disagrees at {kind} M={m} G={g} "
+                          f"k={k}: {got.tolist()} vs {want.tolist()}")
+                fits += 1
+    print(f"[check] segment_dp: {len(by_mg)} (M, G) x {len(K3_KINDS)} "
+          f"profile kinds ({', '.join(K3_KINDS)}), {fits} fits, M in "
+          f"{sorted({m for m, _ in by_mg})}, G in "
+          f"{sorted({g for _, g in by_mg})}: cut indices and cost matrices "
+          f"bitwise equal to the plain version and the reference oracle "
+          f"(max abs err {err:.3e}; tol: equal) ok")
+    return err
+
+
+# ----------------------------------------------------------- phase 4-6
+def _replay(scale: float, device: str, name: str = "sizey", on_method=None):
+    """Replay methylseq through ``make_method(name, device=device)``; the
+    decisions come back one per segment on the temporal path, each with
+    its boundaries ((1.0,) on the peak path). ``on_method`` may wrap more
+    of the method before the replay."""
+    import numpy as np
+    from repro_torch.baselines import make_method
     from repro_torch.workflow import generate_workflow, simulate
-    method = SizeyMethod(device=device)
+    method = make_method(name, device=device)
     decisions = []
-    predict = method.predictor.predict
+    if name == "sizey_temporal":
+        predict_batch = method.predictor.predict_batch
 
-    def recording(*a, **k):
-        d = predict(*a, **k)
-        decisions.append(d)
-        return d
+        def recording(tasks):
+            out = predict_batch(tasks)
+            decisions.extend((s, d.boundaries) for d in out
+                             for s in d.seg_decisions)
+            return out
 
-    method.predictor.predict = recording
+        method.predictor.predict_batch = recording
+    elif name != "ks_plus":
+        predict = method.predictor.predict
+
+        def recording(*a, **k):
+            d = predict(*a, **k)
+            decisions.append((d, (1.0,)))
+            return d
+
+        method.predictor.predict = recording
+    if on_method is not None:
+        on_method(method)
     trace = generate_workflow("methylseq", scale=scale)
     t0 = time.perf_counter()
     res = simulate(trace, method)
     wall = time.perf_counter() - t0
     if len(res.outcomes) != len(trace.tasks):
         _fail("replay lost tasks")
-    allocs = np.asarray([d.allocation_gb for d in decisions])
+    allocs = np.asarray([d.allocation_gb for d, _b in decisions])
     if not (np.all(np.isfinite(allocs)) and np.all(allocs > 0)
-            and np.isfinite(res.wastage_gbh)):
+            and np.isfinite(res.temporal_wastage_gbh)):
         _fail("replay produced non-finite or non-positive allocations")
-    return res, decisions, wall
+    return res, decisions, wall, method
 
 
 def _recording_shapes():
-    """Wrap the models' kernel calls to count the shapes they pass: K1 as
-    (M, T, d, h), K2 as (Q, T, d). The wrappers' own counters are left to
-    count the launches."""
+    """Wrap the kernels' callers to count the shapes they pass: K1 as
+    (M, T, d, h), K2 as (Q, T, d), K3 as (M, G, k). The wrappers' own
+    counters are left to count the launches."""
     from collections import Counter
 
     from repro_torch.core.models import knn, mlp
-    shapes = {"ensemble_mlp": Counter(), "knn_predict": Counter()}
-    k1, k2 = mlp.ensemble_mlp_forward, knn.knn_predict
+    from repro_torch.core.temporal import segments
+    shapes = {"ensemble_mlp": Counter(), "knn_predict": Counter(),
+              "segment_dp": Counter()}
+    k1, k2, k3 = mlp.ensemble_mlp_forward, knn.knn_predict, segments.fit_cuts
 
     def rec_k1(x, w1, *a):
         shapes["ensemble_mlp"][(*x.shape, w1.shape[2])] += 1
@@ -243,14 +382,23 @@ def _recording_shapes():
         shapes["knn_predict"][(*queries.shape[:1], *hist.shape)] += 1
         return k2(queries, hist, *a)
 
+    def rec_k3(P, k):
+        shapes["segment_dp"][(*P.shape, k)] += 1
+        return k3(P, k)
+
     mlp.ensemble_mlp_forward, knn.knn_predict = rec_k1, rec_k2
+    segments.fit_cuts = rec_k3
 
     def restore():
         mlp.ensemble_mlp_forward, knn.knn_predict = k1, k2
+        segments.fit_cuts = k3
     return shapes, restore
 
 
-def main_path() -> dict:
+def _drive(label: str, scale: float, name: str, on_method=None):
+    """One replay on the card with every launch counter zeroed just before
+    and read just after; returns the result, decisions, wall, method,
+    launches, predictor dispatches and kernel shapes of that run."""
     import torch
     from repro_torch.core import predictor as P
     from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
@@ -258,7 +406,7 @@ def main_path() -> dict:
     shapes, restore = _recording_shapes()
     reset_launch_counts()
     try:
-        res, _decs, wall = _replay(MAIN_SCALE, "cuda")
+        res, decs, wall, method = _replay(scale, "cuda", name, on_method)
         torch.cuda.synchronize()
     finally:
         restore()
@@ -266,68 +414,168 @@ def main_path() -> dict:
     disp = {k: P.DISPATCH_COUNTS[k] - before.get(k, 0)
             for k in ("predict_pool", "observe_pool", "refresh_pool")}
     n = len(res.outcomes)
-    print(f"[main] methylseq scale={MAIN_SCALE}: tasks={n} "
-          f"wastage_gbh={res.wastage_gbh!r} n_failures={res.n_failures} "
-          f"wall_s={wall:.3f} tasks_per_s={n / wall:.3f}")
-    print(f"[main] dispatches {disp}; kernel launches {launches}")
-    for name, counts in shapes.items():
-        print(f"[main] {name} shapes, most launched first: "
-              + ", ".join(f"{s}x{c}" for s, c in counts.most_common()))
-    wrel = abs(res.wastage_gbh - REF_WASTAGE_GBH) / REF_WASTAGE_GBH
-    print(f"[main] against the reference's replay (wastage_gbh "
-          f"{REF_WASTAGE_GBH!r}, n_failures {REF_FAILURES}): wastage rel "
-          f"diff {wrel:.3e} (tol {REF_WASTAGE_RTOL:g}), failures diff "
-          f"{res.n_failures - REF_FAILURES} (tol {REF_FAILURES_TOL})")
-    if wrel > REF_WASTAGE_RTOL \
-            or abs(res.n_failures - REF_FAILURES) > REF_FAILURES_TOL:
-        _fail("the card's replay is outside the reference's spread")
+    print(f"[{label}] {name} methylseq scale={scale}: tasks={n} "
+          f"wastage_gbh={res.wastage_gbh!r} "
+          f"temporal_wastage_gbh={res.temporal_wastage_gbh!r} "
+          f"n_failures={res.n_failures} wall_s={wall:.3f} "
+          f"tasks_per_s={n / wall:.3f}")
+    print(f"[{label}] dispatches {disp}; kernel launches {launches}")
+    for kname, counts in shapes.items():
+        if counts:
+            print(f"[{label}] {kname} shapes, most launched first: "
+                  + ", ".join(f"{s}x{c}" for s, c in counts.most_common()))
+    return res, decs, wall, method, launches, disp, shapes
+
+
+def _check_sizey_launches(label, launches, disp):
     expect = sum(disp.values())
     for name in ("ensemble_mlp", "knn_predict"):
         if launches.get(name, 0) <= 0:
-            _fail(f"{name} was never launched on the main path")
+            _fail(f"{name} was never launched on the {label} path")
         if launches[name] != expect:
-            _fail(f"{name}: {launches[name]} launches, expected one per "
-                  f"dispatch ({expect})")
-    return {"launches": launches, "tasks": n, "wall_s": wall,
-            "shapes": shapes, "wastage_gbh": res.wastage_gbh,
-            "n_failures": res.n_failures}
+            _fail(f"{name}: {launches[name]} launches on the {label} path, "
+                  f"expected one per dispatch ({expect})")
 
 
-def card_vs_cpu() -> None:
+def _within_spread(label, got_w, ref_w, rtol, got_f, ref_f, ftol, what):
+    wrel = abs(got_w - ref_w) / ref_w
+    print(f"[{label}] against the reference's replay ({what} {ref_w!r}, "
+          f"n_failures {ref_f}): {what} rel diff {wrel:.3e} (tol "
+          f"{rtol:g}), failures diff {got_f - ref_f} (tol {ftol})")
+    if wrel > rtol or abs(got_f - ref_f) > ftol:
+        _fail(f"the card's {label} replay is outside the reference's "
+              f"spread")
+
+
+def main_path() -> dict:
+    """Phase 4: the peak path at full scale."""
+    res, _decs, wall, _m, launches, disp, shapes = _drive(
+        "main", MAIN_SCALE, "sizey")
+    _within_spread("main", res.wastage_gbh, REF_WASTAGE_GBH,
+                   REF_WASTAGE_RTOL, res.n_failures, REF_FAILURES,
+                   REF_FAILURES_TOL, "wastage_gbh")
+    _check_sizey_launches("peak", launches, disp)
+    return {"launches": launches, "tasks": len(res.outcomes),
+            "wall_s": wall, "shapes": shapes}
+
+
+def temporal_path() -> dict:
+    """Phase 5: the temporal path at full scale. Every decision's
+    boundaries are held to the reference oracle's fit over the pool's
+    profiles at that point, rebuilt on the host: profiles are only
+    appended (the pools stay below PROFILE_WINDOW), so the first n of the
+    final list are those a decision saw."""
+    import numpy as np
+    from repro_torch.core.temporal.predictor import BOUNDARY_COUNTS
+    from repro_torch.core.temporal.segments import (PROFILE_WINDOW,
+                                                    fit_boundaries,
+                                                    uniform_boundaries)
+    BOUNDARY_COUNTS.clear()
+    seen = []      # (pool, profiles seen, boundaries) per decision
+
+    def snapshotting(method):
+        tp = method.predictor
+        predict_batch = tp.predict_batch
+
+        def rec(tasks):
+            out = predict_batch(tasks)
+            for d in out:
+                key = (d.task_type, d.machine)
+                seen.append((key, len(tp._profiles.get(key, ())),
+                             d.boundaries))
+            return out
+
+        tp.predict_batch = rec
+
+    res, _decs, wall, method, launches, disp, shapes = _drive(
+        "temporal", MAIN_SCALE, "sizey_temporal", snapshotting)
+    counts = dict(BOUNDARY_COUNTS)
+    tp = method.predictor
+    print(f"[temporal] boundary fits {counts}; decisions {len(seen)}")
+    if launches.get("segment_dp", 0) != counts.get("fit", -1):
+        _fail(f"segment_dp launched {launches.get('segment_dp', 0)} times, "
+              f"expected one per boundary fit ({counts.get('fit')})")
+    if counts.get("fit", 0) != REF_FITS:
+        _fail(f"{counts.get('fit')} boundary fits, the reference ran "
+              f"{REF_FITS}")
+    _check_sizey_launches("temporal", launches, disp)
+    want: dict = {}
+    for key, n, bounds in seen:
+        profs = tp._profiles.get(key, [])
+        if len(profs) >= PROFILE_WINDOW:
+            _fail("a pool filled its profile window: rebuild unsound")
+        if (key, n) not in want:
+            want[key, n] = (uniform_boundaries(tp.k) if n < 3 else
+                            fit_boundaries(np.stack(profs[:n]), tp.k,
+                                           backend="numpy"))
+        if bounds != want[key, n]:
+            _fail(f"decision boundaries {bounds} differ from the oracle's "
+                  f"{want[key, n]} for pool {key} at {n} profiles")
+    print(f"[temporal] every decision's boundaries equal the reference "
+          f"oracle's ({len(want)} distinct (pool, history length) pairs)")
+    _within_spread("temporal", res.temporal_wastage_gbh, REF_TW_GBH,
+                   REF_TW_RTOL, res.n_failures, REF_T_FAILURES,
+                   REF_T_FAILURES_TOL, "temporal_wastage_gbh")
+    return {"launches": launches, "tasks": len(res.outcomes),
+            "wall_s": wall, "shapes": shapes}
+
+
+def ks_plus_path() -> dict:
+    """Phase 5, KS+: numpy apart from its boundary fits on K3, so it must
+    give the reference's totals exactly."""
+    res, _decs, wall, _m, launches, _disp, shapes = _drive(
+        "ks_plus", MAIN_SCALE, "ks_plus")
+    ok = (res.temporal_wastage_gbh == REF_KSP_TW_GBH
+          and res.n_failures == REF_KSP_FAILURES)
+    print(f"[ks_plus] against the reference's replay (temporal_wastage_gbh "
+          f"{REF_KSP_TW_GBH!r}, n_failures {REF_KSP_FAILURES}; tol: equal) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail("KS+ on the card differs from the reference")
+    if launches.get("segment_dp", 0) <= 0:
+        _fail("segment_dp was never launched by KS+")
+    return {"launches": launches, "wall_s": wall, "shapes": shapes}
+
+
+def card_vs_cpu(name: str, alloc_rtol: float, w_rtol: float,
+                max_int_moves: int) -> None:
+    """Phase 6: the port at SMALL_SCALE on the card and on the CPU."""
     import numpy as np
     import torch
-    rg, dg, _ = _replay(SMALL_SCALE, "cuda")
+    rg, dg, _, _ = _replay(SMALL_SCALE, "cuda", name)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)   # thousands of tiny ops: one thread is faster
     try:
-        rc, dc, _ = _replay(SMALL_SCALE, "cpu")
+        rc, dc, _, _ = _replay(SMALL_SCALE, "cpu", name)
     finally:
         torch.set_num_threads(threads)
     if len(dg) != len(dc):
-        _fail("card and CPU took different numbers of decisions")
+        _fail(f"{name}: card and CPU took different numbers of decisions")
     mism, worst = 0, 0.0
-    for a, b in zip(dg, dc):
-        if a.source != b.source:
-            _fail("card and CPU disagree on preset vs model")
+    for (a, ba), (b, bb) in zip(dg, dc):
+        if a.source != b.source or ba != bb:
+            _fail(f"{name}: card and CPU disagree on preset vs model or on "
+                  f"boundaries")
         if a.source == "model":
             if (a.offset_idx != b.offset_idx
                     or int(np.argmax(a.raq)) != int(np.argmax(b.raq))):
                 mism += 1
             worst = max(worst, abs(a.allocation_gb - b.allocation_gb)
                         / abs(b.allocation_gb))
-    wrel = abs(rg.wastage_gbh - rc.wastage_gbh) / abs(rc.wastage_gbh)
-    print(f"[parity] methylseq scale={SMALL_SCALE}: {len(dg)} decisions; "
-          f"integer mismatches {mism}; max alloc rel diff {worst:.3e} "
-          f"(tol {ALLOC_RTOL:g}); failures card={rg.n_failures} "
-          f"cpu={rc.n_failures}; wastage rel diff {wrel:.3e} "
-          f"(tol {WASTAGE_RTOL:g})")
-    if mism or rg.n_failures != rc.n_failures:
-        _fail("card and CPU disagree on an integer choice")
-    if worst > ALLOC_RTOL or wrel > WASTAGE_RTOL:
-        _fail("card and CPU disagree beyond the stated tolerance")
+    w = "temporal_wastage_gbh" if name == "sizey_temporal" else "wastage_gbh"
+    wrel = abs(getattr(rg, w) - getattr(rc, w)) / abs(getattr(rc, w))
+    print(f"[parity] {name} methylseq scale={SMALL_SCALE}: {len(dg)} "
+          f"decisions, boundaries equal; integer mismatches {mism} (tol "
+          f"{max_int_moves}); max alloc rel diff {worst:.3e} (tol "
+          f"{alloc_rtol:g}); failures card={rg.n_failures} "
+          f"cpu={rc.n_failures}; {w} rel diff {wrel:.3e} (tol {w_rtol:g})")
+    if mism > max_int_moves or rg.n_failures != rc.n_failures:
+        _fail(f"{name}: card and CPU disagree on integer choices")
+    if worst > alloc_rtol or wrel > w_rtol:
+        _fail(f"{name}: card and CPU disagree beyond the stated tolerance")
 
 
-# ----------------------------------------------------------- phase 6
+# ----------------------------------------------------------- phase 7
 def _time_ms(fn, reps: int = 60, inner: int = 10) -> float:
     """Median over ``reps`` CUDA-event windows of ``inner`` back-to-back
     calls, per call."""
@@ -372,7 +620,41 @@ def _k2_bound(q, t, d, n_valid):
                   q * n_valid * (3 * d + 1))
 
 
-def time_kernels(k1_ts=K1_TIMED, k2_qts=K2_TIMED) -> dict:
+def _k3_bound(m, g, k):
+    # the profiles read once and the k cuts written once; per (m, i, j > i)
+    # one running-max and one running-sum step and the cost's multiply,
+    # subtract and add, then k DP steps of (G+1)^2 adds and compares
+    return _bound(4 * m * g + 8 * k,
+                  5 * m * g * (g + 1) // 2 + 2 * k * (g + 1) ** 2)
+
+
+def time_segment_dp(ms, g: int = 32, k: int = 4) -> dict:
+    """K3 and its plain version at (M, G, k) for each M of ``ms``. No
+    single PyTorch call computes this function, so no library yardstick."""
+    import torch
+    from repro_torch.kernels.segment_dp.ops import fit_cuts
+    from repro_torch.kernels.segment_dp.ref import fit_cuts_plain
+    dev = torch.device("cuda")
+    rows = {}
+    for m in ms:
+        P = torch.from_numpy(k3_profiles("random", m, g, seed=m)).to(dev)
+        bound, by = _k3_bound(m, g, k)
+        r = {"ms": _time_ms(lambda: fit_cuts(P, k)),
+             # ~M + G eager launches a call: fewer windows
+             "plain_ms": _time_ms(lambda: fit_cuts_plain(P, k), reps=15,
+                                  inner=3),
+             "bound_ms": bound, "bound_by": by, "library_ms": None}
+        rows[m] = r
+        print(f"[time] segment_dp M={m} G={g} k={k}: kernel {r['ms']:.5f} "
+              f"ms, plain {r['plain_ms']:.5f} ms, library none, bound "
+              f"{r['bound_ms']:.3e} ms ({by})")
+    return rows
+
+
+def time_kernels(k1_ts=K1_TIMED, k2_qts=K2_TIMED, d: int = 1) -> dict:
+    """K1 at (1, T, d, 32) for each T of ``k1_ts`` and K2 at (Q, T, d),
+    k = 5, for each (Q, T) of ``k2_qts``, beside their plain versions and
+    library yardsticks."""
     import torch
     from repro_torch.kernels.ensemble_mlp.ops import ensemble_mlp_forward
     from repro_torch.kernels.ensemble_mlp.ref import ensemble_mlp_ref
@@ -381,25 +663,25 @@ def time_kernels(k1_ts=K1_TIMED, k2_qts=K2_TIMED) -> dict:
     dev = torch.device("cuda")
     rows = {}
     for t in k1_ts:
-        x, w1, b1, w2, b2 = _k1_inputs(1, t, 1, 32, 7, dev)
+        x, w1, b1, w2, b2 = _k1_inputs(1, t, d, 32, 7, dev)
 
         def library(x=x, w1=w1, b1=b1, w2=w2, b2=b2):
             hid = torch.baddbmm(b1[:, None, :], x, w1).tanh_()
             return torch.baddbmm(b2[:, None, :], hid, w2)
 
-        bound, by = _k1_bound(1, t, 1, 32)
+        bound, by = _k1_bound(1, t, d, 32)
         r = {"ms": _time_ms(lambda: ensemble_mlp_forward(x, w1, b1, w2, b2)),
              "plain_ms": _time_ms(lambda: ensemble_mlp_ref(x, w1, b1, w2,
                                                            b2)),
              "bound_ms": bound, "bound_by": by,
              "library_ms": _time_ms(library)}
         rows[("ensemble_mlp", t)] = r
-        print(f"[time] ensemble_mlp M=1 T={t} d=1 h=32: kernel "
+        print(f"[time] ensemble_mlp M=1 T={t} d={d} h=32: kernel "
               f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
               f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.3e} ms "
               f"({by})")
     for q, t in k2_qts:
-        qs, hist, ys, mask, scale = _k2_inputs(q, t, 1, 11, dev, False)
+        qs, hist, ys, mask, scale = _k2_inputs(q, t, d, 11, dev, False)
         n_valid = int((mask > 0).sum())
 
         def library(qs=qs, hist=hist, ys=ys, mask=mask, scale=scale):
@@ -408,7 +690,7 @@ def time_kernels(k1_ts=K1_TIMED, k2_qts=K2_TIMED) -> dict:
             _v, idx = torch.topk(d2, 5, largest=False)
             return ys[idx].mean(-1)
 
-        bound, by = _k2_bound(q, t, 1, n_valid)
+        bound, by = _k2_bound(q, t, d, n_valid)
         r = {"ms": _time_ms(lambda: knn_predict(qs, hist, ys, mask, scale,
                                                 5)),
              "plain_ms": _time_ms(lambda: knn_predict_ref(qs, hist, ys, mask,
@@ -416,7 +698,7 @@ def time_kernels(k1_ts=K1_TIMED, k2_qts=K2_TIMED) -> dict:
              "bound_ms": bound, "bound_by": by,
              "library_ms": _time_ms(library)}
         rows[("knn_predict", (q, t))] = r
-        print(f"[time] knn_predict Q={q} T={t} d=1 k=5: kernel "
+        print(f"[time] knn_predict Q={q} T={t} d={d} k=5: kernel "
               f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
               f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.3e} ms "
               f"({by})")
@@ -440,27 +722,56 @@ def main() -> int:
     t_start = time.perf_counter()
     build_kernels()
     errors = check_kernels()
+    errors["segment_dp"] = check_segment_dp()
     main = main_path()
-    # every shape the main path launched is held against the plain version
-    k1_seen = [s for s in main["shapes"]["ensemble_mlp"] if s not in K1_SHAPES]
-    k2_seen = [s for s in main["shapes"]["knn_predict"] if s not in K2_SHAPES]
+    temporal = temporal_path()
+    ks_plus = ks_plus_path()
+    # every shape the two paths launched is held against the plain version
+    seen = {k: set(main["shapes"][k]) | set(temporal["shapes"][k])
+            for k in ("ensemble_mlp", "knn_predict")}
+    k1_seen = sorted(s for s in seen["ensemble_mlp"] if s not in K1_SHAPES)
+    k2_seen = sorted(s for s in seen["knn_predict"] if s not in K2_SHAPES)
     if k1_seen or k2_seen:
         more = check_kernels(k1_seen, k2_seen, ks=(5,))
-        errors = {k: max(v, more[k]) for k, v in errors.items()}
-    card_vs_cpu()
-    # the JSON rows are timed at the shape the main path launched most
-    # (d = 1, h = 32 on this path: the timed inputs use those)
+        errors = {k: max(v, more.get(k, 0.0)) for k, v in errors.items()}
+    listed = {(m, g, k) for m in K3_MS for g in K3_GS
+              for k in (1, 2, 4, g)}
+    k3_seen = sorted((set(temporal["shapes"]["segment_dp"])
+                      | set(ks_plus["shapes"]["segment_dp"])) - listed)
+    if k3_seen:
+        errors["segment_dp"] = max(errors["segment_dp"],
+                                   check_segment_dp(k3_seen))
+    card_vs_cpu("sizey", ALLOC_RTOL, WASTAGE_RTOL, 0)
+    card_vs_cpu("sizey_temporal", T_ALLOC_RTOL, T_TW_RTOL, T_INT_MOVES)
+    # the JSON rows are timed at the shape its path launched most (d = 1,
+    # h = 32 on the peak path: the timed inputs use those)
     k1_row = main["shapes"]["ensemble_mlp"].most_common(1)[0][0]
     k2_row = main["shapes"]["knn_predict"].most_common(1)[0][0]
-    if k1_row[0] != 1 or k1_row[2:] != (1, 32) or k2_row[2] != 1:
-        _fail(f"main path launched unexpected shapes {k1_row}, {k2_row}")
+    k3_row = temporal["shapes"]["segment_dp"].most_common(1)[0][0]
+    if k1_row[0] != 1 or k1_row[2:] != (1, 32) or k2_row[2] != 1 \
+            or k3_row[1:] != (32, 4):
+        _fail(f"main path launched unexpected shapes {k1_row}, {k2_row}, "
+              f"{k3_row}")
     timings = time_kernels(
         sorted(set(K1_TIMED) | {k1_row[1]}),
         sorted(set(K2_TIMED) | {k2_row[:2]}))
+    k3_times = time_segment_dp(sorted(set(K3_TIMED) | {k3_row[0]}))
+    # the temporal path's most launched K1 and K2 shapes, at d = 2
+    t_k1 = temporal["shapes"]["ensemble_mlp"].most_common(2)
+    t_k2 = temporal["shapes"]["knn_predict"].most_common(2)
+    time_kernels(sorted({s[1] for s, _c in t_k1}),
+                 sorted({s[:2] for s, _c in t_k2}), d=2)
     k1 = timings[("ensemble_mlp", k1_row[1])]
     k2 = timings[("knn_predict", k2_row[:2])]
+    k3 = k3_times[k3_row[0]]
+    k3_by_m = {}
+    for (m, _g, _k), c in temporal["shapes"]["segment_dp"].items():
+        k3_by_m[m] = k3_by_m.get(m, 0) + c
+    print("[time] segment_dp launches on the temporal path at the timed M: "
+          + ", ".join(f"M={m}: {k3_by_m.get(m, 0)}" for m in k3_times))
     print(f"[time] JSON rows at the most launched shapes: ensemble_mlp "
-          f"(M,T,d,h)={k1_row}, knn_predict (Q,T,d)={k2_row}")
+          f"(M,T,d,h)={k1_row}, knn_predict (Q,T,d)={k2_row} (peak path), "
+          f"segment_dp (M,G,k)={k3_row} (temporal path)")
     kernels = [
         {"name": "ensemble_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/ensemble_mlp/kernel.cu",
@@ -472,6 +783,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/knn/kernel.py:40",
          "launches": main["launches"]["knn_predict"],
          "max_abs_err": errors["knn_predict"], **k2},
+        {"name": "segment_dp", "route": "cuda",
+         "source": "src/repro_torch/kernels/segment_dp/kernel.cu",
+         "replaces": "src/repro/kernels/segment_dp/kernel.py:45",
+         "launches": temporal["launches"]["segment_dp"],
+         "max_abs_err": errors["segment_dp"], **k3},
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(gpu)

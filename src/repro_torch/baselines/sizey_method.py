@@ -1,5 +1,12 @@
-"""Adapter exposing SizeyPredictor through the SizingMethod protocol: the
-peak-based path of the reference's ``repro.baselines.sizey_method``.
+"""Adapter exposing SizeyPredictor through the SizingMethod protocol (the
+reference's ``repro.baselines.sizey_method``).
+
+``temporal_k`` switches the method onto the temporal subsystem: the
+:class:`~repro_torch.core.temporal.predictor.TemporalSizeyPredictor`
+predicts a k-segment reservation plan per task (one dispatch per pool for a
+whole wave, segments stacked), ``plan_for`` hands the plan to the engines
+(which resize at segment boundaries), and completions feed the
+per-segment peaks back. ``temporal_k=1`` is the peak path, bitwise.
 
 ``failure_strategy`` picks the crash handling the engines apply to this
 method's attempts (``retry_same`` / ``retry_scaled`` / ``checkpoint``;
@@ -10,11 +17,10 @@ attempt is interrupted at least once. With no observed crash the fold is
 a no-op.
 
 Not ported yet, each raising ``NotImplementedError`` that names its slice
-(ROADMAP.md, Queue 1): ``temporal_k`` (the temporal slice), ``risk`` and
-``failure_strategy="auto"`` (the risk slice), ``quality=True`` (the
-telemetry part of the same slice). The journal's durability hooks
-(``export_state`` / ``export_pending`` and their inverses) come with the
-cluster engine and its journal.
+(ROADMAP.md, Queue 1): ``risk`` and ``failure_strategy="auto"`` (the risk
+slice), ``quality=True`` (the telemetry part of the same slice), and the
+journal's durability hooks (``export_state`` / ``export_pending`` and
+their inverses, the cluster-engine slice).
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ import math
 from repro_torch.core.config import SizeyConfig
 from repro_torch.core.predictor import SizeyPredictor, SizingDecision
 from repro_torch.core.provenance import ProvenanceDB
+from repro_torch.core.temporal.predictor import (TemporalDecision,
+                                                 TemporalSizeyPredictor)
 from repro_torch.workflow.accounting import (DEFAULT_CHECKPOINT_FRAC,
                                              FAILURE_STRATEGIES)
 from repro_torch.workflow.trace import TaskInstance
@@ -42,10 +50,6 @@ class SizeyMethod:
                  failure_strategy: str = "retry_same",
                  checkpoint_frac: float = DEFAULT_CHECKPOINT_FRAC,
                  quality: bool = False, risk=None, device=None):
-        if temporal_k is not None:
-            raise NotImplementedError(
-                "temporal_k: the temporal slice (time-segmented plans, "
-                "ROADMAP.md Queue 1 slice 2) is not ported yet")
         if risk:
             raise NotImplementedError(
                 "risk: the risk slice (ROADMAP.md Queue 1 slice 3) is not "
@@ -71,17 +75,25 @@ class SizeyMethod:
         self._exposure_h = 0.0
         self._runtime_sum_h = 0.0
         self._n_completed = 0
-        self.name = "sizey" if name is None else name
-        cfg = cfg or SizeyConfig()
-        db = ProvenanceDB(n_features=1, n_models=len(cfg.model_classes),
-                          persist_path=persist_path, device=device)
-        self.predictor = SizeyPredictor(
-            cfg, db, ttf=ttf, default_machine_cap_gb=machine_cap_gb,
-            fused=fused)
-        if persist_path and db.records:
-            self.predictor.warm_start()   # checkpoint restore
+        self.temporal = temporal_k is not None
+        self.name = name if name is not None else (
+            "sizey_temporal" if self.temporal and temporal_k > 1 else "sizey")
+        if self.temporal:
+            self.predictor = TemporalSizeyPredictor(
+                cfg, k_segments=temporal_k, ttf=ttf,
+                default_machine_cap_gb=machine_cap_gb, fused=fused,
+                persist_path=persist_path, device=device)
+        else:
+            cfg = cfg or SizeyConfig()
+            db = ProvenanceDB(n_features=1, n_models=len(cfg.model_classes),
+                              persist_path=persist_path, device=device)
+            self.predictor = SizeyPredictor(
+                cfg, db, ttf=ttf, default_machine_cap_gb=machine_cap_gb,
+                fused=fused)
+            if persist_path and db.records:
+                self.predictor.warm_start()   # checkpoint restore
         # decisions of in-flight tasks, keyed by task identity
-        self._pending: dict[int, SizingDecision] = {}
+        self._pending: dict[int, SizingDecision | TemporalDecision] = {}
 
     def _crash_aware_alloc(self, decision: SizingDecision) -> float:
         """Fold the observed crash rate into the offset choice (the
@@ -104,7 +116,10 @@ class SizeyMethod:
         self._exposure_h += elapsed_h
 
     def allocate(self, task: TaskInstance) -> float:
-        """Size one task's first attempt: predict -> crash-aware offset."""
+        """Size one task's first attempt: predict -> crash-aware offset
+        (a temporal method: the peak of the task's plan)."""
+        if self.temporal:
+            return self.allocate_batch([task])[0]
         decision = self.predictor.predict(
             task.task_type, task.machine, task.features, task.user_preset_gb,
             machine_cap_gb=task.machine_cap_gb)
@@ -116,7 +131,18 @@ class SizeyMethod:
         decisions = self.predictor.predict_batch(tasks)
         for task, decision in zip(tasks, decisions):
             self._pending[id(task)] = decision
+        if self.temporal:
+            # a plan is a whole-runtime schedule: the crash-aware offset
+            # fold applies to flat (peak) decisions only
+            return [d.allocation_gb for d in decisions]
         return [self._crash_aware_alloc(d) for d in decisions]
+
+    def plan_for(self, task: TaskInstance):
+        """Reservation plan for the allocation just returned (None for the
+        peak path: the engines then run the flat path)."""
+        if not self.temporal:
+            return None
+        return self._pending[id(task)].plan
 
     def retry(self, task: TaskInstance, attempt: int,
               last_alloc_gb: float) -> float:
@@ -135,19 +161,38 @@ class SizeyMethod:
         the pool and retrain."""
         decision = self._pending.pop(id(task))
         self._note_completion(task)
-        self.predictor.observe(decision, task.actual_peak_gb, task.runtime_h,
-                               attempts, task.workflow)
+        if self.temporal:
+            self.predictor.observe(decision, task, attempts)
+        else:
+            self.predictor.observe(decision, task.actual_peak_gb,
+                                   task.runtime_h, attempts, task.workflow)
 
     def complete_batch(self, items) -> None:
         """Observe a wave of simultaneous completions, one observe dispatch
         per pool (``items``: (task, first_alloc_gb, attempts) tuples)."""
         for task, _first, _attempts in items:
             self._note_completion(task)
-        self.predictor.observe_batch(
-            [(self._pending.pop(id(task)), task.actual_peak_gb,
-              task.runtime_h, attempts, task.workflow)
-             for task, _first, attempts in items])
+        if self.temporal:
+            self.predictor.observe_batch(
+                [(self._pending.pop(id(task)), task, attempts)
+                 for task, _first, attempts in items])
+        else:
+            self.predictor.observe_batch(
+                [(self._pending.pop(id(task)), task.actual_peak_gb,
+                  task.runtime_h, attempts, task.workflow)
+                 for task, _first, attempts in items])
 
     def abandon(self, task: TaskInstance) -> None:
         """Task aborted: drop its pending decision."""
         self._pending.pop(id(task), None)
+
+    # The cluster engine's journal persists the crash counters and the
+    # in-flight decisions (a "peak" or "temporal" blob) through these hooks;
+    # they come with the engine and its journal.
+    def _journal_not_ported(self, *_args):
+        raise NotImplementedError(
+            "the durability hooks come with the cluster engine and its "
+            "journal (ROADMAP.md Queue 1 slice 3, item 13)")
+
+    export_state = restore_state = _journal_not_ported
+    export_pending = restore_pending = _journal_not_ported

@@ -1,23 +1,45 @@
-"""Piecewise-constant memory-over-time math: usage curves and reservation
-plans (a copy of the numpy part of ``repro.core.temporal.segments``).
+"""Piecewise-constant memory-over-time math (KS+-style k-segment model),
+a copy of ``repro.core.temporal.segments`` with the boundary fit on the
+port's segment-DP kernel.
 
 A **usage curve** is the ground-truth memory consumption of one task
 execution, ``((end_frac, gb), ...)`` over normalized runtime, carried on
 ``TaskInstance.usage_curve``; an empty curve means "flat at the peak". A
 **reservation plan** (:class:`ReservationPlan`) is what an allocator
 reserves over the attempt; a plan with one segment is a constant peak
-reservation. The workflow accounting layer depends on both. The boundary
-fit (``fit_boundaries``) belongs to the temporal slice and is not here.
+reservation. The workflow accounting layer depends on both.
+
+Segment boundaries are fit by a change-point sweep
+(:func:`fit_boundaries`): usage profiles are sampled onto a fixed grid
+(:func:`grid_profile`), the over-reservation of covering grid columns
+[i, j) with one max-allocated segment is summed over the pool's profiles,
+and a k-step DP picks the boundaries minimising the total. On a CUDA
+device the whole fit is one launch of the segment-DP kernel
+(:mod:`repro_torch.kernels.segment_dp`); ``backend="numpy"`` runs the
+reference's numpy oracle, which the kernel reproduces bitwise.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
-__all__ = ["ReservationPlan", "curve_value_at", "curve_integral_frac"]
+from repro_torch.kernels.segment_dp.ops import fit_cuts
+from repro_torch.kernels.segment_dp.ref import fit_cuts_ref
+from repro_torch.utils.misc import resolve_device
+
+__all__ = ["ReservationPlan", "grid_profile", "fit_boundaries",
+           "segment_peaks", "uniform_boundaries", "curve_value_at",
+           "curve_integral_frac", "PROFILE_WINDOW"]
 
 _EPS = 1e-9
+
+# shared fit window for profile-driven boundary/segment fits (the temporal
+# predictor AND the KS+ baseline): bounds the change-point sweep at
+# O(WINDOW * G^2) per refit and the in-memory profile store, however long
+# the run — recent history is also what a drifting workload wants fit
+PROFILE_WINDOW = 512
 
 Curve = tuple  # ((end_frac, gb), ...) — piecewise-constant step function
 
@@ -146,3 +168,95 @@ class ReservationPlan:
         return ReservationPlan(tuple(
             (end, float(np.clip(gb, min_gb, cap_gb)))
             for end, gb in self.segments))
+
+
+def grid_profile(curve, n_grid: int, peak_gb: float | None = None
+                 ) -> np.ndarray:
+    """Sample a usage curve onto ``n_grid`` equal time cells, taking the
+    MAX of the curve over each cell (exact for piecewise-constant curves:
+    a cell's requirement is the largest step overlapping it). An empty
+    curve is flat at ``peak_gb``."""
+    out = np.zeros(n_grid, np.float64)
+    if not curve:
+        out[:] = 0.0 if peak_gb is None else float(peak_gb)
+        return out
+    prev = 0.0
+    for end, gb in curve:
+        g0 = int(np.floor(prev * n_grid + 1e-9))
+        g1 = int(np.ceil(float(end) * n_grid - 1e-9))
+        if g1 > g0:
+            out[g0:g1] = np.maximum(out[g0:g1], float(gb))
+        prev = float(end)
+    return out
+
+
+def uniform_boundaries(k: int) -> tuple[float, ...]:
+    """k equal-width segment end fractions — the no-history default."""
+    return tuple((i + 1) / k for i in range(k))
+
+
+def fit_boundaries(profiles: np.ndarray, k: int, *,
+                   backend: str | None = None,
+                   device=None) -> tuple[float, ...]:
+    """Change-point sweep: fit up to ``k`` segment end fractions to a
+    stack of grid-sampled usage profiles.
+
+    ``profiles`` is (M, G): M observed executions sampled on a G-cell grid
+    (see :func:`grid_profile`). The cost of covering grid columns [i, j)
+    with one segment is the over-reservation a max-allocated segment would
+    incur there, summed over all M profiles:
+
+        cost(i, j) = sum_m ( max_{g in [i,j)} P[m,g] * (j - i)
+                             - sum_{g in [i,j)} P[m,g] )
+
+    and a k-step dynamic program picks the boundary set minimizing the
+    total. Returns end fractions, the last being 1.0; ``k`` is clamped to
+    G, and ``k == 1`` returns ``(1.0,)`` without a fit. When the optimum
+    places two cuts on the same grid column, the coincident cut is
+    dropped — zero-width segments never reach a :class:`ReservationPlan`.
+
+    The fit runs on ``device`` (CUDA unless the caller asks for another),
+    through :func:`repro_torch.kernels.segment_dp.fit_cuts`: one upload of
+    the profiles and one copy of the k cut indices back. ``backend=
+    "numpy"`` runs the reference's numpy oracle instead; both return the
+    same cut indices on any input.
+    """
+    P = np.atleast_2d(np.asarray(profiles, np.float32))
+    m, g = P.shape
+    if m == 0 or g == 0:
+        return uniform_boundaries(max(k, 1))
+    k = int(max(1, min(k, g)))
+    if k == 1:
+        return (1.0,)
+    if backend == "numpy":
+        cuts = fit_cuts_ref(P, k)
+    elif backend is None:
+        dev = resolve_device(device)
+        cuts = fit_cuts(torch.from_numpy(P).to(dev), k).cpu().numpy()
+    else:
+        raise ValueError(f"unknown backend {backend!r} (None or 'numpy')")
+    out: list[float] = []
+    for c in cuts:
+        frac = float(c) / g
+        if not out or frac > out[-1] + _EPS:   # drop coincident cuts
+            out.append(frac)
+    return tuple(out)
+
+
+def segment_peaks(profile: np.ndarray, boundaries: tuple[float, ...]
+                  ) -> np.ndarray:
+    """Per-segment max of one grid profile under the given end fractions.
+
+    Exact when the boundaries lie on grid lines (which
+    :func:`fit_boundaries` guarantees): the segment peak is the max of the
+    cells it covers. Empty cell ranges (sub-cell segments) fall back to
+    the nearest cell.
+    """
+    g = profile.shape[0]
+    out = np.empty(len(boundaries), np.float64)
+    lo = 0
+    for i, end in enumerate(boundaries):
+        hi = min(g, max(lo + 1, int(np.ceil(end * g - 1e-9))))
+        out[i] = float(np.max(profile[lo:hi]))
+        lo = hi
+    return out

@@ -22,6 +22,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 SOURCES = {
     "ensemble_mlp": _PKG / "ensemble_mlp" / "kernel.cu",
     "knn": _PKG / "knn" / "kernel.cu",
+    "segment_dp": _PKG / "segment_dp" / "kernel.cu",
 }
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -40,6 +41,12 @@ SIGNATURES = {
         "knn_predict_f32": (_P,) * 6 + (_I,) * 4 + (_P,),
         # queries, hist, mask, out, Q, T, d, stream
         "pairwise_sq_dists_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
+    },
+    "segment_dp": {
+        # profiles, cost, back, cuts, M, G, k, stream
+        "segment_dp_fit_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
+        # profiles, cost, M, G, stream
+        "segment_cost_f32": (_P,) * 2 + (_I,) * 2 + (_P,),
     },
 }
 

@@ -82,3 +82,74 @@ def test_wrappers_refuse_non_contiguous_input(cuda):
                              torch.zeros((1, 8), device=cuda),
                              torch.zeros((1, 8, 1), device=cuda),
                              torch.zeros((1, 1), device=cuda))
+
+
+def _profiles(kind, m, g, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.uniform(0.0, 10.0, (m, g)).astype(np.float32)
+    if kind == "ties":
+        return rng.integers(0, 4, (m, g)).astype(np.float32)
+    if kind == "step":
+        cut = rng.integers(1, max(g, 2), m)
+        cols = np.arange(g)[None, :]
+        return np.where(cols < cut[:, None], rng.uniform(1, 2, (m, 1)),
+                        rng.uniform(3, 9, (m, 1))).astype(np.float32)
+    if kind == "constant":
+        return np.full((m, g), 2.5, np.float32)
+    return np.zeros((m, g), np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ties", "step", "constant",
+                                  "zero"])
+@pytest.mark.parametrize("m,g", [(1, 32), (3, 4), (5, 33), (64, 32),
+                                 (128, 32), (512, 32)])
+def test_segment_dp_kernel_equals_plain_bitwise(cuda, kind, m, g):
+    from repro_torch.kernels.segment_dp.ops import fit_cuts, segment_cost
+    from repro_torch.kernels.segment_dp.ref import (cost_matrix_plain,
+                                                    cost_matrix_ref,
+                                                    fit_cuts_plain,
+                                                    fit_cuts_ref)
+    P = _profiles(kind, m, g, m + g)
+    tP = torch.from_numpy(P).to(cuda)
+    before = KERNEL_LAUNCHES["segment_dp"]
+    for k in sorted({1, 2, 4, g}):
+        got = fit_cuts(tP, k)
+        assert torch.equal(got, fit_cuts_plain(tP, k))
+        np.testing.assert_array_equal(got.cpu().numpy(), fit_cuts_ref(P, k))
+    assert KERNEL_LAUNCHES["segment_dp"] == before + len({1, 2, 4, g})
+    cost = segment_cost(tP)
+    assert torch.equal(cost, cost_matrix_plain(tP))
+    np.testing.assert_array_equal(cost.cpu().numpy(), cost_matrix_ref(P))
+
+
+@pytest.mark.cuda
+def test_temporal_replay_on_the_card_launches_one_fit_per_boundary_fit(
+        cuda):
+    """sizey_temporal at methylseq scale 0.05 on the card: one segment-DP
+    launch per boundary fit, and the boundaries of the CPU replay."""
+    from repro_torch.baselines import make_method
+    from repro_torch.core.temporal.predictor import BOUNDARY_COUNTS
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.workflow import generate_workflow, simulate
+    bounds = {}
+    for dev in ("cuda", "cpu"):
+        method = make_method("sizey_temporal", device=dev)
+        seen = bounds.setdefault(dev, [])
+        pb = method.predictor.predict_batch
+        method.predictor.predict_batch = lambda ts, pb=pb, seen=seen: [
+            seen.append(d.boundaries) or d for d in pb(ts)]
+        BOUNDARY_COUNTS.clear()
+        reset_launch_counts()
+        res = simulate(generate_workflow("methylseq", scale=0.05), method)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert KERNEL_LAUNCHES["segment_dp"] == BOUNDARY_COUNTS["fit"] \
+                == 17
+            assert KERNEL_LAUNCHES["ensemble_mlp"] > 0
+            assert KERNEL_LAUNCHES["knn_predict"] > 0
+        else:
+            assert KERNEL_LAUNCHES["segment_dp"] == 0
+        assert len(res.outcomes) == 44
+    assert bounds["cuda"] == bounds["cpu"]

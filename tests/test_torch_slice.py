@@ -145,10 +145,19 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_options_of_later_slices_say_so():
-    for kw in ({"temporal_k": 2}, {"risk": True},
-               {"failure_strategy": "auto"}, {"quality": True}):
+    for kw in ({"risk": True}, {"failure_strategy": "auto"},
+               {"quality": True}):
         with pytest.raises(NotImplementedError, match="slice"):
             SizeyMethod(device="cpu", **kw)
+    # the journal's hooks come with the cluster engine, for either path
+    for m in (SizeyMethod(device="cpu"),
+              SizeyMethod(device="cpu", temporal_k=4)):
+        task = generate_workflow("methylseq", scale=0.05).tasks[0]
+        for hook, args in ((m.export_state, ()), (m.restore_state, ({},)),
+                           (m.export_pending, (task,)),
+                           (m.restore_pending, (task, {}))):
+            with pytest.raises(NotImplementedError, match="slice"):
+                hook(*args)
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

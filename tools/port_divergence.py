@@ -11,7 +11,10 @@ counts in both packages, and the reference's losses under 1-ulp moves of
 its initial weights.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/port_divergence.py \
-        [--workflow methylseq] [--scale 0.1]
+        [--workflow methylseq] [--scale 0.1] [--method sizey]
+
+``--method sizey_temporal`` follows the temporal path: one decision per
+segment, the MLP fit on the pool's (features, segment centre) rows.
 
 Its output at methylseq scale 0.1 is quoted in ROADMAP.md (Queue 3) and
 PERF.md.
@@ -25,37 +28,51 @@ import numpy as np
 MLP = 2   # index of the MLP in the default pool ("linear", "knn", "mlp", "forest")
 
 
-def replay(port: bool, workflow: str, scale: float):
-    """Replay recording, in order, each decision and each pool refit
-    (the buffers and the seed the refit was given)."""
+def replay(port: bool, workflow: str, scale: float, method_name: str):
+    """Replay recording, in order, each decision and each pool's full
+    refit (the buffers and the seed the refit was given)."""
     if port:
         import torch
 
-        from repro_torch.baselines import SizeyMethod
+        from repro_torch.baselines import make_method
         from repro_torch.workflow import generate_workflow, simulate
         torch.set_num_threads(1)
-        method = SizeyMethod(device="cpu")
+        method = make_method(method_name, device="cpu")
     else:
-        from repro.baselines import SizeyMethod
+        from repro.baselines import make_method
         from repro.workflow import generate_workflow, simulate
-        method = SizeyMethod()
-    pred = method.predictor
+        method = make_method(method_name)
+    temporal = method_name == "sizey_temporal"
+    pred = method.predictor.predictor if temporal else method.predictor
     events = []
-    refit, predict = pred._maybe_refit, pred.predict
+    refit = pred._refit_fused
 
-    def recording_refit(key, pool, seed):
+    def recording_refit(key, pool, seed, mask=None):
         events.append(("fit", key[0], np.array(pool.xs), np.array(pool.ys),
-                       np.array(pool.mask), seed))
-        return refit(key, pool, seed)
-
-    def recording_predict(*a, **k):
-        d = predict(*a, **k)
-        events.append(("decision", d))
-        return d
+                       np.array(pool.mask if mask is None else mask), seed))
+        return refit(key, pool, seed, mask)
 
     if not port:
-        pred._maybe_refit = recording_refit
-    pred.predict = recording_predict
+        pred._refit_fused = recording_refit
+    if temporal:
+        predict_batch = method.predictor.predict_batch
+
+        def recording_batch(tasks):
+            out = predict_batch(tasks)
+            for d in out:
+                events.extend(("decision", s) for s in d.seg_decisions)
+            return out
+
+        method.predictor.predict_batch = recording_batch
+    else:
+        predict = pred.predict
+
+        def recording_predict(*a, **k):
+            d = predict(*a, **k)
+            events.append(("decision", d))
+            return d
+
+        pred.predict = recording_predict
     res = simulate(generate_workflow(workflow, scale=scale), method)
     return res, events
 
@@ -113,11 +130,13 @@ def main() -> None:
     ap.add_argument("--scale", type=float, default=0.1)
     ap.add_argument("--rtol", type=float, default=1e-2)
     ap.add_argument("--show", type=int, default=10)
+    ap.add_argument("--method", default="sizey",
+                    choices=("sizey", "sizey_temporal"))
     args = ap.parse_args()
     import jax.numpy as jnp
 
-    rj, ej = replay(False, args.workflow, args.scale)
-    rt, et = replay(True, args.workflow, args.scale)
+    rj, ej = replay(False, args.workflow, args.scale, args.method)
+    rt, et = replay(True, args.workflow, args.scale, args.method)
     print(f"{args.workflow} scale={args.scale}: failures reference "
           f"{rj.n_failures}, port {rt.n_failures}; wastage_gbh reference "
           f"{rj.wastage_gbh!r}, port {rt.wastage_gbh!r}")
@@ -159,7 +178,7 @@ def main() -> None:
     live = mask > 0
     print(f"first MLP divergence: decision {first_mlp}, pool {pool} with "
           f"{int(live.sum())} rows, fit seed {seed}; xs "
-          f"{xs[live].ravel().tolist()} ys {ys[live].tolist()}")
+          f"{xs[live].tolist()} ys {ys[live].tolist()}")
     ref, port = mlp_losses(xs, ys, mask, seed, None)
     print(f"final loss per lr {[0.03, 0.01, 0.003]}: reference {ref}, "
           f"port {port}")

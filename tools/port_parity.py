@@ -1,0 +1,86 @@
+"""The paper's comparison through both packages: the port against the JAX
+reference, method by method, on every workflow.
+
+Replays the six workflows at one scale through the methods of
+``benchmarks/run.py`` (``METHODS``) plus ``sizey_temporal`` and
+``ks_plus``, once through the reference (``repro``) and once through the
+port (``repro_torch``) on the CPU, and prints per (workflow, method) both
+packages' wastage (``wastage_gbh``; ``temporal_wastage_gbh`` too where
+they differ) and failures, and the deltas. The numpy baselines and KS+
+must be identical, and the script exits 1 if one is not; Sizey's deltas
+are reported as they come (its MLP's Adam rounds differently in the port,
+see tools/port_tolerance.py).
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/port_parity.py \
+        [--scale 0.05] [--workflows methylseq,...]
+"""
+from __future__ import annotations
+
+import argparse
+import pathlib
+import sys
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+# the methods whose replays must be identical: numpy, or numpy apart from
+# the bitwise boundary fit
+EXACT = ("witt_wastage", "witt_lr", "tovar_ppm", "witt_percentile",
+         "workflow_presets", "ks_plus")
+ON_DEVICE = ("sizey", "sizey_temporal", "ks_plus")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scale", type=float, default=0.05)
+    ap.add_argument("--workflows", default=None,
+                    help="comma-separated subset of the six workflows")
+    args = ap.parse_args()
+    import torch
+
+    from benchmarks.run import METHODS
+    from repro.baselines import make_method as j_make
+    from repro.workflow import WORKFLOWS
+    from repro.workflow import generate_workflow as j_generate
+    from repro.workflow import simulate as j_simulate
+    from repro_torch.baselines import make_method
+    from repro_torch.workflow import generate_workflow, simulate
+    torch.set_num_threads(1)   # thousands of tiny ops: one thread wins
+    workflows = (args.workflows.split(",") if args.workflows
+                 else sorted(WORKFLOWS))
+    methods = tuple(METHODS) + ("sizey_temporal", "ks_plus")
+    print(f"{'workflow':<10} {'method':<17} {'ref GBh':>14} {'port GBh':>14} "
+          f"{'rel delta':>10} {'ref tw GBh':>14} {'port tw GBh':>14} "
+          f"{'tw delta':>10} {'fail ref/port':>14}")
+    bad = []
+    for wf in workflows:
+        for name in methods:
+            rj = j_simulate(j_generate(wf, scale=args.scale), j_make(name))
+            kw = {"device": "cpu"} if name in ON_DEVICE else {}
+            rt = simulate(generate_workflow(wf, scale=args.scale),
+                          make_method(name, **kw))
+            dw = (rt.wastage_gbh - rj.wastage_gbh) / rj.wastage_gbh
+            dtw = (rt.temporal_wastage_gbh - rj.temporal_wastage_gbh) \
+                / rj.temporal_wastage_gbh
+            same = (rt.wastage_gbh == rj.wastage_gbh
+                    and rt.temporal_wastage_gbh == rj.temporal_wastage_gbh
+                    and rt.n_failures == rj.n_failures
+                    and [o.first_alloc_gb for o in rt.outcomes]
+                    == [o.first_alloc_gb for o in rj.outcomes])
+            if name in EXACT and not same:
+                bad.append((wf, name))
+            print(f"{wf:<10} {name:<17} {rj.wastage_gbh:14.6f} "
+                  f"{rt.wastage_gbh:14.6f} {dw:10.3e} "
+                  f"{rj.temporal_wastage_gbh:14.6f} "
+                  f"{rt.temporal_wastage_gbh:14.6f} {dtw:10.3e} "
+                  f"{rj.n_failures:>6}/{rt.n_failures:<6}"
+                  f"{'  identical' if same else ''}", flush=True)
+    if bad:
+        print(f"not identical: {bad}")
+        return 1
+    print(f"every numpy baseline and KS+ identical on {len(workflows)} "
+          f"workflows at scale {args.scale}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

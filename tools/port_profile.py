@@ -1,8 +1,10 @@
 """Where the port's serial Sizey replay spends its time on the GPU.
 
-    python3 tools/port_profile.py [--scale 0.1] [--window 40:45]
+    python3 tools/port_profile.py [--scale 0.1] [--window 40:45] \
+        [--method sizey|sizey_temporal]
 
-Replays ``methylseq`` through ``SizeyMethod(device="cuda")``, timing
+Replays ``methylseq`` through ``make_method(method, device="cuda")``,
+timing
 every predict (``allocate``) and every observe (``complete``) on the host
 clock, each ending in a device synchronisation, and the wall time of a
 window of completed tasks (``--window a:b``). It then replays the same
@@ -10,8 +12,9 @@ trace again, which takes the same decisions, and traces that window with
 ``torch.profiler``: it prints the device-busy time, its share of the
 traced and of the untraced window's wall time (the profiler slows the
 host, not the kernels), the number of kernel launches and the kernels
-that take most device time. Prints the card's name and power limit
-first. Needs a CUDA device.
+that take most device time, with each of the port's kernels' launches
+and share. Prints the card's name and power limit first. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -29,11 +32,13 @@ def main() -> None:
     ap.add_argument("--scale", type=float, default=0.1)
     ap.add_argument("--window", default="40:45",
                     help="completed-task range traced by the profiler")
+    ap.add_argument("--method", default="sizey",
+                    choices=("sizey", "sizey_temporal"))
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.baselines import SizeyMethod
+    from repro_torch.baselines import make_method
     from repro_torch.kernels import _build
     from repro_torch.workflow import generate_workflow, simulate
 
@@ -47,7 +52,7 @@ def main() -> None:
     trace = generate_workflow("methylseq", scale=args.scale)
 
     def replay(traced: bool):
-        method = SizeyMethod(device="cuda")
+        method = make_method(args.method, device="cuda")
         walls = {"predict": 0.0, "observe": 0.0}
         state = {"done": 0, "prof": None, "t0": 0.0, "wall": 0.0}
         allocate, complete = method.allocate, method.complete
@@ -86,7 +91,8 @@ def main() -> None:
               f"{walls['predict']:.3f} s, observe {walls['observe']:.3f} s, "
               f"rest {total - walls['predict'] - walls['observe']:.3f} s; "
               f"window {lo}..{hi} wall {state['wall'] * 1e3:.3f} ms; "
-              f"wastage_gbh {res.wastage_gbh!r}")
+              f"wastage_gbh {res.wastage_gbh!r}, temporal_wastage_gbh "
+              f"{res.temporal_wastage_gbh!r}")
         return state
 
     plain_wall_us = replay(traced=False)["wall"] * 1e6
@@ -117,7 +123,8 @@ def main() -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:7d}x  "
               f"{e.key[:90]}")
-    for name in ("ensemble_mlp_kernel", "knn_predict_kernel"):
+    for name in ("ensemble_mlp_kernel", "knn_predict_kernel",
+                 "segment_dp_kernel"):
         hit = [e for e in events if name in e.key]
         t = sum(e.self_device_time_total for e in hit)
         c = sum(e.count for e in hit)

@@ -1,6 +1,6 @@
 """Measure the spread that sets the port's end-to-end tolerance.
 
-The MLP of Sizey's pool trains 3 learning rates x 300 full-batch Adam
+The MLP of each Sizey pool trains 3 learning rates x 300 full-batch Adam
 steps on every observe, and Adam turns rounding differences into visible
 weight differences; on small pools the learning-rate choice itself can
 flip on rounding noise. The port cannot match the reference bit for bit
@@ -14,49 +14,135 @@ count first, and the range the perturbed replays span last. With
 ``--port`` it also replays the port (``repro_torch``) on the CPU and
 prints the same comparison of the port against the unperturbed reference.
 
+``--method sizey_temporal`` replays the temporal path instead (one
+decision per segment; the comparison also counts decisions whose
+boundaries moved) and prints, for the unperturbed reference, how many
+boundary fits it ran and on how many of them its jitted fit
+(``repro.kernels.segment_dp.ops.fit_cuts``) departs from its numpy oracle
+(``ref.fit_cuts_ref``), which the port's kernel reproduces.
+
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/port_tolerance.py \
-        [--workflow methylseq] [--scale 0.05] [--port]
+        [--workflow methylseq] [--scale 0.05] [--method sizey] [--port]
 
 The figures it printed on a CPU are quoted beside the assertions of
-tests/test_torch_slice.py (scale 0.05) and chip_smoke.py (scales 0.05
-and 1.0).
+tests/test_torch_slice.py and tests/test_torch_temporal.py (scale 0.05)
+and chip_smoke.py (scales 0.05 and 1.0).
 """
 from __future__ import annotations
 
 import argparse
+import functools
 
 import numpy as np
 
 
-def replay(workflow: str, scale: float, port: bool = False):
+def replay(workflow: str, scale: float, method_name: str = "sizey",
+           port: bool = False):
+    """One replay: its result, its decisions (one per segment on the
+    temporal path) and each decision's boundaries."""
     if port:
         import torch
 
-        from repro_torch.baselines import SizeyMethod
+        from repro_torch.baselines import make_method
         from repro_torch.workflow import generate_workflow, simulate
         torch.set_num_threads(1)   # thousands of tiny ops: one thread wins
-        method = SizeyMethod(device="cpu")
+        method = make_method(method_name, device="cpu")
     else:
-        from repro.baselines import SizeyMethod
+        from repro.baselines import make_method
         from repro.workflow import generate_workflow, simulate
-        method = SizeyMethod()
-    decisions = []
-    predict = method.predictor.predict
+        method = make_method(method_name)
+    decisions, bounds = [], []
+    if method_name == "sizey_temporal":
+        predict_batch = method.predictor.predict_batch
 
-    def recording(*a, **k):
-        d = predict(*a, **k)
-        decisions.append(d)
-        return d
+        def recording(tasks):
+            out = predict_batch(tasks)
+            for d in out:
+                decisions.extend(d.seg_decisions)
+                bounds.extend([d.boundaries] * len(d.seg_decisions))
+            return out
 
-    method.predictor.predict = recording
+        method.predictor.predict_batch = recording
+    else:
+        predict = method.predictor.predict
+
+        def recording(*a, **k):
+            d = predict(*a, **k)
+            decisions.append(d)
+            bounds.append((1.0,))
+            return d
+
+        method.predictor.predict = recording
     res = simulate(generate_workflow(workflow, scale=scale), method)
-    return res, decisions
+    return res, decisions, bounds
+
+
+def moved_init(init, sample: int, key, d, h):
+    """The reference's MLP init with its weights moved by one ulp: sample
+    0..3 move all of W1 up, W1 down, W2 up, W2 down; a later sample moves a
+    random half of W1's and W2's elements (seeded by the sample), each up
+    or down."""
+    import jax
+    import jax.numpy as jnp
+    w1, b1, w2, b2 = init(key, d, h)
+    if sample < 4:
+        direction = jnp.inf if sample % 2 == 0 else -jnp.inf
+        if sample < 2:
+            return jnp.nextafter(w1, direction), b1, w2, b2
+        return w1, b1, jnp.nextafter(w2, direction), b2
+    keys = jax.random.split(jax.random.PRNGKey(1000 + sample), 4)
+
+    def move(w, k_pick, k_dir):
+        pick = jax.random.bernoulli(k_pick, 0.5, w.shape)
+        up = jax.random.bernoulli(k_dir, 0.5, w.shape)
+        return jnp.where(pick, jnp.nextafter(
+            w, jnp.where(up, jnp.inf, -jnp.inf)), w)
+
+    return move(w1, keys[0], keys[1]), b1, move(w2, keys[2], keys[3]), b2
+
+
+def move_label(sample: int) -> str:
+    if sample < 4:
+        return f"{'w1' if sample < 2 else 'w2'} " \
+               f"{'+' if sample % 2 == 0 else '-'}1 ulp"
+    return f"random half +-1 ulp, sample {sample}"
+
+
+def reference_fit_departures(workflow: str, scale: float):
+    """Replay the reference's temporal path recording every boundary fit;
+    return the number of fits and of those where its jitted fit departs
+    from its numpy oracle."""
+    import repro.core.temporal.predictor as tp
+    from repro.kernels.segment_dp.ops import fit_cuts
+    from repro.kernels.segment_dp.ref import fit_cuts_ref
+    fits = []
+    fit = tp.fit_boundaries
+
+    def recording(P, k, **kw):
+        fits.append((np.asarray(P, np.float32), int(min(k, P.shape[1]))))
+        return fit(P, k, **kw)
+
+    tp.fit_boundaries = recording
+    try:
+        replay(workflow, scale, "sizey_temporal")
+    finally:
+        tp.fit_boundaries = fit
+    departs = sum(not np.array_equal(fit_cuts(P, k), fit_cuts_ref(P, k))
+                  for P, k in fits)
+    return len(fits), departs
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workflow", default="methylseq")
     ap.add_argument("--scale", type=float, default=0.05)
+    ap.add_argument("--method", default="sizey",
+                    choices=("sizey", "sizey_temporal"))
+    ap.add_argument("--samples", type=int, default=4,
+                    help="number of 1-ulp moves of the MLP init (the first "
+                         "four move all of W1 or W2 up or down; the rest "
+                         "move a seeded random half of their elements, "
+                         "each up or down)")
     ap.add_argument("--port", action="store_true",
                     help="also replay the port on the CPU against the "
                          "reference")
@@ -67,62 +153,70 @@ def main() -> None:
     import repro.core.models.mlp as mlp
     import repro.core.predictor as predictor
 
-    base, d0 = replay(args.workflow, args.scale)
-    print(f"reference {args.workflow} scale={args.scale}: "
+    base, d0, b0 = replay(args.workflow, args.scale, args.method)
+    print(f"reference {args.method} {args.workflow} scale={args.scale}: "
           f"{len(base.outcomes)} tasks, wastage_gbh={base.wastage_gbh!r}, "
+          f"temporal_wastage_gbh={base.temporal_wastage_gbh!r}, "
           f"n_failures={base.n_failures}")
+    if args.method == "sizey_temporal":
+        n, departs = reference_fit_departures(args.workflow, args.scale)
+        print(f"reference boundary fits: {n}; its jitted fit departs from "
+              f"its numpy oracle on {departs}")
     init = mlp._init_params
     worst_alloc = worst_waste = 0.0
-    wastes, fails = [base.wastage_gbh], [base.n_failures]
-    for which in ("w1", "w2"):
-        for direction in (jnp.inf, -jnp.inf):
-            def bumped(key, d, h, which=which, direction=direction):
-                w1, b1, w2, b2 = init(key, d, h)
-                if which == "w1":
-                    w1 = jnp.nextafter(w1, direction)
-                else:
-                    w2 = jnp.nextafter(w2, direction)
-                return w1, b1, w2, b2
-
-            mlp._init_params = bumped
-            for fn in (predictor._fused_observe_all,
-                       predictor._fused_predict,
-                       predictor._fused_refresh_all):
-                fn.cache_clear()
-            res, d1 = replay(args.workflow, args.scale)
-            alloc, waste = compare(
-                f"{which} {'+' if direction > 0 else '-'}1 ulp",
-                base, d0, res, d1)
-            worst_alloc = max(worst_alloc, alloc)
-            worst_waste = max(worst_waste, waste)
-            wastes.append(res.wastage_gbh)
-            fails.append(res.n_failures)
+    # the temporal path is judged on the time-integrated wastage
+    metric = ("temporal_wastage_gbh" if args.method == "sizey_temporal"
+              else "wastage_gbh")
+    wastes, fails, moved = [getattr(base, metric)], [base.n_failures], []
+    for sample in range(args.samples):
+        mlp._init_params = functools.partial(moved_init, init, sample)
+        for fn in (predictor._fused_observe_all,
+                   predictor._fused_predict,
+                   predictor._fused_refresh_all):
+            fn.cache_clear()
+        res, d1, b1 = replay(args.workflow, args.scale, args.method)
+        alloc, waste, ints = compare(move_label(sample), base, d0, b0, res,
+                                     d1, b1, metric)
+        worst_alloc = max(worst_alloc, alloc)
+        worst_waste = max(worst_waste, waste)
+        wastes.append(getattr(res, metric))
+        fails.append(res.n_failures)
+        moved.append(ints)
     mlp._init_params = init
-    print(f"spread: allocation rel {worst_alloc:.3e}, "
-          f"wastage rel {worst_waste:.3e}; wastage_gbh "
-          f"{min(wastes)!r}..{max(wastes)!r}, n_failures "
-          f"{min(fails)}..{max(fails)}")
+    if moved:
+        print(f"spread over {args.samples} moves: allocation rel "
+              f"{worst_alloc:.3e}, wastage rel {worst_waste:.3e}; {metric} "
+              f"{min(wastes)!r}..{max(wastes)!r}, n_failures "
+              f"{min(fails)}..{max(fails)}, integer choices moved "
+              f"{min(moved)}..{max(moved)}")
     if args.port:
-        res, d1 = replay(args.workflow, args.scale, port=True)
-        compare("port on the CPU", base, d0, res, d1)
+        res, d1, b1 = replay(args.workflow, args.scale, args.method,
+                             port=True)
+        compare("port on the CPU", base, d0, b0, res, d1, b1, metric)
 
 
-def compare(label: str, base, d0, res, d1):
-    """Print how far a replay moved from the unperturbed reference."""
+def compare(label: str, base, d0, b0, res, d1, b1, metric: str):
+    """Print how far a replay moved from the unperturbed reference in
+    allocations, the wastage ``metric``, integer choices, boundaries and
+    failures."""
     if len(d0) != len(d1):
         # a moved failure changes the retries, and with them the decisions
         print(f"{label}: {len(d1)} decisions against {len(d0)}; compared "
               f"pairwise up to the shorter")
     alloc = max(abs(a.allocation_gb - b.allocation_gb) / a.allocation_gb
                 for a, b in zip(d0, d1) if a.source == "model")
-    waste = abs(base.wastage_gbh - res.wastage_gbh) / base.wastage_gbh
-    ints = sum(a.offset_idx != b.offset_idx
-               or np.argmax(a.raq) != np.argmax(b.raq)
-               for a, b in zip(d0, d1) if a.source == "model")
+    waste = abs(getattr(base, metric) - getattr(res, metric)) \
+        / getattr(base, metric)
+    ints = sum(a.source != b.source or (
+        a.source == "model" and (a.offset_idx != b.offset_idx
+                                 or np.argmax(a.raq) != np.argmax(b.raq)))
+        for a, b in zip(d0, d1))
+    moved = sum(x != y for x, y in zip(b0, b1))
     print(f"{label}: max alloc rel {alloc:.3e}, wastage rel {waste:.3e} "
-          f"(wastage_gbh {res.wastage_gbh!r}), integer choices moved "
-          f"{ints}, failures {base.n_failures} -> {res.n_failures}")
-    return alloc, waste
+          f"({metric} {getattr(res, metric)!r}), integer "
+          f"choices moved {ints}, boundaries moved {moved}, failures "
+          f"{base.n_failures} -> {res.n_failures}")
+    return alloc, waste, ints
 
 
 if __name__ == "__main__":
