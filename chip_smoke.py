@@ -88,16 +88,18 @@ REF_FITS = 926
 # the reference's totals exactly (the same replay of the JAX package)
 REF_KSP_TW_GBH = 15197.024585115007
 REF_KSP_FAILURES = 537
-# phase 6, the temporal path card vs CPU at SMALL_SCALE: twice the
-# reference's own spread there (tools/port_tolerance.py --method
-# sizey_temporal --samples 16: allocations 1.615e-1, time-integrated
-# wastage 2.991e-4, no boundary or failure moved). Its 1-ulp moves change
-# up to 4 integer choices (offset index or best model) at this scale, so
-# the card may differ from the CPU in as many; boundaries and failures
-# must be equal.
-T_ALLOC_RTOL = 3.3e-1
+# phase 6, the temporal path card vs CPU at SMALL_SCALE: boundaries, every
+# integer choice and failures equal, and allocations and time-integrated
+# wastage within twice the reference's own spread there
+# (tools/port_tolerance.py --method sizey_temporal --samples 16 --apart
+# methylation_extract: allocations 1.255e-3 outside that pool and 1.615e-1
+# in it, time-integrated wastage 2.991e-4). The 3-task pool
+# methylation_extract is held to twice its own spread: a 1-ulp move there
+# flips the HPO learning rate and its MLP then extrapolates to five times
+# its largest input (tests/test_torch_temporal.py)
+T_ALLOC_RTOL = 2.6e-3
+T_APART = {"methylation_extract": 3.3e-1}
 T_TW_RTOL = 6e-4
-T_INT_MOVES = 4
 
 # (M, T, d, h) and (Q, T, d). The main path gives K1 (1, K, 1, 32) on a
 # predict of K tasks and (1, CAP, 1, 32) on an observe or refresh, and K2
@@ -245,7 +247,8 @@ def check_kernels(k1_shapes=K1_SHAPES, k2_shapes=K2_SHAPES,
 # ----------------------------------------------------------- phase 3, K3
 def k3_profiles(kind: str, m: int, g: int, seed: int):
     """(m, g) float32 profiles of one kind, made with numpy from ``seed``
-    (the maker of tests/test_torch_segment_dp.py)."""
+    (tests/test_torch_segment_dp.py and tests/test_torch_cuda.py use this
+    maker, its kinds and its grid too)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     if kind == "random":
@@ -538,8 +541,10 @@ def ks_plus_path() -> dict:
 
 
 def card_vs_cpu(name: str, alloc_rtol: float, w_rtol: float,
-                max_int_moves: int) -> None:
-    """Phase 6: the port at SMALL_SCALE on the card and on the CPU."""
+                apart: dict | None = None) -> None:
+    """Phase 6: the port at SMALL_SCALE on the card and on the CPU, with
+    every integer choice equal; ``apart`` maps a pool (task type) to its
+    own allocation tolerance."""
     import numpy as np
     import torch
     rg, dg, _, _ = _replay(SMALL_SCALE, "cuda", name)
@@ -551,7 +556,8 @@ def card_vs_cpu(name: str, alloc_rtol: float, w_rtol: float,
         torch.set_num_threads(threads)
     if len(dg) != len(dc):
         _fail(f"{name}: card and CPU took different numbers of decisions")
-    mism, worst = 0, 0.0
+    apart = apart or {}
+    mism, worst = 0, {}
     for (a, ba), (b, bb) in zip(dg, dc):
         if a.source != b.source or ba != bb:
             _fail(f"{name}: card and CPU disagree on preset vs model or on "
@@ -560,18 +566,22 @@ def card_vs_cpu(name: str, alloc_rtol: float, w_rtol: float,
             if (a.offset_idx != b.offset_idx
                     or int(np.argmax(a.raq)) != int(np.argmax(b.raq))):
                 mism += 1
-            worst = max(worst, abs(a.allocation_gb - b.allocation_gb)
-                        / abs(b.allocation_gb))
+            pool = a.task_type if a.task_type in apart else None
+            worst[pool] = max(worst.get(pool, 0.0), abs(
+                a.allocation_gb - b.allocation_gb) / abs(b.allocation_gb))
     w = "temporal_wastage_gbh" if name == "sizey_temporal" else "wastage_gbh"
     wrel = abs(getattr(rg, w) - getattr(rc, w)) / abs(getattr(rc, w))
+    tols = {None: alloc_rtol, **apart}
+    allocs = "; ".join(
+        f"max alloc rel diff{'' if p is None else ' in ' + p} "
+        f"{worst.get(p, 0.0):.3e} (tol {t:g})" for p, t in tols.items())
     print(f"[parity] {name} methylseq scale={SMALL_SCALE}: {len(dg)} "
-          f"decisions, boundaries equal; integer mismatches {mism} (tol "
-          f"{max_int_moves}); max alloc rel diff {worst:.3e} (tol "
-          f"{alloc_rtol:g}); failures card={rg.n_failures} "
-          f"cpu={rc.n_failures}; {w} rel diff {wrel:.3e} (tol {w_rtol:g})")
-    if mism > max_int_moves or rg.n_failures != rc.n_failures:
+          f"decisions, boundaries equal; integer mismatches {mism} (tol 0); "
+          f"{allocs}; failures card={rg.n_failures} cpu={rc.n_failures}; "
+          f"{w} rel diff {wrel:.3e} (tol {w_rtol:g})")
+    if mism or rg.n_failures != rc.n_failures:
         _fail(f"{name}: card and CPU disagree on integer choices")
-    if worst > alloc_rtol or wrel > w_rtol:
+    if any(worst.get(p, 0.0) > t for p, t in tols.items()) or wrel > w_rtol:
         _fail(f"{name}: card and CPU disagree beyond the stated tolerance")
 
 
@@ -623,32 +633,62 @@ def _k2_bound(q, t, d, n_valid):
 def _k3_bound(m, g, k):
     # the profiles read once and the k cuts written once; per (m, i, j > i)
     # one running-max and one running-sum step and the cost's multiply,
-    # subtract and add, then k DP steps of (G+1)^2 adds and compares
-    return _bound(4 * m * g + 8 * k,
-                  5 * m * g * (g + 1) // 2 + 2 * k * (g + 1) ** 2)
+    # subtract and add. The DP needs only the finite candidates: step 1 is
+    # row 0 of the cost (no operation); step s in 2..k-1 has, for each
+    # j >= s, the j - s + 1 candidates i in [s-1, j) (an add each and one
+    # compare fewer), (G-s+1)^2 operations in all; step k needs only j = G
+    dp = sum((g - s + 1) ** 2 for s in range(2, k)) \
+        + (2 * (g - k + 1) - 1 if k >= 2 else 0)
+    return _bound(4 * m * g + 8 * k, 5 * m * g * (g + 1) // 2 + dp)
 
 
-def time_segment_dp(ms, g: int = 32, k: int = 4) -> dict:
-    """K3 and its plain version at (M, G, k) for each M of ``ms``. No
-    single PyTorch call computes this function, so no library yardstick."""
+def time_segment_dp(ms, g: int = 32, k: int = 4, quick: bool = False
+                    ) -> dict:
+    """K3 and its plain version at (M, G, k) for each M of ``ms``; with
+    ``quick``, fewer windows and no line printed per M. No single PyTorch
+    call computes this function, so no library yardstick."""
     import torch
     from repro_torch.kernels.segment_dp.ops import fit_cuts
     from repro_torch.kernels.segment_dp.ref import fit_cuts_plain
     dev = torch.device("cuda")
+    # ~M + G eager launches a plain call: fewer windows for it
+    reps, plain_reps = ((10, 5), (3, 2)) if quick else ((60, 10), (15, 3))
     rows = {}
     for m in ms:
         P = torch.from_numpy(k3_profiles("random", m, g, seed=m)).to(dev)
         bound, by = _k3_bound(m, g, k)
-        r = {"ms": _time_ms(lambda: fit_cuts(P, k)),
-             # ~M + G eager launches a call: fewer windows
-             "plain_ms": _time_ms(lambda: fit_cuts_plain(P, k), reps=15,
-                                  inner=3),
+        r = {"ms": _time_ms(lambda: fit_cuts(P, k), *reps),
+             "plain_ms": _time_ms(lambda: fit_cuts_plain(P, k), *plain_reps),
              "bound_ms": bound, "bound_by": by, "library_ms": None}
         rows[m] = r
-        print(f"[time] segment_dp M={m} G={g} k={k}: kernel {r['ms']:.5f} "
-              f"ms, plain {r['plain_ms']:.5f} ms, library none, bound "
-              f"{r['bound_ms']:.3e} ms ({by})")
+        if not quick:
+            print(f"[time] segment_dp M={m} G={g} k={k}: kernel "
+                  f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
+                  f"none, bound {r['bound_ms']:.3e} ms ({by})")
     return rows
+
+
+def segment_dp_row(launched) -> dict:
+    """K3's JSON row: the kernel's, the plain version's and the bound's
+    time at every (M, 32, 4) the temporal path launched, averaged with the
+    launches at each as weights, so that it stands for one fit of that
+    path (the launches are spread flat over M = 3 to 129)."""
+    from collections import Counter
+    times = time_segment_dp(sorted({m for m, _g, _k in launched}),
+                            quick=True)
+    n = sum(launched.values())
+    row = {key: sum(c * times[m][key] for (m, _g, _k), c in launched.items())
+           / n for key in ("ms", "plain_ms", "bound_ms")}
+    by = Counter()
+    for (m, _g, _k), c in launched.items():
+        by[times[m]["bound_by"]] += c
+    row.update(bound_by=by.most_common(1)[0][0], library_ms=None)
+    print(f"[time] segment_dp JSON row, the launch-weighted mean over the "
+          f"{len(times)} shapes (M, 32, 4) of the temporal path's {n} "
+          f"launches: kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f}"
+          f" ms, library none, bound {row['bound_ms']:.3e} ms "
+          f"({row['bound_by']})")
+    return row
 
 
 def time_kernels(k1_ts=K1_TIMED, k2_qts=K2_TIMED, d: int = 1) -> dict:
@@ -741,21 +781,22 @@ def main() -> int:
     if k3_seen:
         errors["segment_dp"] = max(errors["segment_dp"],
                                    check_segment_dp(k3_seen))
-    card_vs_cpu("sizey", ALLOC_RTOL, WASTAGE_RTOL, 0)
-    card_vs_cpu("sizey_temporal", T_ALLOC_RTOL, T_TW_RTOL, T_INT_MOVES)
-    # the JSON rows are timed at the shape its path launched most (d = 1,
-    # h = 32 on the peak path: the timed inputs use those)
+    card_vs_cpu("sizey", ALLOC_RTOL, WASTAGE_RTOL)
+    card_vs_cpu("sizey_temporal", T_ALLOC_RTOL, T_TW_RTOL, T_APART)
+    # the K1 and K2 JSON rows are timed at the shape the peak path launched
+    # most (d = 1, h = 32: the timed inputs use those); K3's is the
+    # launch-weighted mean over the temporal path's shapes
     k1_row = main["shapes"]["ensemble_mlp"].most_common(1)[0][0]
     k2_row = main["shapes"]["knn_predict"].most_common(1)[0][0]
-    k3_row = temporal["shapes"]["segment_dp"].most_common(1)[0][0]
+    k3_launched = temporal["shapes"]["segment_dp"]
     if k1_row[0] != 1 or k1_row[2:] != (1, 32) or k2_row[2] != 1 \
-            or k3_row[1:] != (32, 4):
+            or any(s[1:] != (32, 4) for s in k3_launched):
         _fail(f"main path launched unexpected shapes {k1_row}, {k2_row}, "
-              f"{k3_row}")
+              f"{sorted(k3_launched)}")
     timings = time_kernels(
         sorted(set(K1_TIMED) | {k1_row[1]}),
         sorted(set(K2_TIMED) | {k2_row[:2]}))
-    k3_times = time_segment_dp(sorted(set(K3_TIMED) | {k3_row[0]}))
+    k3_times = time_segment_dp(K3_TIMED)
     # the temporal path's most launched K1 and K2 shapes, at d = 2
     t_k1 = temporal["shapes"]["ensemble_mlp"].most_common(2)
     t_k2 = temporal["shapes"]["knn_predict"].most_common(2)
@@ -763,15 +804,15 @@ def main() -> int:
                  sorted({s[:2] for s, _c in t_k2}), d=2)
     k1 = timings[("ensemble_mlp", k1_row[1])]
     k2 = timings[("knn_predict", k2_row[:2])]
-    k3 = k3_times[k3_row[0]]
+    k3 = segment_dp_row(k3_launched)
     k3_by_m = {}
     for (m, _g, _k), c in temporal["shapes"]["segment_dp"].items():
         k3_by_m[m] = k3_by_m.get(m, 0) + c
     print("[time] segment_dp launches on the temporal path at the timed M: "
           + ", ".join(f"M={m}: {k3_by_m.get(m, 0)}" for m in k3_times))
     print(f"[time] JSON rows at the most launched shapes: ensemble_mlp "
-          f"(M,T,d,h)={k1_row}, knn_predict (Q,T,d)={k2_row} (peak path), "
-          f"segment_dp (M,G,k)={k3_row} (temporal path)")
+          f"(M,T,d,h)={k1_row}, knn_predict (Q,T,d)={k2_row} (peak path); "
+          f"segment_dp at the temporal path's launch-weighted mean")
     kernels = [
         {"name": "ensemble_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/ensemble_mlp/kernel.cu",

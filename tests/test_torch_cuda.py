@@ -2,10 +2,17 @@
 card. Every test here needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode); on the GPU run ``pytest -m cuda
 tests/test_torch_cuda.py``. Imports nothing of JAX."""
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+# the segment-DP profiles, kinds and grid of chip_smoke.py
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+from chip_smoke import K3_GS, K3_KINDS, K3_MS, k3_profiles  # noqa: E402
 
 from repro_torch.kernels import KERNEL_LAUNCHES  # noqa: E402
 from repro_torch.kernels.ensemble_mlp.ops import ensemble_mlp_forward  # noqa: E402
@@ -84,34 +91,19 @@ def test_wrappers_refuse_non_contiguous_input(cuda):
                              torch.zeros((1, 1), device=cuda))
 
 
-def _profiles(kind, m, g, seed):
-    rng = np.random.default_rng(seed)
-    if kind == "random":
-        return rng.uniform(0.0, 10.0, (m, g)).astype(np.float32)
-    if kind == "ties":
-        return rng.integers(0, 4, (m, g)).astype(np.float32)
-    if kind == "step":
-        cut = rng.integers(1, max(g, 2), m)
-        cols = np.arange(g)[None, :]
-        return np.where(cols < cut[:, None], rng.uniform(1, 2, (m, 1)),
-                        rng.uniform(3, 9, (m, 1))).astype(np.float32)
-    if kind == "constant":
-        return np.full((m, g), 2.5, np.float32)
-    return np.zeros((m, g), np.float32)
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "ties", "step", "constant",
-                                  "zero"])
-@pytest.mark.parametrize("m,g", [(1, 32), (3, 4), (5, 33), (64, 32),
-                                 (128, 32), (512, 32)])
+@pytest.mark.parametrize("kind", K3_KINDS)
+@pytest.mark.parametrize("g", K3_GS)
+@pytest.mark.parametrize("m", K3_MS)
 def test_segment_dp_kernel_equals_plain_bitwise(cuda, kind, m, g):
+    """chip_smoke.py's phase 3 for one (M, G) and profile kind: its
+    profiles, seeds and grid."""
     from repro_torch.kernels.segment_dp.ops import fit_cuts, segment_cost
     from repro_torch.kernels.segment_dp.ref import (cost_matrix_plain,
                                                     cost_matrix_ref,
                                                     fit_cuts_plain,
                                                     fit_cuts_ref)
-    P = _profiles(kind, m, g, m + g)
+    P = k3_profiles(kind, m, g, seed=m * 100 + g)
     tP = torch.from_numpy(P).to(cuda)
     before = KERNEL_LAUNCHES["segment_dp"]
     for k in sorted({1, 2, 4, g}):

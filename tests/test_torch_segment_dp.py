@@ -11,6 +11,9 @@ around it) against the reference, on the CPU.
     shown to be that contraction;
   * ``fit_boundaries`` and the segment helpers equal the reference's.
 """
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 
@@ -27,31 +30,14 @@ from repro_torch.kernels import KERNEL_LAUNCHES  # noqa: E402
 from repro_torch.kernels.segment_dp import ops as tops  # noqa: E402
 from repro_torch.kernels.segment_dp import ref as tref  # noqa: E402
 
-# the shapes chip_smoke.py holds the kernel to: the main path's G = 32 and
-# k = 4, M from a young pool to PROFILE_WINDOW = 512, and edges of G
-KINDS = ("random", "ties", "step", "constant", "zero")
-MS = (1, 3, 5, 64, 128, 512)
-GS = (4, 32, 33)
-
-
-def profiles(kind: str, m: int, g: int, seed: int) -> np.ndarray:
-    """(m, g) float32 profiles of one kind, made with numpy from ``seed``
-    (the same maker as chip_smoke.py's)."""
-    rng = np.random.default_rng(seed)
-    if kind == "random":
-        return rng.uniform(0.0, 10.0, (m, g)).astype(np.float32)
-    if kind == "ties":          # small integers: many equal costs
-        return rng.integers(0, 4, (m, g)).astype(np.float32)
-    if kind == "step":          # one change point per profile
-        cut = rng.integers(1, max(g, 2), m)
-        lo = rng.uniform(1.0, 2.0, m)
-        hi = rng.uniform(3.0, 9.0, m)
-        cols = np.arange(g)[None, :]
-        return np.where(cols < cut[:, None], lo[:, None],
-                        hi[:, None]).astype(np.float32)
-    if kind == "constant":
-        return np.full((m, g), 2.5, np.float32)
-    return np.zeros((m, g), np.float32)
+# the maker, the profile kinds and the shapes chip_smoke.py holds the
+# kernel to: the main path's G = 32 and k = 4, M from a young pool to
+# PROFILE_WINDOW = 512, and edges of G
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+from chip_smoke import K3_GS as GS  # noqa: E402
+from chip_smoke import K3_KINDS as KINDS  # noqa: E402
+from chip_smoke import K3_MS as MS  # noqa: E402
+from chip_smoke import k3_profiles as profiles  # noqa: E402
 
 
 def contracted_cost(P: np.ndarray) -> np.ndarray:

@@ -39,16 +39,19 @@ from repro_torch.workflow import generate_workflow, simulate  # noqa: E402
 from repro_torch.workflow.trace import TaskInstance  # noqa: E402
 
 # The reference's own spread on this replay (tools/port_tolerance.py
-# --method sizey_temporal --samples 16, methylseq scale 0.05, on a CPU):
-# 16 one-ulp moves of the MLP's initial weights moved an allocation by up
-# to 1.615e-1 and the time-integrated wastage by up to 2.991e-4, and no
-# boundary or failure. The large figure is one move that flips the HPO
-# learning rate of the 3-task pool methylation_extract (its lr-0.03 loss
+# --method sizey_temporal --samples 16 --apart methylation_extract,
+# methylseq scale 0.05, on a CPU): 16 one-ulp moves of the MLP's initial
+# weights moved an allocation by up to 1.255e-3 outside the pool
+# methylation_extract and 1.615e-1 in it, the time-integrated wastage by
+# up to 2.991e-4, and no boundary or failure. The large figure is one move
+# that flips the HPO learning rate of that 3-task pool (its lr-0.03 loss
 # after 300 Adam steps lands on either side of the lr-0.01 loss), whose
 # MLP then extrapolates to an input five times its largest; the port
 # lands on the same side as that move (tools/port_divergence.py --method
-# sizey_temporal). The port is held to twice the spread.
-ALLOC_RTOL = 3.3e-1
+# sizey_temporal). The port is held to twice the spread, that pool to
+# twice its own.
+ALLOC_RTOL = 2.6e-3
+APART = {"methylation_extract": 3.3e-1}
 TW_RTOL = 6e-4
 
 
@@ -88,8 +91,9 @@ def test_temporal_replay_matches_reference():
                 n_model += 1
                 assert x.offset_idx == y.offset_idx
                 assert int(np.argmax(x.raq)) == int(np.argmax(y.raq))
-            np.testing.assert_allclose(y.allocation_gb, x.allocation_gb,
-                                       rtol=ALLOC_RTOL)
+            np.testing.assert_allclose(
+                y.allocation_gb, x.allocation_gb,
+                rtol=APART.get(x.task_type, ALLOC_RTOL))
     assert n_model > 20
     np.testing.assert_allclose(rt.temporal_wastage_gbh,
                                rj.temporal_wastage_gbh, rtol=TW_RTOL)

@@ -21,8 +21,14 @@ boundary fits it ran and on how many of them its jitted fit
 (``repro.kernels.segment_dp.ops.fit_cuts``) departs from its numpy oracle
 (``ref.fit_cuts_ref``), which the port's kernel reproduces.
 
+``--apart POOL`` reports the allocation spread of one pool (task type)
+on its own and that of every other pool beside it, so that one pool
+whose learning-rate choice flips on rounding noise sets a tolerance for
+itself alone.
+
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/port_tolerance.py \
-        [--workflow methylseq] [--scale 0.05] [--method sizey] [--port]
+        [--workflow methylseq] [--scale 0.05] [--method sizey] \
+        [--apart POOL] [--port]
 
 The figures it printed on a CPU are quoted beside the assertions of
 tests/test_torch_slice.py and tests/test_torch_temporal.py (scale 0.05)
@@ -143,6 +149,9 @@ def main() -> None:
                          "four move all of W1 or W2 up or down; the rest "
                          "move a seeded random half of their elements, "
                          "each up or down)")
+    ap.add_argument("--apart", default=None, metavar="POOL",
+                    help="report this task type's allocation spread apart "
+                         "from that of the other pools")
     ap.add_argument("--port", action="store_true",
                     help="also replay the port on the CPU against the "
                          "reference")
@@ -163,7 +172,7 @@ def main() -> None:
         print(f"reference boundary fits: {n}; its jitted fit departs from "
               f"its numpy oracle on {departs}")
     init = mlp._init_params
-    worst_alloc = worst_waste = 0.0
+    worst_alloc = worst_apart = worst_waste = 0.0
     # the temporal path is judged on the time-integrated wastage
     metric = ("temporal_wastage_gbh" if args.method == "sizey_temporal"
               else "wastage_gbh")
@@ -175,36 +184,46 @@ def main() -> None:
                    predictor._fused_refresh_all):
             fn.cache_clear()
         res, d1, b1 = replay(args.workflow, args.scale, args.method)
-        alloc, waste, ints = compare(move_label(sample), base, d0, b0, res,
-                                     d1, b1, metric)
+        alloc, apart, waste, ints = compare(move_label(sample), base, d0,
+                                            b0, res, d1, b1, metric,
+                                            args.apart)
         worst_alloc = max(worst_alloc, alloc)
+        worst_apart = max(worst_apart, apart)
         worst_waste = max(worst_waste, waste)
         wastes.append(getattr(res, metric))
         fails.append(res.n_failures)
         moved.append(ints)
     mlp._init_params = init
     if moved:
+        pools = ("" if args.apart is None else
+                 f" outside {args.apart} ({args.apart}: {worst_apart:.3e})")
         print(f"spread over {args.samples} moves: allocation rel "
-              f"{worst_alloc:.3e}, wastage rel {worst_waste:.3e}; {metric} "
+              f"{worst_alloc:.3e}{pools}, wastage rel {worst_waste:.3e}; "
+              f"{metric} "
               f"{min(wastes)!r}..{max(wastes)!r}, n_failures "
               f"{min(fails)}..{max(fails)}, integer choices moved "
               f"{min(moved)}..{max(moved)}")
     if args.port:
         res, d1, b1 = replay(args.workflow, args.scale, args.method,
                              port=True)
-        compare("port on the CPU", base, d0, b0, res, d1, b1, metric)
+        compare("port on the CPU", base, d0, b0, res, d1, b1, metric,
+                args.apart)
 
 
-def compare(label: str, base, d0, b0, res, d1, b1, metric: str):
+def compare(label: str, base, d0, b0, res, d1, b1, metric: str,
+            apart: str | None = None):
     """Print how far a replay moved from the unperturbed reference in
-    allocations, the wastage ``metric``, integer choices, boundaries and
-    failures."""
+    allocations (those of the pool ``apart`` on their own), the wastage
+    ``metric``, integer choices, boundaries and failures."""
     if len(d0) != len(d1):
         # a moved failure changes the retries, and with them the decisions
         print(f"{label}: {len(d1)} decisions against {len(d0)}; compared "
               f"pairwise up to the shorter")
-    alloc = max(abs(a.allocation_gb - b.allocation_gb) / a.allocation_gb
-                for a, b in zip(d0, d1) if a.source == "model")
+    rel = [(a.task_type == apart,
+            abs(a.allocation_gb - b.allocation_gb) / a.allocation_gb)
+           for a, b in zip(d0, d1) if a.source == "model"]
+    alloc = max((r for inside, r in rel if not inside), default=0.0)
+    alloc_apart = max((r for inside, r in rel if inside), default=0.0)
     waste = abs(getattr(base, metric) - getattr(res, metric)) \
         / getattr(base, metric)
     ints = sum(a.source != b.source or (
@@ -212,11 +231,14 @@ def compare(label: str, base, d0, b0, res, d1, b1, metric: str):
                                  or np.argmax(a.raq) != np.argmax(b.raq)))
         for a, b in zip(d0, d1))
     moved = sum(x != y for x, y in zip(b0, b1))
-    print(f"{label}: max alloc rel {alloc:.3e}, wastage rel {waste:.3e} "
+    pool = "" if apart is None else \
+        f" outside {apart} ({apart}: {alloc_apart:.3e})"
+    print(f"{label}: max alloc rel {alloc:.3e}{pool}, wastage rel "
+          f"{waste:.3e} "
           f"({metric} {getattr(res, metric)!r}), integer "
           f"choices moved {ints}, boundaries moved {moved}, failures "
           f"{base.n_failures} -> {res.n_failures}")
-    return alloc, waste, ints
+    return alloc, alloc_apart, waste, ints
 
 
 if __name__ == "__main__":
