@@ -25,7 +25,24 @@ Phases (any failure exits non-zero, without the final result line):
   6. replay a small scale of both Sizey paths on the card and on the CPU
      through the port and compare the decisions;
   7. time each kernel, its plain version and a one-call library yardstick
-     with CUDA events, beside the least time the card could take.
+     with CUDA events, beside the least time the card could take;
+  8. hold K4 flash_attention, K5 flash_decode and K6 ssd_scan against their
+     plain versions on the card at the reference's test shapes, fp32 and
+     bf16;
+  9. serve zamba2-7b at full width (bf16, random weights from a seed) on the
+     card through ``ServeEngine`` with ``KVCacheSizer``: 32 requests in 4
+     batches of 8, prompts of 256..2048 tokens, 32 new tokens each at
+     temperature 0.8, counters zeroed just before: K4 and K6 must launch
+     once per attention and Mamba2 layer per batch, K5 once per attention
+     layer per decode step, K1 and K2 from the sizer; every logit finite and
+     each batch's cache bytes the reference layout's; then K4-K6 are
+     checked as in 8 at every shape the run launched;
+ 10. feed the same tokens to the kernel path and the plain path at full
+     width in bf16 (prefill and 8 decode steps) and compare the logits;
+ 11. serve zamba2-7b at full width cut to 6 layer positions in fp32 on the
+     card and on the CPU: equal greedy tokens, logits within a tolerance;
+ 12. time K4-K6 at their most launched full-width shapes beside their plain
+     versions, PyTorch's scaled_dot_product_attention (K4, K5) and bounds.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``. Imports
@@ -745,6 +762,638 @@ def time_kernels(k1_ts=K1_TIMED, k2_qts=K2_TIMED, d: int = 1) -> dict:
     return rows
 
 
+# ----------------------------------------------------------- phases 8-12
+# The LM serving slice: zamba2-7b at full width through the port's
+# ServeEngine and KVCacheSizer, with K4 flash_attention, K5 flash_decode and
+# K6 ssd_scan. H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet).
+BF16_FLOPS_PER_S = 989e12
+LM_SEED = 0
+SERVE_ARCH = "zamba2-7b"
+SERVE_REQUESTS = 32
+SERVE_BATCH = 8
+SERVE_NEW = 32
+SERVE_TEMPERATURE = 0.8
+SERVE_MAX_SEQ = 4096
+# prompt lengths: the multiples of 128 in 256..2048 (the SSD's chunk of 128
+# must divide a batch's longest prompt, as in the reference)
+SERVE_LENS = tuple(range(256, 2049, 128))
+# K4, K5 and K6 at the shapes of tests/test_kernels.py: (B, S, H, Hkv, D),
+# (B, S_max, H, Hkv, D, pos) and (B, H, S, P, N, Q); the serve phase adds
+# every shape it launched
+K4_SHAPES = [(2, 256, 8, 8, 64), (2, 256, 8, 2, 64), (1, 384, 4, 1, 128),
+             (1, 128, 4, 4, 112), (2, 200, 4, 2, 64)]
+K5_SHAPES = [(2, 1024, 8, 8, 64, 700), (2, 1024, 8, 2, 64, 1023),
+             (1, 500, 4, 1, 112, 250), (2, 256, 4, 4, 128, 0)]
+K6_SHAPES = [(2, 4, 128, 32, 16, 64), (1, 2, 200, 16, 8, 64),
+             (2, 3, 256, 64, 128, 128), (1, 7, 128, 64, 64, 128)]
+# the reference's tolerances (tests/test_kernels.py): K4 and K5 elementwise
+# |kernel - plain| <= tol * (1 + |plain|), K6 relative to the largest |y|
+# and |state|. K6 in fp32 is held to 1e-5 of the plain version and of the
+# plain version computed in fp64, not to the reference's 2e-6: a chunked
+# scan in fp32 carries the rounding of the within-chunk cumulative decay
+# (|cum| reaches ~60, so exp(cum_q - cum_t) carries ~60 ulp) and of the
+# state over the chunks, and two fp32 evaluations differ by up to twice
+# their own distance from fp64, which reached 3.590e-6 on the card at the
+# serve shapes (PERF.md; ROADMAP Queue 3)
+LM_TOL = {"flash_attention": (2e-5, 2e-2), "flash_decode": (2e-5, 3e-2),
+          "ssd_scan": (1e-5, 3e-2)}
+# teacher-forced kernel path vs plain path at full width in bf16: the
+# largest logit difference over the largest logit, at most 5.478e-2 in the
+# first chip run (bf16 rounding at other places, compounded over 81 layer
+# positions of random weights), held to 0.1; the card vs the CPU in fp32
+# at 6 layer positions: at most 3.019e-6 there, held to 1e-5 (PERF.md)
+TF_BATCH, TF_LEN, TF_STEPS = 8, 1024, 8
+TF_RTOL = 0.1
+CVC_LAYERS, CVC_BATCH, CVC_LEN, CVC_NEW = 6, 2, 256, 8
+CVC_RTOL = 1e-5
+DEV = "cuda"
+
+
+def serve_config():
+    from repro_torch.configs import get_config
+    return get_config(SERVE_ARCH)
+
+
+def cvc_config():
+    """zamba2-7b at full width cut to CVC_LAYERS positions, compute fp32."""
+    import dataclasses
+    return dataclasses.replace(serve_config().with_layers(CVC_LAYERS),
+                               compute_dtype="float32")
+
+
+def _gen_inputs(seed, dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype=None, scale=1.0):
+        t = torch.randn(shape, generator=g, device=dev) * scale
+        return t if dtype is None else t.to(dtype)
+    return randn
+
+
+def lm_kernel_inputs(kind, shape, dtype, seed, dev):
+    """Seeded inputs of K4 (q, k, v), K5 (q, k_cache, v_cache, pos) or K6
+    (x, dt, B, C, a) at ``shape`` (tests/test_torch_cuda.py uses these
+    too)."""
+    import torch
+    randn = _gen_inputs(seed, dev)
+    if kind == "flash_attention":
+        b, s, h, hkv, d = shape
+        return (randn(b, s, h, d, dtype=dtype), randn(b, s, hkv, d, dtype=dtype),
+                randn(b, s, hkv, d, dtype=dtype))
+    if kind == "flash_decode":
+        b, smax, h, hkv, d, pos = shape
+        return (randn(b, 1, h, d, dtype=dtype),
+                randn(b, smax, hkv, d, dtype=dtype),
+                randn(b, smax, hkv, d, dtype=dtype),
+                torch.tensor(pos, dtype=torch.int32, device=dev))
+    b, h, s, p, n, _q = shape
+    dt = torch.nn.functional.softplus(randn(b, s, h) - 1.0)
+    a = -torch.exp(torch.linspace(-1.0, 0.5, h, device=dev))
+    return (randn(b, s, h, p, dtype=dtype), dt,
+            randn(b, s, n, dtype=dtype, scale=0.5),
+            randn(b, s, n, dtype=dtype, scale=0.5), a)
+
+
+def check_lm_kernels(k4_shapes, k5_shapes, k6_shapes, label="check") -> dict:
+    """K4, K5 and K6 against their plain versions on the card, in fp32 and
+    bf16 (K4 causal and not). Returns the largest absolute difference per
+    kernel."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_plain
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
+    dev = torch.device(DEV)
+    err = {"flash_attention": 0.0, "flash_decode": 0.0, "ssd_scan": 0.0}
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def close(name, got, want, dtype, what):
+        tol = LM_TOL[name][dtype == bf16]
+        diff = (got.float() - want.float()).abs()
+        e = float(diff.max())
+        ok = bool((diff <= tol * (1 + want.float().abs())).all())
+        print(f"[{label}] {name} {what} {str(dtype)[6:]}: max abs err "
+              f"{e:.3e} (tol {tol:g} x (1+|plain|)) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"{name} disagrees with its plain version at {what}")
+        err[name] = max(err[name], e)
+
+    for i, shape in enumerate(k4_shapes):
+        for dtype in (f32, bf16):
+            q, k, v = lm_kernel_inputs("flash_attention", shape, dtype, i, dev)
+            for causal in (True, False):
+                got = flash_attention(q, k, v, causal=causal)
+                want = flash_attention_plain(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                close("flash_attention", got, want, dtype,
+                      f"(B,S,H,Hkv,D)={shape} causal={causal}")
+            del q, k, v, got, want
+    for i, shape in enumerate(k5_shapes):
+        for dtype in (f32, bf16):
+            q, kc, vc, pos = lm_kernel_inputs("flash_decode", shape, dtype,
+                                              100 + i, dev)
+            got = flash_decode(q, kc, vc, pos)
+            want = flash_decode_plain(q, kc, vc, pos)
+            torch.cuda.synchronize()
+            close("flash_decode", got, want, dtype,
+                  f"(B,S_max,H,Hkv,D,pos)={shape}")
+            del q, kc, vc
+    for i, shape in enumerate(k6_shapes):
+        for dtype in (f32, bf16):
+            x, dt, bm, cm, a = lm_kernel_inputs("ssd_scan", shape, dtype,
+                                                200 + i, dev)
+            qc = shape[5]
+            y, st = ssd_scan(x, dt, bm, cm, a, q_chunk=qc)
+            wy, wst = ssd_scan_plain(x, dt, bm, cm, a, q_chunk=qc)
+            torch.cuda.synchronize()
+            tol = LM_TOL["ssd_scan"][dtype == bf16]
+            ry = float((y - wy).abs().max() / wy.abs().max())
+            rs = float((st - wst).abs().max() / wst.abs().max())
+            extra, r64 = "", 0.0
+            if dtype == f32:
+                ty, ts = ssd_scan_plain(x, dt, bm, cm, a, q_chunk=qc,
+                                        dtype=torch.float64)
+                ry64 = float((y - ty).abs().max() / ty.abs().max())
+                rs64 = float((st - ts).abs().max() / ts.abs().max())
+                r64 = max(ry64, rs64)
+                extra = (f"; from the fp64 plain version y {ry64:.3e} "
+                         f"state {rs64:.3e}")
+                del ty, ts
+            ok = max(ry, rs, r64) <= tol
+            print(f"[{label}] ssd_scan (B,H,S,P,N,Q)={shape} "
+                  f"{str(dtype)[6:]}: y rel err {ry:.3e}, final state rel "
+                  f"err {rs:.3e}{extra} (tol {tol:g} of the largest) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"ssd_scan disagrees with its plain version at {shape}")
+            err["ssd_scan"] = max(err["ssd_scan"],
+                                  float((y - wy).abs().max()),
+                                  float((st - wst).abs().max()))
+            del x, dt, bm, cm, y, st, wy, wst
+    torch.cuda.empty_cache()
+    return err
+
+
+def reference_kv_bytes(cfg, batch: int, max_seq: int) -> int:
+    """Bytes of the reference's decode cache (``repro/models/model.py::
+    init_cache``) for ``cfg``: pos (int32), K and V per attention layer, and
+    per SSM layer the fp32 state and the convolution tail."""
+    cd = 2 if cfg.compute_dtype == "bfloat16" else 4
+    kv = 2 * cfg.n_attn_layers() * batch * max_seq * cfg.n_kv * cfg.head_dim
+    state = cfg.n_ssm_layers() * batch * cfg.ssm_heads * cfg.ssm_head_dim \
+        * cfg.ssm_state
+    conv = cfg.n_ssm_layers() * batch * (cfg.ssm_conv - 1) \
+        * (cfg.d_inner + 2 * cfg.ssm_state)
+    return 4 + cd * kv + 4 * state + cd * conv
+
+
+def _lm_shape_recorder():
+    """Wrap the model's kernel calls to count the shapes they pass: K4 as
+    (B, S, H, Hkv, D), K5 as (B, S_max, H, Hkv, D) with the positions, K6
+    as (B, H, S, P, N, Q). Reading ``pos`` costs a host sync per call, so
+    this runs only where a step syncs anyway."""
+    from collections import Counter
+    from repro_torch.models import attention, ssm
+    shapes = {"flash_attention": Counter(), "flash_decode": Counter(),
+              "ssd_scan": Counter()}
+    positions: dict = {}
+    k4, k5, k6 = attention.flash_attention, attention.flash_decode, \
+        ssm.ssd_scan
+
+    def rec_k4(q, k, v, **kw):
+        shapes["flash_attention"][(*q.shape[:3], k.shape[2], q.shape[3])] += 1
+        return k4(q, k, v, **kw)
+
+    def rec_k5(q, kc, vc, pos, **kw):
+        key = (q.shape[0], kc.shape[1], q.shape[2], kc.shape[2], q.shape[3])
+        shapes["flash_decode"][key] += 1
+        positions.setdefault(key, set()).add(int(pos))
+        return k5(q, kc, vc, pos, **kw)
+
+    def rec_k6(x, dt, bm, cm, a, q_chunk):
+        b, s, h, p = x.shape
+        shapes["ssd_scan"][(b, h, s, p, bm.shape[2], q_chunk)] += 1
+        return k6(x, dt, bm, cm, a, q_chunk=q_chunk)
+
+    attention.flash_attention, attention.flash_decode = rec_k4, rec_k5
+    ssm.ssd_scan = rec_k6
+
+    def restore():
+        attention.flash_attention, attention.flash_decode = k4, k5
+        ssm.ssd_scan = k6
+    return shapes, positions, restore
+
+
+LM_KERNELS = ("flash_attention", "flash_decode", "ssd_scan")
+
+
+class plain_kernels:
+    """Within this block the model's K4, K5 and K6 calls take the plain
+    versions on the card (the teacher-forced comparison's plain path); it
+    fails if a kernel was launched inside it all the same."""
+
+    def __enter__(self):
+        from repro_torch.kernels import KERNEL_LAUNCHES
+        self.before = [KERNEL_LAUNCHES[k] for k in LM_KERNELS]
+        from repro_torch.kernels.flash_attention.ref import \
+            flash_attention_plain
+        from repro_torch.kernels.flash_decode.ref import flash_decode_plain
+        from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
+        from repro_torch.models import attention, ssm
+        self.saved = (attention.flash_attention, attention.flash_decode,
+                      ssm.ssd_scan)
+        attention.flash_attention = flash_attention_plain
+        attention.flash_decode = flash_decode_plain
+        ssm.ssd_scan = ssd_scan_plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import KERNEL_LAUNCHES
+        from repro_torch.models import attention, ssm
+        (attention.flash_attention, attention.flash_decode,
+         ssm.ssd_scan) = self.saved
+        if exc[0] is None and \
+                [KERNEL_LAUNCHES[k] for k in LM_KERNELS] != self.before:
+            _fail("the plain path launched a kernel")
+        return False
+
+
+def serve_full_width() -> dict:
+    """Phase 9: zamba2-7b at full width served on the card, 32 requests in
+    4 batches of 8, with every launch counter zeroed just before."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import SizeyConfig
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.launch.sizing import KVCacheSizer
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.utils.misc import tree_bytes
+    dev = torch.device(DEV)
+    cfg = serve_config()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"[serve] {SERVE_ARCH}: {cfg.param_count():,} parameters "
+          f"({cfg.param_dtype}) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; compute {cfg.compute_dtype}")
+    sizer = KVCacheSizer(SizeyConfig(min_history=2), device=dev)
+    engine = ServeEngine(model, params, max_batch=SERVE_BATCH,
+                         max_seq=SERVE_MAX_SEQ, temperature=SERVE_TEMPERATURE,
+                         sizer=sizer, seed=LM_SEED, device=dev)
+    del params
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.choice(SERVE_LENS, SERVE_REQUESTS)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                    max_new_tokens=SERVE_NEW) for i, n in enumerate(lens)]
+    batches: list = []
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def prefill(p, batch, max_seq):
+        nonlocal finite
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = model.prefill(p, batch, max_seq=max_seq)
+        torch.cuda.synchronize()
+        b, s = batch["tokens"].shape
+        batches.append({"b": b, "s": s, "max_seq": max_seq,
+                        "prefill_s": time.perf_counter() - t, "decode_s": 0.0,
+                        "steps": 0, "kv_bytes": tree_bytes(cache)})
+        finite = finite & torch.isfinite(logits).all()
+        return logits, cache
+
+    def decode_step(p, cache, tokens):
+        nonlocal finite
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = model.decode_step(p, cache, tokens)
+        torch.cuda.synchronize()
+        batches[-1]["decode_s"] += time.perf_counter() - t
+        batches[-1]["steps"] += 1
+        finite = finite & torch.isfinite(logits).all()
+        return logits, cache
+
+    engine.model = dataclasses.replace(model, prefill=prefill,
+                                       decode_step=decode_step)
+    host = {"sample_s": 0.0, "sizer_s": 0.0}
+
+    def timed(key, fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            host[key] += time.perf_counter() - t
+            return out
+        return run
+    # the sampler's Gumbel draws run on the host (JAX's threefry bits); the
+    # sizer predicts before and retrains after each batch
+    engine._sample = timed("sample_s", engine._sample)
+    sizer.before_batch = timed("sizer_s", sizer.before_batch)
+    sizer.after_batch = timed("sizer_s", sizer.after_batch)
+    shapes, positions, restore = _lm_shape_recorder()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        comps = engine.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = dict(KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_tok = sum(len(c.tokens) for c in comps)
+    steps = sum(bt["steps"] for bt in batches)
+    nb = len(batches)
+    for i, bt in enumerate(batches):
+        want = reference_kv_bytes(cfg, bt["b"], bt["max_seq"])
+        dec = sizer.decisions[i]
+        print(f"[serve] batch {i}: B={bt['b']} prompt {bt['s']} max_seq "
+              f"{bt['max_seq']}: prefill {bt['prefill_s']:.3f} s, "
+              f"{bt['steps']} decode steps {bt['decode_s']:.3f} s "
+              f"({1e3 * bt['decode_s'] / max(bt['steps'], 1):.2f} ms/step); "
+              f"kv_bytes {bt['kv_bytes']} ({bt['kv_bytes'] / 1024**3:.4f} "
+              f"GiB; reference layout {want}); sizer {dec.source} "
+              f"allocation {dec.allocation_gb:.4f} GB vs observed "
+              f"{bt['kv_bytes'] / 1024**3:.4f} GB")
+        if bt["kv_bytes"] != want:
+            _fail(f"batch {i}: kv_bytes {bt['kv_bytes']} differs from the "
+                  f"reference's cache layout ({want})")
+    print(f"[serve] {len(comps)} requests, {n_tok} tokens in {wall:.3f} s "
+          f"({n_tok / wall:.3f} tokens/s; prefill "
+          f"{sum(b['prefill_s'] for b in batches):.3f} s, decode "
+          f"{sum(b['decode_s'] for b in batches):.3f} s over {steps} steps, "
+          f"sampling {host['sample_s']:.3f} s over {steps + nb} draws, "
+          f"sizer {host['sizer_s']:.3f} s); max_memory_allocated "
+          f"{peak / 1024**3:.3f} GiB")
+    print(f"[serve] kernel launches {launches}")
+    for name, counts in shapes.items():
+        print(f"[serve] {name} shapes: " + ", ".join(
+            f"{s}x{c}" for s, c in counts.most_common()))
+    n_attn, n_ssm = cfg.n_attn_layers(), cfg.n_ssm_layers()
+    want = {"flash_attention": n_attn * nb, "ssd_scan": n_ssm * nb,
+            "flash_decode": n_attn * steps}
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            _fail(f"{name}: {launches.get(name, 0)} launches, expected {n}")
+    for name in ("ensemble_mlp", "knn_predict"):
+        if launches.get(name, 0) <= 0:
+            _fail(f"{name} was never launched by the KV-cache sizer")
+    if not bool(finite):
+        _fail("a logit of the serve run is not finite")
+    if nb != SERVE_REQUESTS // SERVE_BATCH or n_tok != SERVE_REQUESTS \
+            * SERVE_NEW:
+        _fail(f"served {nb} batches and {n_tok} tokens")
+    print(f"[serve] launches as expected: flash_attention {n_attn} x {nb} "
+          f"batches, ssd_scan {n_ssm} x {nb}, flash_decode {n_attn} x "
+          f"{steps} steps; every logit finite; every batch's kv_bytes the "
+          f"reference layout's")
+    return {"launches": launches, "shapes": shapes, "positions": positions,
+            "run_params": engine._params, "model": model, "cfg": cfg,
+            "wall_s": wall, "tokens": n_tok}
+
+
+def teacher_forced(model, run_params) -> None:
+    """Phase 10: the kernel path against the plain path on the card, full
+    width in bf16, fed the same tokens: prefill logits and TF_STEPS decode
+    steps (the kernel path's greedy tokens fed to both)."""
+    import numpy as np
+    import torch
+    dev = torch.device(DEV)
+    cfg = model.cfg
+    rng = np.random.default_rng(LM_SEED + 1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (TF_BATCH, TF_LEN))
+                            .astype(np.int32)).to(dev)
+    max_seq = TF_LEN + TF_STEPS
+    lk, ck = model.prefill(run_params, {"tokens": toks}, max_seq=max_seq)
+    with plain_kernels():
+        lp, cp = model.prefill(run_params, {"tokens": toks}, max_seq=max_seq)
+    rel, agree, n = [], 0, 0
+
+    def compare(a, b):
+        nonlocal agree, n
+        a, b = a[..., :cfg.vocab], b[..., :cfg.vocab]
+        rel.append(float((a - b).abs().max() / b.abs().max()))
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+        n += a.shape[0]
+    compare(lk[:, -1], lp[:, -1])
+    for _ in range(TF_STEPS):
+        tok = lk[:, -1].argmax(-1)[:, None]
+        lk, ck = model.decode_step(run_params, ck, tok)
+        with plain_kernels():
+            lp, cp = model.decode_step(run_params, cp, tok)
+        compare(lk[:, -1], lp[:, -1])
+    torch.cuda.synchronize()
+    print(f"[forced] {SERVE_ARCH} full width bf16, B={TF_BATCH} prompt "
+          f"{TF_LEN}, prefill + {TF_STEPS} decode steps, kernel path vs "
+          f"plain path fed the same tokens: largest |logit diff| / largest "
+          f"|logit| per step {', '.join(f'{r:.3e}' for r in rel)} (tol "
+          f"{TF_RTOL:g}); argmax agreement {agree}/{n} "
+          f"({agree / n:.4f})")
+    if max(rel) > TF_RTOL:
+        _fail("the kernel path's logits differ from the plain path's")
+    del ck, cp
+    torch.cuda.empty_cache()
+
+
+def to_cpu(tree):
+    """A parameter tree's tensors copied to the CPU."""
+    return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def lm_card_vs_cpu() -> None:
+    """Phase 11: the same port on the card and on the CPU, zamba2-7b at
+    full width cut to CVC_LAYERS layer positions, compute fp32: greedy
+    tokens through the ServeEngine equal, and teacher-forced logits within
+    CVC_RTOL of the largest."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, ServeEngine
+    cfg = cvc_config()
+    model = build_model(cfg)
+    pg = model.init(LM_SEED, device=DEV)
+    pc = to_cpu(pg)
+    rng = np.random.default_rng(LM_SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab, CVC_LEN).astype(np.int32)
+               for _ in range(CVC_BATCH)]
+    out = {}
+    for dev, p in ((DEV, pg), ("cpu", pc)):
+        eng = ServeEngine(model, p, max_batch=CVC_BATCH, max_seq=SERVE_MAX_SEQ,
+                          temperature=0.0, device=dev)
+        t = time.perf_counter()
+        out[dev] = [c.tokens.tolist() for c in eng.serve(
+            [Request(i, pr, max_new_tokens=CVC_NEW)
+             for i, pr in enumerate(prompts)])]
+        out[dev + "_s"] = time.perf_counter() - t
+    toks = torch.from_numpy(np.stack(prompts))
+    rel = []
+    lg, cg = model.prefill(pg, {"tokens": toks.to(DEV)},
+                           max_seq=CVC_LEN + CVC_NEW)
+    lc, cc = model.prefill(pc, {"tokens": toks}, max_seq=CVC_LEN + CVC_NEW)
+    for step in range(CVC_NEW):
+        a, b = lg[:, -1, :cfg.vocab].cpu(), lc[:, -1, :cfg.vocab]
+        rel.append(float((a - b).abs().max() / b.abs().max()))
+        if step + 1 < CVC_NEW:
+            tok = torch.tensor([[out[DEV][i][step]]
+                                for i in range(CVC_BATCH)], dtype=torch.int32)
+            lg, cg = model.decode_step(pg, cg, tok.to(DEV))
+            lc, cc = model.decode_step(pc, cc, tok)
+    same = out[DEV] == out["cpu"]
+    print(f"[cpu] {SERVE_ARCH} full width, {cfg.n_layers} layer positions "
+          f"({cfg.n_ssm_layers()} Mamba2 + {cfg.n_attn_layers()} shared), "
+          f"fp32, B={CVC_BATCH} prompt {CVC_LEN}, {CVC_NEW} greedy tokens: "
+          f"card {out[DEV + '_s']:.2f} s, CPU {out['cpu_s']:.2f} s; tokens "
+          f"{'equal' if same else 'DIFFER'}; largest |logit diff| / largest "
+          f"|logit| per step {', '.join(f'{r:.3e}' for r in rel)} (tol "
+          f"{CVC_RTOL:g})")
+    if not same or max(rel) > CVC_RTOL:
+        _fail("the card and the CPU disagree on the LM path")
+
+
+def _k4_bound(b, s, h, hkv, d, itemsize):
+    # q, k, v read once and out written once; Q.K^T and P.V over the causal
+    # pairs only (the tiles above the diagonal are skipped), at the bf16
+    # tensor rate
+    pairs = s * (s + 1) // 2
+    return _bound_at(itemsize * (2 * b * s * h * d + 2 * b * s * hkv * d),
+                     4 * b * h * pairs * d, BF16_FLOPS_PER_S)
+
+
+def _k5_bound(b, h, hkv, d, pos, itemsize):
+    # the live K and V (positions 0..pos) read once, q read and out written;
+    # a dot and a multiply-add per live value, at the bf16 tensor rate
+    live = pos + 1
+    return _bound_at(itemsize * (2 * b * live * hkv * d + 2 * b * h * d),
+                     4 * b * h * live * d, BF16_FLOPS_PER_S)
+
+
+def _k6_bound(b, h, s, p, n, q, itemsize):
+    # x, B and C (compute type), dt, a read once; y and the state written
+    # (fp32). Per (b, chunk) C.B^T over the causal pairs (shared by the
+    # heads); per (b, h, chunk) M.xs over the causal pairs, C.state and the
+    # state update: all fp32 products, at the fp32 rate
+    nc = -(-s // q)
+    pairs = q * (q + 1) // 2
+    flops = 2 * b * nc * (pairs * n + h * (pairs * p + 2 * q * p * n))
+    nbytes = itemsize * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h) \
+        + 4 * (b * s * h * p + b * h * p * n)
+    return _bound_at(nbytes, flops, FP32_FLOPS_PER_S)
+
+
+def _bound_at(nbytes, flops, rate):
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / rate
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
+    """K4, K5 and K6 at the given full-width bf16 shapes beside their plain
+    versions and, for K4 and K5, one call of PyTorch's
+    scaled_dot_product_attention (causal; one query over a masked cache)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_plain
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
+    dev = torch.device(DEV)
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def gqa(h, hkv):
+        return {"enable_gqa": True} if h != hkv else {}
+    q, k, v = lm_kernel_inputs("flash_attention", k4_shape, bf16, 7, dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bound, by = _k4_bound(*k4_shape, 2)
+    rows["flash_attention"] = {
+        "ms": _time_ms(lambda: flash_attention(q, k, v), 10, 3),
+        "plain_ms": _time_ms(lambda: flash_attention_plain(q, k, v), 5, 2),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, **gqa(k4_shape[2], k4_shape[3])),
+            10, 3)}
+    del q, k, v, qt, kt, vt
+    q, kc, vc, pos = lm_kernel_inputs("flash_decode", k5_shape, bf16, 8, dev)
+    mask = (torch.arange(k5_shape[1], device=dev) <= pos)[None, None, None]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
+    bound, by = _k5_bound(k5_shape[0], k5_shape[2], k5_shape[3],
+                          k5_shape[4], k5_shape[5], 2)
+    rows["flash_decode"] = {
+        "ms": _time_ms(lambda: flash_decode(q, kc, vc, pos), 30, 10),
+        "plain_ms": _time_ms(lambda: flash_decode_plain(q, kc, vc, pos),
+                             10, 5),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, **gqa(k5_shape[2], k5_shape[3])),
+            30, 10)}
+    del q, kc, vc, qt, kt, vt
+    x, dt, bm, cm, a = lm_kernel_inputs("ssd_scan", k6_shape, bf16, 9, dev)
+    qc = k6_shape[5]
+    bound, by = _k6_bound(*k6_shape, 2)
+    rows["ssd_scan"] = {
+        "ms": _time_ms(lambda: ssd_scan(x, dt, bm, cm, a, q_chunk=qc), 10, 3),
+        "plain_ms": _time_ms(lambda: ssd_scan_plain(x, dt, bm, cm, a,
+                                                    q_chunk=qc), 5, 2),
+        "bound_ms": bound, "bound_by": by, "library_ms": None}
+    del x, dt, bm, cm, a
+    torch.cuda.empty_cache()
+    for name, shape in (("flash_attention", k4_shape),
+                        ("flash_decode", k5_shape), ("ssd_scan", k6_shape)):
+        r = rows[name]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
+        print(f"[time] {name} {shape} bf16: kernel {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.5f} ms, library {lib}, bound "
+              f"{r['bound_ms']:.3e} ms ({r['bound_by']})")
+    return rows
+
+
+def lm_phases() -> dict:
+    """Phases 8-12 of the LM serving slice; returns its JSON rows."""
+    import torch
+    errors = check_lm_kernels(K4_SHAPES, K5_SHAPES, K6_SHAPES)
+    serve = serve_full_width()
+    model, run_params = serve.pop("model"), serve.pop("run_params")
+    teacher_forced(model, run_params)
+    del model, run_params
+    torch.cuda.empty_cache()
+    # every shape the serve phase launched, K5 at its first and last pos
+    shapes, positions = serve["shapes"], serve["positions"]
+    k5 = [(*s, p) for s in shapes["flash_decode"]
+          for p in sorted({min(positions[s]), max(positions[s])})]
+    more = check_lm_kernels(sorted(shapes["flash_attention"]), sorted(k5),
+                            sorted(shapes["ssd_scan"]), label="check serve")
+    errors = {k: max(v, more[k]) for k, v in errors.items()}
+    lm_card_vs_cpu()
+
+    def heaviest(name):   # the most launched shape; on a tie the largest
+        return max(shapes[name].items(), key=lambda kv: (kv[1], kv[0]))[0]
+    k4s, k5key, k6s = (heaviest("flash_attention"), heaviest("flash_decode"),
+                       heaviest("ssd_scan"))
+    pos = sorted(positions[k5key])[len(positions[k5key]) // 2]
+    timings = time_lm_kernels(k4s, (*k5key, pos), k6s)
+    print(f"[time] LM JSON rows at the most launched full-width shapes "
+          f"(ties to the largest): flash_attention {k4s}, flash_decode "
+          f"{k5key} at the median launched pos {pos}, ssd_scan {k6s}")
+    src = {"flash_attention": 70, "flash_decode": 61, "ssd_scan": 71}
+    return [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/{name}/kernel.cu",
+             "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
+             "launches": serve["launches"][name],
+             "max_abs_err": errors[name], **timings[name]}
+            for name, line in src.items()]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -830,6 +1479,7 @@ def main() -> int:
          "launches": temporal["launches"]["segment_dp"],
          "max_abs_err": errors["segment_dp"], **k3},
     ]
+    kernels += lm_phases()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,15 @@
 """Carry state between the JAX reference and the port, as numpy arrays.
 
-The reference's model states are NamedTuples of arrays and its provenance
-pools hold arrays as attributes; fetched to the host (``jax.device_get``,
-``np.asarray``) they are numpy. These functions turn such numpy states
-into the port's tensors on a device and back, field by field in the
-reference's order, so both packages can compute from the same state:
+The reference's model states are NamedTuples of arrays, its provenance
+pools hold arrays as attributes and its LM parameters are nested dicts of
+arrays; fetched to the host (``jax.device_get``, ``np.asarray``) they are
+numpy. These functions turn such numpy states into the port's tensors on a
+device and back, field by field in the reference's order, so both packages
+can compute from the same state:
 
     t_state = state_to_torch("mlp", jax.device_get(j_state), "cuda")
     j_state = repro.core.models.mlp.MLPState(*state_to_numpy("mlp", t_state))
+    t_params = lm_params_to_torch(jax.device_get(j_params), "cuda")
 
 Nothing here imports JAX or ``repro``.
 """
@@ -85,3 +87,36 @@ def pool_from_numpy(db, key: tuple[str, str], arrays: dict):
     for k in POOL_SCALARS:
         setattr(pool, k, type(getattr(pool, k))(arrays[k]))
     return pool
+
+
+def _leaf_to_torch(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: exact via fp32
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def lm_params_to_torch(np_tree, device="cpu", dtype=None) -> dict:
+    """The reference's LM parameter pytree (nested dicts of numpy arrays,
+    per-layer stacks on a leading axis) -> the port's dict of tensors on
+    ``device``, in each array's own type, or in ``dtype`` for the floating
+    ones."""
+    return {k: lm_params_to_torch(v, device, dtype) if isinstance(v, dict)
+            else _leaf_to_torch(v, device, dtype) for k, v in np_tree.items()}
+
+
+def lm_params_to_numpy(tree) -> dict:
+    """The port's LM parameters (or decode cache) -> nested dicts of numpy
+    arrays in the reference's layout; bfloat16 leaves come back as float32
+    (exactly: numpy has no bfloat16)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    return {k: lm_params_to_numpy(v) if isinstance(v, dict) else leaf(v)
+            for k, v in tree.items()}

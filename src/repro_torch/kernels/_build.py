@@ -23,6 +23,9 @@ SOURCES = {
     "ensemble_mlp": _PKG / "ensemble_mlp" / "kernel.cu",
     "knn": _PKG / "knn" / "kernel.cu",
     "segment_dp": _PKG / "segment_dp" / "kernel.cu",
+    "flash_attention": _PKG / "flash_attention" / "kernel.cu",
+    "flash_decode": _PKG / "flash_decode" / "kernel.cu",
+    "ssd_scan": _PKG / "ssd_scan" / "kernel.cu",
 }
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -30,6 +33,8 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures: every function returns the launch's cudaError_t as an int
 SIGNATURES = {
     "ensemble_mlp": {
@@ -47,6 +52,22 @@ SIGNATURES = {
         "segment_dp_fit_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
         # profiles, cost, M, G, stream
         "segment_cost_f32": (_P,) * 2 + (_I,) * 2 + (_P,),
+    },
+    "flash_attention": {
+        # dtype, q, k, v, out, B, S, H, Hkv, D, scale, causal, kv_len, stream
+        "flash_attention_fwd": (_I,) + (_P,) * 4 + (_I,) * 5 + (_F, _I, _I,
+                                                                _P),
+    },
+    "flash_decode": {
+        # dtype, q, k_cache, v_cache, pos, out, B, H, Hkv, D, S_max,
+        # k strides (B, S, Hkv), v strides (B, S, Hkv), scale, stream
+        "flash_decode_fwd": (_I,) + (_P,) * 5 + (_I,) * 5 + (_L,) * 6
+        + (_F, _P),
+    },
+    "ssd_scan": {
+        # dtype, x, dt, B, C, a, y, final_state, B, S, H, P, N, Q,
+        # x strides (B, S, H), B strides (B, S), C strides (B, S), stream
+        "ssd_scan_fwd": (_I,) + (_P,) * 7 + (_I,) * 6 + (_L,) * 7 + (_P,),
     },
 }
 

@@ -1,0 +1,40 @@
+"""Plain PyTorch version of the flash-attention kernel.
+
+The function of the reference TPU kernel
+(``repro/kernels/flash_attention/kernel.py``), in the model's layout: fp32
+scores, -1e30 where masked, the softmax's numerator rounded to v's type
+before P.V (the TPU kernel's ``p.astype(v.dtype)``) and the division by
+the fp32 denominator last. The kernel takes the maximum and the sums tile
+by tile (an online softmax), so the two differ by fp32 rounding only; in
+bf16 also where a tile's running maximum rounds p otherwise.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          scale: float | None = None,
+                          kv_len: int | None = None):
+    """q (B, S, H, D); k, v (B, S, Hkv, D) -> (B, S, H, D) in q's type.
+    Keys at positions >= ``kv_len`` are masked."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    kv_len = s if kv_len is None else kv_len
+    groups = h // hkv
+    qf = q.float().permute(0, 2, 1, 3)                       # (B, H, S, D)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(groups, 1)
+    vv = v.permute(0, 2, 1, 3).repeat_interleave(groups, 1)
+    sc = (qf @ kf.transpose(-1, -2)) * scale                 # (B, H, S, S)
+    cols = torch.arange(s, device=q.device)
+    mask = (cols < kv_len)[None, :].expand(s, s)
+    if causal:
+        mask = mask & (cols[:, None] >= cols[None, :])
+    sc = sc.masked_fill(~mask, NEG_INF)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    o = (p.to(v.dtype).float() @ vv.float()) / l.clamp_min(1e-30)
+    return o.to(q.dtype).permute(0, 2, 1, 3)

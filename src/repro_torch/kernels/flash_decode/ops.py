@@ -1,0 +1,89 @@
+"""Flash-decode wrapper: checks, output allocation and the launch.
+
+``flash_decode`` takes one query token (B, 1, H, D) and one layer's caches
+(B, S_max, Hkv, D) in the model's layout, with ``pos`` the last live
+position. CPU tensors take the plain version (``ref.py``); CUDA tensors
+launch the kernel in ``kernel.cu`` on the current stream. On the card
+``pos`` is an int32 tensor on the device, read by the kernel itself, so
+the decode step never waits for the host; the caches are read through
+their strides (a layer's slice of the stacked cache is not copied).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import KERNEL_LAUNCHES
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_decode.ref import flash_decode_plain
+
+NAME = "flash_decode"
+MAX_HEAD_DIM = 128          # one thread per output column and half tile
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, k_cache, v_cache):
+    if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
+            or k_cache.shape != v_cache.shape:
+        raise ValueError("flash_decode takes q (B,1,H,D) and caches "
+                         "(B,S_max,Hkv,D)")
+    b, _, h, d = q.shape
+    if k_cache.shape[0] != b or k_cache.shape[3] != d:
+        raise ValueError(f"cache shape {tuple(k_cache.shape)} does not "
+                         f"match q {tuple(q.shape)}")
+    if h % k_cache.shape[2] != 0:
+        raise ValueError(f"{h} query heads are not a multiple of "
+                         f"{k_cache.shape[2]} kv heads")
+
+
+def _check_cuda(q, k_cache, v_cache, pos):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"no flash_decode kernel for device {dev}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"flash_decode takes float32 or bfloat16, not "
+                         f"{q.dtype}")
+    if not q.is_contiguous():
+        raise ValueError("flash_decode takes a contiguous query")
+    per16 = 16 // q.element_size()      # values per 16-byte load
+    for c in (k_cache, v_cache):
+        if c.device != dev or c.dtype != q.dtype or c.stride(3) != 1:
+            raise ValueError("flash_decode takes caches of the query's type "
+                             "on its device with unit stride over D")
+        if c.data_ptr() % 16 or any(st % per16 for st in c.stride()[:3]):
+            raise ValueError("flash_decode reads the caches in 16-byte "
+                             "chunks: rows must be 16-byte aligned")
+    if not (isinstance(pos, torch.Tensor) and pos.device == dev
+            and pos.dtype == torch.int32 and pos.numel() == 1):
+        raise ValueError("on the card pos must be one int32 on the query's "
+                         "device")
+    if q.shape[3] > MAX_HEAD_DIM or q.shape[3] % 8:
+        raise ValueError(f"flash_decode takes D % 8 == 0 and D <= "
+                         f"{MAX_HEAD_DIM}, got {q.shape[3]}")
+    if q.shape[0] > 65535:
+        raise ValueError("flash_decode takes at most 65535 sequences")
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None):
+    """q (B, 1, H, D); caches (B, S_max, Hkv, D); pos the last live cache
+    position -> (B, 1, H, D) in q's type: attention of the token over the
+    positions 0..pos. ``scale`` defaults to D ** -0.5."""
+    _check(q, k_cache, v_cache)
+    b, _, h, d = q.shape
+    scale = d ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, pos, scale=scale)
+    _check_cuda(q, k_cache, v_cache, pos)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _build.load(NAME)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.flash_decode_fwd(
+            DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h,
+            k_cache.shape[2], d, k_cache.shape[1], *k_cache.stride()[:3],
+            *v_cache.stride()[:3], scale, stream)
+    _build.check(lib, err, NAME)
+    KERNEL_LAUNCHES[NAME] += 1
+    return out

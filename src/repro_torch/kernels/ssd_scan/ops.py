@@ -1,0 +1,99 @@
+"""SSD-scan wrapper: checks, output allocation and the launch.
+
+``ssd_scan`` takes the model's layout: x (B, S, H, P) and B, C (B, S, N)
+as the convolution gives them (slices with unit stride over the last
+dimension), dt (B, S, H) already softplused and a = -exp(a_log). It
+returns y and the final state. CPU tensors take the plain chunked version
+(``ref.py``); CUDA tensors launch the kernel in ``kernel.cu`` on the
+current stream, which reads the slices through their strides.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import KERNEL_LAUNCHES
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
+
+NAME = "ssd_scan"
+MAX_CHUNK = 128             # the register blocks: 8 rows of 16 threads
+MAX_HEAD_DIM = 64           # 4 columns of 16
+MAX_STATE = 128             # 8 columns of 16
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(x, dt, bmat, cmat, a, q_chunk):
+    if x.dim() != 4 or dt.dim() != 3 or bmat.dim() != 3 \
+            or bmat.shape != cmat.shape:
+        raise ValueError("ssd_scan takes x (B,S,H,P), dt (B,S,H), B and C "
+                         "(B,S,N), a (H,)")
+    b, s, h, p = x.shape
+    if tuple(dt.shape) != (b, s, h) or tuple(bmat.shape[:2]) != (b, s) \
+            or tuple(a.shape) != (h,):
+        raise ValueError(f"ssd_scan shapes disagree: x {tuple(x.shape)}, "
+                         f"dt {tuple(dt.shape)}, B {tuple(bmat.shape)}, "
+                         f"a {tuple(a.shape)}")
+    if not 1 <= q_chunk <= MAX_CHUNK:
+        raise ValueError(f"q_chunk must be in [1, {MAX_CHUNK}], got "
+                         f"{q_chunk}")
+
+
+def _check_cuda(x, dt, bmat, cmat, a, q_chunk):
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"no ssd_scan kernel for device {dev}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"ssd_scan takes x in float32 or bfloat16, not "
+                         f"{x.dtype}")
+    for t in (bmat, cmat):
+        if t.device != dev or t.dtype != x.dtype or t.stride(2) != 1:
+            raise ValueError("ssd_scan takes B and C of x's type on its "
+                             "device with unit stride over N")
+    if x.stride(3) != 1:
+        raise ValueError("ssd_scan takes x with unit stride over P")
+    per16 = 16 // x.element_size()      # values per 16-byte load
+    for t in (x, bmat, cmat):
+        if t.data_ptr() % 16 or t.shape[-1] % per16 or any(
+                st % per16 for st in t.stride()[:-1]):
+            raise ValueError("ssd_scan reads x, B and C in 16-byte chunks: "
+                             "their rows must be 16-byte aligned")
+    for t in (dt, a):
+        if t.device != dev or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError("ssd_scan takes dt and a as contiguous float32 "
+                             "on x's device")
+    _, _, h, p = x.shape
+    n = bmat.shape[2]
+    if p > MAX_HEAD_DIM or n > MAX_STATE:
+        raise ValueError(f"ssd_scan takes P <= {MAX_HEAD_DIM} and N <= "
+                         f"{MAX_STATE}, got P={p} N={n}")
+    if x.shape[0] > 65535:
+        raise ValueError("ssd_scan takes at most 65535 sequences")
+
+
+def ssd_scan(x, dt, bmat, cmat, a, *, q_chunk: int = 128):
+    """x (B, S, H, P); dt (B, S, H) fp32; bmat, cmat (B, S, N); a (H,) fp32
+    -> (y (B, S, H, P) fp32, final state (B, H, P, N) fp32), the chunked
+    SSD scan in chunks of ``q_chunk`` positions."""
+    q_chunk = int(q_chunk)
+    _check(x, dt, bmat, cmat, a, q_chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, bmat, cmat, a, q_chunk=q_chunk)
+    _check_cuda(x, dt, bmat, cmat, a, q_chunk)
+    b, s, h, p = x.shape
+    n = bmat.shape[2]
+    y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    if b * h == 0:
+        return y, final
+    lib = _build.load(NAME)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_fwd(
+            DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), bmat.data_ptr(),
+            cmat.data_ptr(), a.data_ptr(), y.data_ptr(), final.data_ptr(),
+            b, s, h, p, n, q_chunk, *x.stride()[:3], *bmat.stride()[:2],
+            *cmat.stride()[:2], stream)
+    _build.check(lib, err, NAME)
+    KERNEL_LAUNCHES[NAME] += 1
+    return y, final

@@ -1,0 +1,103 @@
+"""GQA attention: full (train/prefill) and cached single-token decode.
+
+Projections are stored flattened, (d_model, n_heads * head_dim), as in the
+reference (``repro/models/attention.py``); heads are reshaped inside.
+
+``causal_attention`` is the one dispatch point of full attention: it goes
+to the flash-attention kernel (K4) through ``kernels.flash_attention``,
+the CUDA kernel for tensors on the card and its plain version on the CPU.
+The reference switches between a naive softmax and a chunked online
+softmax by sequence length (``CHUNKED_THRESHOLD``); both compute the same
+function, and here that switch collapses into K4, whose tiles never
+materialise the (S, S) scores on the card. K4 keeps the scores in fp32
+and masks with -1e30 (the TPU kernel's numerics); the reference's naive
+path rounds scores and probabilities to the compute type and masks with
+-1e9, so the two agree to fp32 rounding in fp32 and differ by bf16
+rounding in bf16.
+
+``decode_attention_block`` goes to the flash-decode kernel (K5) in the
+same way. It writes the new K/V at ``pos`` in place (``index_copy_`` with
+``pos`` on the device, no host sync); the reference writes them with an
+elementwise select over the whole cache (a GSPMD workaround). The values
+are the same.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.models.layers import (INIT_STD, apply_rope, as_type,
+                                       dense_init, rope_angles)
+
+
+def attention_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
+    """Attention weights, with a leading stack of shape ``n``."""
+    d = cfg.d_model
+    qd = cfg.n_heads * cfg.head_dim
+    kvd = cfg.n_kv * cfg.head_dim
+    p = {
+        "wq": dense_init(gen, (*n, d, qd), dtype),
+        "wk": dense_init(gen, (*n, d, kvd), dtype),
+        "wv": dense_init(gen, (*n, d, kvd), dtype),
+        "wo": dense_init(gen, (*n, qd, d), dtype,
+                         std=INIT_STD / (2 * max(cfg.n_layers, 1)) ** 0.5),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", qd), ("bk", kvd), ("bv", kvd)):
+            p[name] = torch.zeros((*n, width), dtype=dtype,
+                                  device=gen.device)
+    return p
+
+
+def _project_qkv(params, x, cfg: ModelConfig, positions):
+    """x (B, S, d) -> q (B, S, H, D), k and v (B, S, Hkv, D), RoPE applied."""
+    b, s, _ = x.shape
+    cd = x.dtype
+    q = x @ as_type(params["wq"], cd)
+    k = x @ as_type(params["wk"], cd)
+    v = x @ as_type(params["wv"], cd)
+    if cfg.qkv_bias:
+        q = q + as_type(params["bq"], cd)
+        k = k + as_type(params["bk"], cd)
+        v = v + as_type(params["bv"], cd)
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv, cfg.head_dim)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def causal_attention(q, k, v, cfg: ModelConfig):
+    """q (B, S, H, D), k and v (B, S, Hkv, D) -> (B, S, H, D), through K4."""
+    return flash_attention(q, k, v, causal=True, scale=cfg.head_dim ** -0.5)
+
+
+def attention_block(params, x, cfg: ModelConfig, positions):
+    """Full self-attention sublayer (the caller adds the residual).
+    Returns (out, (k, v)) so that prefill can collect the cache."""
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    o = causal_attention(q, k, v, cfg)
+    b, s = x.shape[:2]
+    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return o @ as_type(params["wo"], x.dtype), (k, v)
+
+
+def decode_attention_block(params, x, cfg: ModelConfig, k_cache, v_cache,
+                           pos):
+    """Single-token decode against one layer's KV cache, through K5.
+
+    x (B, 1, d); k_cache, v_cache (B, S_max, Hkv, D), written at ``pos``
+    in place; pos a 0-d int32 tensor on x's device, the number of tokens
+    already in the cache. Returns (out, k_cache, v_cache).
+    """
+    b = x.shape[0]
+    positions = pos.reshape(1, 1).expand(b, 1)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    idx = pos.reshape(1).long()
+    k_cache.index_copy_(1, idx, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, v_new.to(v_cache.dtype))
+    o = flash_decode(q, k_cache, v_cache, pos, scale=cfg.head_dim ** -0.5)
+    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return o @ as_type(params["wo"], x.dtype), k_cache, v_cache

@@ -1,0 +1,309 @@
+"""Model assembly for the families dense, audio, ssm and hybrid: parameter
+init, forward, loss, prefill and single-token decode.
+
+The reference (``repro/models/model.py``) scans over stacked per-layer
+parameters; here the stacks are the same tensors (a leading layer axis on
+every leaf of ``blocks`` and ``mamba``) and the scans are Python loops over
+that axis. The hybrid (zamba2) stack walks groups of (attn_every - 1)
+Mamba2 layers, each group followed by the one shared attention+MLP block,
+whose weights are reused at every application.
+
+Kernels: full attention goes to K4 (``kernels.flash_attention``), decode
+attention to K5 (``kernels.flash_decode``) and the Mamba2 prefill scan to
+K6 (``kernels.ssd_scan``), each the CUDA kernel on the card and its plain
+version on the CPU. ``cfg.remat`` and ``cfg.decode_carry_cache`` are
+accepted and change no number in eager PyTorch: there is no backward pass
+here to rematerialise, and the decode cache is updated in place.
+
+The families ``moe`` and ``vlm`` are not ported yet (ROADMAP Queue 1,
+item 17) and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (cross_entropy, dtype_of, embed_tokens,
+                                       embedding_params, logits_fn, mlp,
+                                       mlp_params, rmsnorm)
+from repro_torch.utils.misc import resolve_device
+
+ATTN_FAMILIES = ("dense", "audio")
+PORTED_FAMILIES = ("dense", "audio", "ssm", "hybrid")
+# weights that the reference casts to the compute type at every use
+COMPUTE_CAST = frozenset({
+    "embed", "lm_head", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate",
+    "w_up", "w_down", "in_proj", "conv_w", "conv_b", "out_proj"})
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (moe.py and the vlm "
+            f"front end come with ROADMAP Queue 1, item 17)")
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ----------------------------------------------------------------- blocks
+def _attn_mlp_block_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
+    dev = gen.device
+    return {
+        "ln1": torch.ones((*n, cfg.d_model), dtype=dtype, device=dev),
+        "attn": attn.attention_params(gen, cfg, dtype, n),
+        "ln2": torch.ones((*n, cfg.d_model), dtype=dtype, device=dev),
+        "mlp": mlp_params(gen, cfg, dtype, n),
+    }
+
+
+def _attn_mlp_block(params, x, cfg: ModelConfig, positions):
+    """Pre-norm transformer block. Returns (x, (k, v))."""
+    h = rmsnorm(x, params["ln1"])
+    a, kv = attn.attention_block(params["attn"], h, cfg, positions)
+    x = x + a
+    h = rmsnorm(x, params["ln2"])
+    return x + mlp(params["mlp"], h, dtype_of(cfg.compute_dtype)), kv
+
+
+def _attn_mlp_decode(params, x, cfg, k_cache, v_cache, pos):
+    h = rmsnorm(x, params["ln1"])
+    a, _, _ = attn.decode_attention_block(params["attn"], h, cfg, k_cache,
+                                          v_cache, pos)
+    x = x + a
+    h = rmsnorm(x, params["ln2"])
+    return x + mlp(params["mlp"], h, dtype_of(cfg.compute_dtype))
+
+
+def _ssm_block_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
+    return {
+        "ln": torch.ones((*n, cfg.d_model), dtype=dtype, device=gen.device),
+        "ssm": ssm_mod.ssm_params(gen, cfg, dtype, n),
+    }
+
+
+def _ssm_block(params, x, cfg: ModelConfig, return_cache: bool = False):
+    h = rmsnorm(x, params["ln"])
+    if not return_cache:
+        return x + ssm_mod.ssm_block(params["ssm"], h, cfg)
+    y, state, conv = ssm_mod.ssm_block(params["ssm"], h, cfg,
+                                       return_cache=True)
+    return x + y, state, conv
+
+
+def _ssm_block_decode(params, x, cfg, state, conv):
+    h = rmsnorm(x, params["ln"])
+    y, state, conv = ssm_mod.ssm_decode_block(params["ssm"], h, cfg, state,
+                                              conv)
+    return x + y, state, conv
+
+
+def _layer_order(cfg: ModelConfig):
+    """The stack as ("attn", i) and ("ssm", i) steps in depth order; i
+    indexes ``blocks``/``mamba`` and the cache's attention or SSM layers
+    (the hybrid's shared block is attention layer i of the cache)."""
+    if cfg.family in ATTN_FAMILIES:
+        return [("attn", i) for i in range(cfg.n_layers)]
+    if cfg.family == "ssm":
+        return [("ssm", i) for i in range(cfg.n_layers)]
+    per = cfg.attn_every - 1
+    order = []
+    for g in range(cfg.n_attn_layers()):
+        order += [("ssm", g * per + i) for i in range(per)]
+        order.append(("attn", g))
+    return order
+
+
+def _attn_params(params, cfg: ModelConfig, i: int):
+    if cfg.family == "hybrid":
+        return params["shared"]
+    return _layer(params["blocks"], i)
+
+
+def _ssm_params(params, cfg: ModelConfig, i: int):
+    return _layer(params["mamba" if cfg.family == "hybrid" else "blocks"], i)
+
+
+# ------------------------------------------------------------------- init
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Parameters drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (CUDA unless asked otherwise): normal(0, 0.02) matrices and
+    the reference's constant vectors. The draws are the port's own, not
+    ``jax.random``'s; ``repro_torch.convert`` carries the reference's
+    parameters across where the two must agree."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    dtype = dtype_of(cfg.param_dtype)
+    params: dict[str, Any] = embedding_params(gen, cfg, dtype)
+    params["ln_f"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+    if cfg.family in ATTN_FAMILIES:
+        params["blocks"] = _attn_mlp_block_params(gen, cfg, dtype,
+                                                  (cfg.n_layers,))
+    elif cfg.family == "ssm":
+        params["blocks"] = _ssm_block_params(gen, cfg, dtype,
+                                             (cfg.n_layers,))
+    else:
+        params["mamba"] = _ssm_block_params(gen, cfg, dtype,
+                                            (cfg.n_ssm_layers(),))
+        params["shared"] = _attn_mlp_block_params(gen, cfg, dtype)
+    return params
+
+
+def cast_weights(params: dict, cfg: ModelConfig) -> dict:
+    """The parameter tree with every weight that the reference casts to
+    the compute type at each use (``x @ W.astype(cd)``) cast once, the
+    others (norm scales, ``a_log``, ``dt_bias``, ``ssm_d``, read in fp32)
+    as they are. The cast is deterministic, so every result is bitwise
+    that of casting at each use; it holds one more copy of the cast
+    weights (9.3 GB for zamba2-7b in bf16) and saves reading the fp32
+    weights and writing their casts at every step."""
+    cd = dtype_of(cfg.compute_dtype)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict)
+                else (v.to(cd) if k in COMPUTE_CAST else v)
+                for k, v in tree.items()}
+    return walk(params)
+
+
+# ---------------------------------------------------------------- forward
+def _inputs_to_h(params, batch, cfg: ModelConfig):
+    return embed_tokens(params, batch["tokens"].long(),
+                        dtype_of(cfg.compute_dtype))
+
+
+def _positions(h):
+    b, s, _ = h.shape
+    return torch.arange(s, device=h.device)[None, :].expand(b, s)
+
+
+def forward(params, batch, cfg: ModelConfig):
+    """Full-sequence forward -> (logits fp32 (B, S, V), aux_loss)."""
+    _check_family(cfg)
+    h = _inputs_to_h(params, batch, cfg)
+    positions = _positions(h)
+    for kind, i in _layer_order(cfg):
+        if kind == "attn":
+            h, _ = _attn_mlp_block(_attn_params(params, cfg, i), h, cfg,
+                                   positions)
+        else:
+            h = _ssm_block(_ssm_params(params, cfg, i), h, cfg)
+    h = rmsnorm(h, params["ln_f"])
+    return logits_fn(params, h, cfg), 0.0
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Next-token cross entropy over all positions but the last."""
+    logits, _ = forward(params, batch, cfg)
+    tokens = batch["tokens"]
+    b, st = tokens.shape
+    labels = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones((b, st), dtype=torch.float32, device=logits.device)
+    mask[:, -1] = 0.0
+    return cross_entropy(logits, labels, mask)
+
+
+# ---------------------------------------------------------------- decode
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
+    """KV / SSM decode cache sized for ``max_seq`` positions, with the
+    reference's leaves, shapes and types (so ``tree_bytes`` of it is the
+    reference's): ``pos`` a 0-d int32, ``k``/``v`` (n_attn, B, max_seq,
+    Hkv, D), ``ssm`` {``state`` (n_ssm, B, H, P, N) fp32, ``conv``
+    (n_ssm, B, K-1, C)}."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    cd = dtype_of(cfg.compute_dtype)
+    kvd = cd if cfg.kv_dtype == "compute" else dtype_of(cfg.kv_dtype)
+    cache: dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32,
+                                                device=dev)}
+    if cfg.family in ATTN_FAMILIES + ("hybrid",):
+        kv = (cfg.n_attn_layers(), batch, max_seq, cfg.n_kv, cfg.head_dim)
+        cache["k"] = torch.zeros(kv, dtype=kvd, device=dev)
+        cache["v"] = torch.zeros(kv, dtype=kvd, device=dev)
+    if cfg.family in ("ssm", "hybrid"):
+        cache["ssm"] = ssm_mod.ssm_cache_init(cfg, batch, cfg.n_ssm_layers(),
+                                              cd, dev)
+    return cache
+
+
+def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None):
+    """Prompt ingestion: the forward plus the decode cache. Returns the
+    last position's logits (B, 1, V) and the cache, with ``pos`` = S."""
+    _check_family(cfg)
+    h = _inputs_to_h(params, batch, cfg)
+    b, s, _ = h.shape
+    max_seq = max_seq or s
+    positions = _positions(h)
+    cache = init_cache(cfg, b, max_seq, h.device)
+    cd = dtype_of(cfg.compute_dtype)
+    for kind, i in _layer_order(cfg):
+        if kind == "attn":
+            h, (k, v) = _attn_mlp_block(_attn_params(params, cfg, i), h,
+                                        cfg, positions)
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+        else:
+            h, state, conv = _ssm_block(_ssm_params(params, cfg, i), h, cfg,
+                                        return_cache=True)
+            cache["ssm"]["state"][i] = state
+            cache["ssm"]["conv"][i] = conv.to(cd)
+    cache["pos"].fill_(s)
+    h = rmsnorm(h, params["ln_f"])
+    return logits_fn(params, h[:, -1:, :], cfg), cache
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig):
+    """One decode step, tokens (B, 1) -> (logits (B, 1, V), cache). The
+    cache is updated in place (K/V written at ``pos``, each layer's SSM
+    state and convolution tail replaced) and returned with ``pos`` + 1."""
+    _check_family(cfg)
+    h = embed_tokens(params, tokens.long(), dtype_of(cfg.compute_dtype))
+    pos = cache["pos"]
+    for kind, i in _layer_order(cfg):
+        if kind == "attn":
+            h = _attn_mlp_decode(_attn_params(params, cfg, i), h, cfg,
+                                 cache["k"][i], cache["v"][i], pos)
+        else:
+            st, cv = cache["ssm"]["state"], cache["ssm"]["conv"]
+            h, state, conv = _ssm_block_decode(_ssm_params(params, cfg, i), h,
+                                               cfg, st[i], cv[i])
+            st[i] = state
+            cv[i] = conv.to(cv.dtype)
+    cache["pos"] = pos + 1
+    h = rmsnorm(h, params["ln_f"])
+    return logits_fn(params, h, cfg), cache
+
+
+# ------------------------------------------------------------------ model
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable
+    forward: Callable
+    loss: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_cache: Callable
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    _check_family(cfg)
+    return Model(
+        cfg=cfg,
+        init=functools.partial(init_params, cfg),
+        forward=functools.partial(forward, cfg=cfg),
+        loss=functools.partial(loss_fn, cfg=cfg),
+        prefill=functools.partial(prefill, cfg=cfg),
+        decode_step=functools.partial(decode_step, cfg=cfg),
+        init_cache=functools.partial(init_cache, cfg),
+    )

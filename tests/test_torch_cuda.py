@@ -12,7 +12,9 @@ torch = pytest.importorskip("torch")
 
 # the segment-DP profiles, kinds and grid of chip_smoke.py
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-from chip_smoke import K3_GS, K3_KINDS, K3_MS, k3_profiles  # noqa: E402
+from chip_smoke import (K3_GS, K3_KINDS, K3_MS, K4_SHAPES,  # noqa: E402
+                        K5_SHAPES, K6_SHAPES, check_lm_kernels,
+                        k3_profiles, lm_kernel_inputs, to_cpu)
 
 from repro_torch.kernels import KERNEL_LAUNCHES  # noqa: E402
 from repro_torch.kernels.ensemble_mlp.ops import ensemble_mlp_forward  # noqa: E402
@@ -145,3 +147,87 @@ def test_temporal_replay_on_the_card_launches_one_fit_per_boundary_fit(
             assert KERNEL_LAUNCHES["segment_dp"] == 0
         assert len(res.outcomes) == 44
     assert bounds["cuda"] == bounds["cpu"]
+
+
+# K4-K6 at the reference's test shapes and at the serve phase's full-width
+# shapes, fp32 and bf16, with chip_smoke.py's checks and tolerances
+LM_CASES = ([("flash_attention", s) for s in K4_SHAPES
+             + [(8, 2048, 32, 32, 112)]]
+            + [("flash_decode", s) for s in K5_SHAPES
+               + [(8, 2080, 32, 32, 112, 2047)]]
+            + [("ssd_scan", s) for s in K6_SHAPES
+               + [(8, 112, 2048, 64, 64, 128)]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", LM_CASES)
+def test_lm_kernels_match_their_plain_versions(cuda, kind, shape):
+    before = KERNEL_LAUNCHES[kind]
+    check_lm_kernels(*([shape] if k == kind else [] for k in
+                       ("flash_attention", "flash_decode", "ssd_scan")))
+    # fp32 and bf16, and K4 causal and not
+    assert KERNEL_LAUNCHES[kind] == before + (4 if kind ==
+                                              "flash_attention" else 2)
+
+
+@pytest.mark.cuda
+def test_lm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    q, k, v = lm_kernel_inputs("flash_attention", (1, 64, 2, 2, 64),
+                               torch.float16, 0, cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q, k, v)
+    q, k, v = lm_kernel_inputs("flash_attention", (1, 64, 2, 2, 120),
+                               torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="D % 16"):
+        flash_attention(q, k, v)
+    q, kc, vc, _ = lm_kernel_inputs("flash_decode", (1, 64, 2, 2, 64, 3),
+                                    torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="int32"):
+        flash_decode(q, kc, vc, 3)       # pos must live on the card
+    x, dt, bm, cm, a = lm_kernel_inputs("ssd_scan", (1, 2, 128, 64, 256, 128),
+                                        torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="N <= 128"):
+        ssd_scan(x, dt, bm, cm, a)
+
+
+@pytest.mark.cuda
+def test_reduced_zamba2_serves_the_same_tokens_on_the_card_and_the_cpu(
+        cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, ServeEngine
+    cfg = get_config("zamba2-7b").reduced()
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    rng = np.random.default_rng(4)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=6) for i, n in enumerate((128, 256, 128))]
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", to_cpu(params))):
+        reset_launch_counts()
+        eng = ServeEngine(model, p, max_batch=2, max_seq=512, device=dev)
+        out[dev] = [c.tokens.tolist() for c in eng.serve(reqs)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            # 2 batches: 2 shared-block and 2 Mamba2 layers each, 5 steps
+            assert KERNEL_LAUNCHES["flash_attention"] == 4
+            assert KERNEL_LAUNCHES["ssd_scan"] == 4
+            assert KERNEL_LAUNCHES["flash_decode"] == 2 * 2 * 5
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_gumbel_draws_on_the_card_are_the_host_bits(cuda):
+    """The serving sampler's Gumbel noise drawn on the card is bit for bit
+    the host's (and so JAX's) at the full vocabulary's width."""
+    from repro_torch.core import prng, prng_device
+    for seed in (0, 3, 2**31 - 1):
+        key = prng.split(prng.prng_key(seed))[1]
+        u = prng.uniform(key, (8, 32256), prng_device.F32_TINY, 1.0)
+        want = -prng.log_f32(-prng.log_f32(u))
+        got = prng_device.gumbel(key, (8, 32256), cuda)
+        assert np.array_equal(got.cpu().numpy(), want)
