@@ -18,17 +18,23 @@
 // What bounds it on an H100: at the serving shapes (B = 8, H = Hkv = 32,
 // D = 112, S = 256..2048, bf16) a launch does 4 * B * H * S^2 * D / 2 FLOPs
 // of products (240.6 GFLOP at S = 2048) on 0.2 GB of inputs and outputs, so
-// operations bound it (0.243 ms at the bf16 tensor rate). This first kernel
-// runs the products on CUDA cores in fp32 FMA: it cannot reach that bound
-// (the fp32 rate is 15x lower), and making it reach the tensor cores with
-// wgmma is later work. Design: one block of 256 threads per (64-row query
-// tile, head, batch); the query tile is kept transposed in shared memory as
-// fp32, each 64-key tile of K (transposed) and then V goes through one
-// shared buffer (copied with 16-byte loads, all of a thread's issued before
-// any is stored), and each thread owns a 4 x 4 block of the score tile and a
+// operations bound it (0.243 ms at the bf16 tensor rate). bf16 runs on the
+// tensor cores with mma.sync (m16n8k16, fp32 accumulation; the products of
+// bf16 values are exact, as in the TPU kernel's fp32 dots): one block of 4
+// warps per (64-row query tile, head, batch), each warp keeping its 16 rows'
+// Q fragments, 16 x 64 scores and 16 x D output in registers (the scores'
+// accumulator layout is the A operand of P.V, so P never goes to shared
+// memory), K and V^T tiles of 64 keys staged as bf16 with 16-byte loads.
+// It issues mma.sync, not Hopper's wgmma, and waits on each tile's loads:
+// wgmma with TMA and a pipeline is later work. fp32 runs on CUDA cores in
+// fp32 FMA (the tensor cores would round to TF32): one block of 256 threads
+// per tile; the query tile kept transposed in shared memory as fp32, each
+// 64-key tile of K (transposed) and then V goes through one shared buffer
+// (copied with 16-byte loads, all of a thread's issued before any is
+// stored), and each thread owns a 4 x 4 block of the score tile and a
 // 4 x (D / 16) block of the output accumulator in registers (float4 reads
 // of the transposed tiles, 2 shared loads per 16 FMAs in Q.K^T). Row max
-// and row sum run over the 16 threads of a row with warp shuffles.
+// and row sum run over the lanes that hold a row with warp shuffles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -231,6 +237,224 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- bf16
+// The bf16 path on the tensor cores: mma.sync m16n8k16 (bf16 products, fp32
+// accumulation). Each of 4 warps owns 16 query rows of the block's 64 and
+// keeps their Q fragments, their 16 x 64 score tile and their 16 x D output
+// accumulator in registers (the scores' accumulator layout is the A operand
+// layout of P.V, so P never goes through shared memory); K (row-major) and
+// V (transposed) tiles of 64 keys are staged in shared memory as bf16.
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kVtS = kBK + 8;   // row stride of the transposed V tile (bf16)
+
+__device__ __forceinline__ void mma_bf16_16816(float* d, const unsigned* a,
+                                               const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two floats rounded to bf16 in one 32-bit word, the first in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const unsigned l = __bfloat16_as_ushort(__float2bfloat16(lo));
+  const unsigned h = __bfloat16_as_ushort(__float2bfloat16(hi));
+  return l | (h << 16);
+}
+
+__device__ __forceinline__ unsigned load_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ out, int S, int H,
+                           int Hkv, int D, float scale, int causal,
+                           int kv_len) {
+  extern __shared__ float4 smem4[];
+  const int ks = D + 8;                            // K tile row stride (bf16)
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem4);  // [kBK][ks]
+  __nv_bfloat16* sVt = sK + kBK * ks;                            // [D][kVtS]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const size_t row_q = static_cast<size_t>(H) * D;
+  const size_t row_kv = static_cast<size_t>(Hkv) * D;
+  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * S * row_q + static_cast<size_t>(h) * D;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * S * row_kv + static_cast<size_t>(kvh) * D;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * S * row_kv + static_cast<size_t>(kvh) * D;
+  __nv_bfloat16* ob = out + static_cast<size_t>(b) * S * row_q + static_cast<size_t>(h) * D;
+  const int nk = D / 16, nd = D / 8;   // k-steps of Q.K^T, n-tiles of P.V
+  const int ra = q0 + 16 * warp + gid, rb = ra + 8;   // this thread's rows
+
+  // Q fragments: a[kk] = rows (ra, rb) x cols 16 kk + tig * 2 + {0, 1, 8, 9}
+  unsigned qa[kMaxD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kMaxD / 16; ++kk) {
+    if (kk < nk) {
+      const int c = 16 * kk + 2 * tig;
+      qa[kk][0] = ra < S ? load_u32(qb + ra * row_q + c) : 0u;
+      qa[kk][1] = rb < S ? load_u32(qb + rb * row_q + c) : 0u;
+      qa[kk][2] = ra < S ? load_u32(qb + ra * row_q + c + 8) : 0u;
+      qa[kk][3] = rb < S ? load_u32(qb + rb * row_q + c + 8) : 0u;
+    }
+  }
+  float o[kMaxD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kMaxD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  const int limit = min(kv_len, S);
+  const int kv_end = causal ? min(limit, q0 + kBQ) : limit;
+  const int cpr = D / 8;   // 16-byte chunks per row
+
+  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+    __syncthreads();   // the last tile's products are done with sK and sVt
+    {
+      constexpr int kMaxU = kBK * kMaxD / (8 * kMmaThreads);
+      uint4 kbuf[kMaxU], vbuf[kMaxU];
+#pragma unroll
+      for (int u = 0; u < kMaxU; ++u) {
+        const int i = tid + u * kMmaThreads;
+        const int r = i % kBK, j = i / kBK;
+        const bool in = i < kBK * cpr && k0 + r < S;
+        kbuf[u] = in ? *reinterpret_cast<const uint4*>(kb + (k0 + r) * row_kv + 8 * j)
+                     : make_uint4(0u, 0u, 0u, 0u);
+        vbuf[u] = in ? *reinterpret_cast<const uint4*>(vb + (k0 + r) * row_kv + 8 * j)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kMaxU; ++u) {
+        const int i = tid + u * kMmaThreads;
+        if (i < kBK * cpr) {
+          const int r = i % kBK, j = i / kBK;
+          *reinterpret_cast<uint4*>(sK + r * ks + 8 * j) = kbuf[u];
+          const unsigned w[4] = {vbuf[u].x, vbuf[u].y, vbuf[u].z, vbuf[u].w};
+          unsigned short* vt = reinterpret_cast<unsigned short*>(sVt);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            vt[(8 * j + 2 * e) * kVtS + r] = static_cast<unsigned short>(w[e] & 0xffffu);
+            vt[(8 * j + 2 * e + 1) * kVtS + r] = static_cast<unsigned short>(w[e] >> 16);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // S = Q K^T: 8 n-tiles of 8 keys; s[j] = rows (ra, rb) x keys
+    // k0 + 8 j + tig * 2 + {0, 1}
+    float sc[kBK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+      const __nv_bfloat16* krow = sK + (8 * j + gid) * ks + 2 * tig;
+#pragma unroll
+      for (int kk = 0; kk < kMaxD / 16; ++kk) {
+        if (kk < nk) {
+          const unsigned bb[2] = {load_u32(krow + 16 * kk),
+                                  load_u32(krow + 16 * kk + 8)};
+          mma_bf16_16816(sc[j], qa[kk], bb);
+        }
+      }
+    }
+    // mask, scale and the online softmax of rows ra (e = 0, 1) and rb (2, 3)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = hr == 0 ? ra : rb;
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * j + 2 * tig + e;
+          const bool live = col < limit && (!causal || row >= col);
+          float& x = sc[j][2 * hr + e];
+          x = live ? x * scale : kNegInf;
+          mt = fmaxf(mt, x);
+        }
+      // the row's 64 keys lie on the 4 lanes of a quad
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float m_new = fmaxf(m[hr], mt);
+      const float corr = expf(m[hr] - m_new);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[j][2 * hr + e];
+          x = expf(x - m_new);
+          rs += x;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[hr] = l[hr] * corr + rs;
+      m[hr] = m_new;
+#pragma unroll
+      for (int j = 0; j < kMaxD / 8; ++j) {
+        o[j][2 * hr] *= corr;
+        o[j][2 * hr + 1] *= corr;
+      }
+    }
+    // O += P V, P rounded to bf16 (the TPU kernel's p.astype(v.dtype)); the
+    // score tiles 2 kk and 2 kk + 1 are the A fragment of key step kk
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const unsigned pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < kMaxD / 8; ++j) {
+        if (j < nd) {
+          const __nv_bfloat16* vrow = sVt + (8 * j + gid) * kVtS + 16 * kk + 2 * tig;
+          const unsigned bb[2] = {load_u32(vrow), load_u32(vrow + 8)};
+          mma_bf16_16816(o[j], pa, bb);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = hr == 0 ? ra : rb;
+    if (row >= S) continue;
+    const float inv_l = 1.0f / fmaxf(l[hr], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < kMaxD / 8; ++j)
+      if (j < nd)
+        *reinterpret_cast<unsigned*>(ob + row * row_q + 8 * j + 2 * tig) =
+            pack_bf16(o[j][2 * hr] * inv_l, o[j][2 * hr + 1] * inv_l);
+  }
+}
+
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
+               int S, int H, int Hkv, int D, float scale, int causal,
+               int kv_len, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) *
+      (static_cast<size_t>(kBK) * (D + 8) + static_cast<size_t>(D) * kVtS);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  flash_attention_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      S, H, Hkv, D, scale, causal, kv_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int H, int Hkv, int D, float scale, int causal, int kv_len,
@@ -265,8 +489,8 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
     return launch<float>(q, k, v, out, B, S, H, Hkv, D, scale, causal,
                          kv_len, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, S, H, Hkv, D, scale, causal,
-                                 kv_len, stream);
+    return launch_mma(q, k, v, out, B, S, H, Hkv, D, scale, causal, kv_len,
+                      stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

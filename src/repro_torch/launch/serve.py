@@ -1,4 +1,4 @@
-"""Batched serving driver (the reference's ``repro.launch.serve`` CLI).
+"""Batched serving from the command line (the reference's ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \
         --requests 16 --max-new 24 [--device cpu]

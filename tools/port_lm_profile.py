@@ -27,7 +27,7 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
 
-KERNELS = ("flash_attention_kernel", "flash_decode_kernel", "ssd_scan_kernel")
+KERNELS = ("flash_attention", "flash_decode_kernel", "ssd_scan_kernel")
 
 
 def main() -> None:
