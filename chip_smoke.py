@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero, without the final result line):
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit;
   2. build the CUDA kernels from the sources in the checkout (one nvcc per
-     source, all at once) and print the build time and ptxas report;
+     source, all at once) and print the build time and ptxas report, and
+     count K4's wgmma (HGMMA) and TMA instructions in its machine code;
   3. hold each kernel against its plain PyTorch version on the card (the
      segment-DP kernel bit for bit, over profile kinds, M, G and k);
   4. replay the ``methylseq`` workflow at scale 1.0 through
@@ -42,7 +43,8 @@ Phases (any failure exits non-zero, without the final result line):
  11. serve zamba2-7b at full width cut to 6 layer positions in fp32 on the
      card and on the CPU: equal greedy tokens, logits within a tolerance;
  12. time K4-K6 at their most launched full-width shapes beside their plain
-     versions, PyTorch's scaled_dot_product_attention (K4, K5) and bounds.
+     versions, PyTorch's scaled_dot_product_attention (K4, K5) and bounds,
+     with K4's achieved TFLOP/s and K5's GB/s.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``. Imports
@@ -169,6 +171,18 @@ def build_kernels():
             if any(w in line for w in ("Function properties", "registers",
                                        "spill", "smem")):
                 print(f"[build] {name}: {line.strip()}")
+    # K4's bf16 path must run on Hopper's warpgroup products fed by TMA:
+    # count the instructions in the built library's machine code
+    sass = subprocess.run([str(pathlib.Path(_build.nvcc_path()).parent
+                               / "cuobjdump"), "-sass",
+                           str(_build.lib_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "SYNCS")}
+    print(f"[build] flash_attention SASS: {counts['HGMMA']} HGMMA (wgmma), "
+          f"{counts['UTMALDG']} UTMALDG (TMA loads), {counts['SYNCS']} SYNCS "
+          f"(mbarrier) instructions")
+    if not counts["HGMMA"] or not counts["UTMALDG"]:
+        _fail("flash_attention's library issues no wgmma or no TMA load")
 
 
 # ----------------------------------------------------------- phase 3
@@ -1354,7 +1368,23 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
         print(f"[time] {name} {shape} bf16: kernel {r['ms']:.5f} ms, plain "
               f"{r['plain_ms']:.5f} ms, library {lib}, bound "
-              f"{r['bound_ms']:.3e} ms ({r['bound_by']})")
+              f"{r['bound_ms']:.3e} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.3f} of the bound")
+    # the achieved rates of K4 (operations) and K5 (bytes), as the bounds
+    # count them
+    b, s, h, hkv, d = k4_shape
+    k4_flops = 4 * b * h * (s * (s + 1) // 2) * d
+    b, _smax, h, hkv, d, pos = k5_shape
+    k5_bytes = 2 * (2 * b * (pos + 1) * hkv * d + 2 * b * h * d)
+    for name, what, amount, unit in (
+            ("flash_attention", "causal products", k4_flops, "TFLOP/s"),
+            ("flash_decode", "live cache and query bytes", k5_bytes, "GB/s")):
+        r = rows[name]
+        scale = 1e9 if unit == "TFLOP/s" else 1e6
+        print(f"[time] {name}: {amount / r['ms'] / scale:.1f} {unit} of "
+              f"{what} (kernel), {amount / r['library_ms'] / scale:.1f} "
+              f"(library); {r['library_ms'] / r['ms']:.3f}x the library's "
+              f"speed")
     return rows
 
 

@@ -29,7 +29,7 @@ SOURCES = {
 }
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v", "-ldl")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,15 +54,20 @@ SIGNATURES = {
         "segment_cost_f32": (_P,) * 2 + (_I,) * 2 + (_P,),
     },
     "flash_attention": {
-        # dtype, q, k, v, out, B, S, H, Hkv, D, scale, causal, kv_len, stream
-        "flash_attention_fwd": (_I,) + (_P,) * 4 + (_I,) * 5 + (_F, _I, _I,
-                                                                _P),
+        # q, k, v, out, B, S, H, Hkv, D, scale, causal, kv_len, stream
+        "flash_attention_f32": (_P,) * 4 + (_I,) * 5 + (_F, _I, _I, _P),
+        # q, k and v tensor maps, out, B, S, H, Hkv, D, scale, causal,
+        # kv_len, stream
+        "flash_attention_bf16": (_P,) * 4 + (_I,) * 5 + (_F, _I, _I, _P),
+        # map_out, ptr, dims[4], byte strides[3], box[4]
+        "flash_attention_tensor_map": (_P,) * 5,
     },
     "flash_decode": {
         # dtype, q, k_cache, v_cache, pos, out, B, H, Hkv, D, S_max,
-        # k strides (B, S, Hkv), v strides (B, S, Hkv), scale, stream
+        # k strides (B, S, Hkv), v strides (B, S, Hkv), scale, splits,
+        # span, stream
         "flash_decode_fwd": (_I,) + (_P,) * 5 + (_I,) * 5 + (_L,) * 6
-        + (_F, _P),
+        + (_F, _I, _I, _P),
     },
     "ssd_scan": {
         # dtype, x, dt, B, C, a, y, final_state, B, S, H, P, N, Q,

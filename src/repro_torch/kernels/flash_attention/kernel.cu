@@ -18,25 +18,56 @@
 // What bounds it on an H100: at the serving shapes (B = 8, H = Hkv = 32,
 // D = 112, S = 256..2048, bf16) a launch does 4 * B * H * S^2 * D / 2 FLOPs
 // of products (240.6 GFLOP at S = 2048) on 0.2 GB of inputs and outputs, so
-// operations bound it (0.243 ms at the bf16 tensor rate). bf16 runs on the
-// tensor cores with mma.sync (m16n8k16, fp32 accumulation; the products of
-// bf16 values are exact, as in the TPU kernel's fp32 dots): one block of 4
-// warps per (64-row query tile, head, batch), each warp keeping its 16 rows'
-// Q fragments, 16 x 64 scores and 16 x D output in registers (the scores'
-// accumulator layout is the A operand of P.V, so P never goes to shared
-// memory), K and V^T tiles of 64 keys staged as bf16 with 16-byte loads.
-// It issues mma.sync, not Hopper's wgmma, and waits on each tile's loads:
-// wgmma with TMA and a pipeline is later work. fp32 runs on CUDA cores in
-// fp32 FMA (the tensor cores would round to TF32): one block of 256 threads
-// per tile; the query tile kept transposed in shared memory as fp32, each
-// 64-key tile of K (transposed) and then V goes through one shared buffer
-// (copied with 16-byte loads, all of a thread's issued before any is
-// stored), and each thread owns a 4 x 4 block of the score tile and a
-// 4 x (D / 16) block of the output accumulator in registers (float4 reads
-// of the transposed tiles, 2 shared loads per 16 FMAs in Q.K^T). Row max
-// and row sum run over the lanes that hold a row with warp shuffles.
+// operations bound it (0.243 ms at the bf16 tensor rate of 989 TFLOP/s).
+//
+// bf16 runs on Hopper's warpgroup tensor-core products (wgmma) fed by the
+// Tensor Memory Accelerator (TMA), FlashAttention-3 style. One block of three
+// warpgroups per (128-row query tile, head, sequence); the grid's x walks a
+// head's query tiles in falling order of work, so each head's heaviest
+// causal tiles start first and the blocks on the card at once share a few
+// heads' K and V in L2. One producer thread keeps TMA loads of
+// 64-key K and V tiles in flight through a K ring and a V ring in shared
+// memory (full and empty mbarriers each), so a K tile is released once
+// Q.K^T has read it and a V tile once P.V has; setmaxnreg moves registers
+// from the producer to the two consumer warpgroups of 64 query rows each.
+// A consumer issues tile i's S = Q.K^T (wgmma m64n64k16, Q and K from
+// shared memory, both K-major) together with tile i - 1's O += P.V (P from
+// registers: the scores' accumulator layout is the A operand's, rounded to
+// bf16 there, the TPU kernel's p.astype(v.dtype); V from shared memory read
+// MN-major with wgmma's transpose bit, so V is never transposed by hand;
+// N = 64 and D - 64 over V's two boxes, 64 + 48 at D = 112), so tile i's
+// softmax overlaps tile i - 1's product; the two consumers take turns to
+// issue (named barriers), so one's softmax overlaps the other's products.
+// The tensors are 4-D tensor maps (D, heads, S, B) read in boxes of 64
+// values of one head (one 128-byte swizzled row, the swizzle the wgmma
+// descriptors name) over 128 query or 64 key positions: a box never reaches
+// into the next head, and TMA fills zeros past D and past S. The softmax
+// stays in fp32 registers: the running maximum of the unscaled scores, and
+// p = 2^(s c - m c) with c = scale * log2(e), one FFMA and one ex2 a score;
+// the causal and kv_len mask is a second copy of the softmax, run only on
+// the tiles that cross the diagonal or kv_len. At the serving shape it
+// reaches a little over a third of the bf16 rate (PERF.md): one block per
+// SM leaves each block's first loads exposed, every 128-row query tile reads
+// its K and V through L2 again, and the special-function unit's ex2s queue
+// behind one another.
+//
+// fp32 runs on CUDA cores in fp32 FMA (the tensor cores would round to TF32):
+// one block of 256 threads per 64-row tile; the query tile kept transposed in
+// shared memory as fp32, each 64-key tile of K (transposed) and then V goes
+// through one shared buffer (copied with 16-byte loads, all of a thread's
+// issued before any is stored), and each thread owns a 4 x 4 block of the
+// score tile and a 4 x (D / 16) block of the output accumulator in registers
+// (float4 reads of the transposed tiles, 2 shared loads per 16 FMAs in
+// Q.K^T). Row max and row sum run over the lanes that hold a row with warp
+// shuffles.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+
+#include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -48,16 +79,9 @@ constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
 }
 // p rounded to T and back: the TPU kernel's p.astype(v.dtype) before P.V
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -69,15 +93,6 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
   f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z);
   f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* f,
-                                       __nv_bfloat16) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 // Stage rows r0..r0+63 of a (S x D) slab (row stride ld elements) in shared
@@ -237,261 +252,593 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- bf16
-// The bf16 path on the tensor cores: mma.sync m16n8k16 (bf16 products, fp32
-// accumulation). Each of 4 warps owns 16 query rows of the block's 64 and
-// keeps their Q fragments, their 16 x 64 score tile and their 16 x D output
-// accumulator in registers (the scores' accumulator layout is the A operand
-// layout of P.V, so P never goes through shared memory); K (row-major) and
-// V (transposed) tiles of 64 keys are staged in shared memory as bf16.
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kVtS = kBK + 8;   // row stride of the transposed V tile (bf16)
 
-__device__ __forceinline__ void mma_bf16_16816(float* d, const unsigned* a,
-                                               const unsigned* b) {
+// ---------------------------------------------------------------- bf16
+// wgmma + TMA. Shared memory (1024-byte aligned, as the 128-byte swizzle
+// needs): the Q tile (kChunks boxes of 128 rows x 64 columns, 16 KB each),
+// then the K ring and the V ring (kStages tiles each of kChunks boxes of 64
+// rows x 64 columns, 8 KB each), then the mbarriers.
+constexpr int kTile = 128;            // query rows per block
+constexpr int kKeys = 64;             // keys per K or V tile
+constexpr int kAtom = 64;             // bf16 columns per 128-byte swizzle row
+constexpr int kBoxBytes = kTile * kAtom * 2;      // a Q box
+constexpr int kKvBoxBytes = kKeys * kAtom * 2;   // a K or V box
+constexpr int kConsumers = 2;         // warpgroups of 64 query rows
+constexpr int kWgThreads = 128;
+constexpr int kWgmmaThreads = (kConsumers + 1) * kWgThreads;
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+// the (64, 1, 128, 1) box at (d, head, s, b) of a 4-D tensor map, completing
+// on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int h, int s,
+                                         int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h), "r"(s),
+      "r"(b) : "memory");
+}
+// wgmma's shared-memory matrix descriptor of a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (in 16-byte units)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(sbo & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// keep the compiler from moving accesses of wgmma's registers across a wait
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D(64 x 64, fp32) += A(64 x 16, registers) . B(16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const unsigned* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 64, fp32) (+)= A(64 x 16, smem) . B(16 x 64, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D(64 x 16, fp32) += A(64 x 16, registers) . B(16 x 16, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const unsigned* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 32, fp32) += A(64 x 16, registers) . B(16 x 32, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const unsigned* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 48, fp32) += A(64 x 16, registers) . B(16 x 48, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n48(float* d, const unsigned* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O(64 x N) += P(64 x 16) . V(16 x N) for the N columns of one V box
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const unsigned* a,
+                                         uint64_t db) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64, "N");
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  if constexpr (N == 48) wgmma_rs_n48(d, a, db);
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
 }
 
 // two floats rounded to bf16 in one 32-bit word, the first in the low half
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const unsigned l = __bfloat16_as_ushort(__float2bfloat16(lo));
-  const unsigned h = __bfloat16_as_ushort(__float2bfloat16(hi));
-  return l | (h << 16);
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
-__device__ __forceinline__ unsigned load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+// kChunks 64-column boxes span D (1: D <= 64, 2: D <= 128). K and V have
+// rings of their own, so a K tile is released as soon as Q.K^T has read it
+// and a V tile once P.V has.
+template <int kChunks>
+struct WgmmaPlan {
+  static constexpr int kStages = kChunks == 1 ? 8 : 4;
+  static constexpr int kQBytes = kChunks * kBoxBytes;
+  static constexpr int kTileBytes = kChunks * kKvBoxBytes;
+  static constexpr int kBars = 4 * kStages + 1;
+  // Q, the K and V rings, the barriers, and slack to align to 1024 bytes
+  static constexpr int kSmem =
+      kQBytes + 2 * kStages * kTileBytes + 8 * kBars + 1024;
+};
+
+// 2^x on the special-function unit (flushes denormals, 2 ulp)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// named barriers of the two consumer warpgroups (0 is __syncthreads')
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers * kWgThreads)
+               : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id),
+               "n"(kConsumers * kWgThreads) : "memory");
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
-flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ out, int S, int H,
-                           int Hkv, int D, float scale, int causal,
-                           int kv_len) {
-  extern __shared__ float4 smem4[];
-  const int ks = D + 8;                            // K tile row stride (bf16)
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem4);  // [kBK][ks]
-  __nv_bfloat16* sVt = sK + kBK * ks;                            // [D][kVtS]
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// kNk = D / 16 k-steps of Q.K^T; kChunks = 64-column boxes spanning D;
+// P.V runs over kN0 columns of the first box and kN1 of the second
+template <int kNk, int kChunks = (kNk + 3) / 4,
+          int kN0 = (kNk < 4 ? kNk : 4) * 16, int kN1 = 16 * kNk - kN0>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ out, int S, int H,
+                             int Hkv, int D, float scale_log2, int causal,
+                             int kv_len) {
+  using Plan = WgmmaPlan<kChunks>;
+  constexpr int kStages = Plan::kStages, kTileBytes = Plan::kTileBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
+  const uint32_t sK0 = sQ + Plan::kQBytes;              // K ring
+  const uint32_t sV0 = sK0 + kStages * kTileBytes;      // V ring
+  const uint32_t bars = sV0 + kStages * kTileBytes;
+  auto sK = [&](int st) { return sK0 + st * kTileBytes; };
+  auto sV = [&](int st) { return sV0 + st * kTileBytes; };
+  auto full_k = [&](int st) { return bars + 8 * st; };
+  auto empty_k = [&](int st) { return bars + 8 * (kStages + st); };
+  auto full_v = [&](int st) { return bars + 8 * (2 * kStages + st); };
+  auto empty_v = [&](int st) { return bars + 8 * (3 * kStages + st); };
+  const uint32_t qbar = bars + 32 * kStages;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int q0 = blockIdx.x * kBQ;
+  // x walks a head's query tiles in falling order of work, so the blocks
+  // on the card at once share few heads' K and V (they stay in L2) and
+  // each head's heaviest tiles start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / Hkv);
-  const size_t row_q = static_cast<size_t>(H) * D;
-  const size_t row_kv = static_cast<size_t>(Hkv) * D;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * S * row_q + static_cast<size_t>(h) * D;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * S * row_kv + static_cast<size_t>(kvh) * D;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * S * row_kv + static_cast<size_t>(kvh) * D;
-  __nv_bfloat16* ob = out + static_cast<size_t>(b) * S * row_q + static_cast<size_t>(h) * D;
-  const int nk = D / 16, nd = D / 8;   // k-steps of Q.K^T, n-tiles of P.V
-  const int ra = q0 + 16 * warp + gid, rb = ra + 8;   // this thread's rows
-
-  // Q fragments: a[kk] = rows (ra, rb) x cols 16 kk + tig * 2 + {0, 1, 8, 9}
-  unsigned qa[kMaxD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kMaxD / 16; ++kk) {
-    if (kk < nk) {
-      const int c = 16 * kk + 2 * tig;
-      qa[kk][0] = ra < S ? load_u32(qb + ra * row_q + c) : 0u;
-      qa[kk][1] = rb < S ? load_u32(qb + rb * row_q + c) : 0u;
-      qa[kk][2] = ra < S ? load_u32(qb + ra * row_q + c + 8) : 0u;
-      qa[kk][3] = rb < S ? load_u32(qb + rb * row_q + c + 8) : 0u;
-    }
-  }
-  float o[kMaxD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kMaxD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
   const int limit = min(kv_len, S);
-  const int kv_end = causal ? min(limit, q0 + kBQ) : limit;
-  const int cpr = D / 8;   // 16-byte chunks per row
+  const int kv_end = causal ? min(limit, q0 + kTile) : limit;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();   // the last tile's products are done with sK and sVt
-    {
-      constexpr int kMaxU = kBK * kMaxD / (8 * kMmaThreads);
-      uint4 kbuf[kMaxU], vbuf[kMaxU];
-#pragma unroll
-      for (int u = 0; u < kMaxU; ++u) {
-        const int i = tid + u * kMmaThreads;
-        const int r = i % kBK, j = i / kBK;
-        const bool in = i < kBK * cpr && k0 + r < S;
-        kbuf[u] = in ? *reinterpret_cast<const uint4*>(kb + (k0 + r) * row_kv + 8 * j)
-                     : make_uint4(0u, 0u, 0u, 0u);
-        vbuf[u] = in ? *reinterpret_cast<const uint4*>(vb + (k0 + r) * row_kv + 8 * j)
-                     : make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_k(st), 1);                 // the producer's arrival
+      mbar_init(full_v(st), 1);
+      mbar_init(empty_k(st), kConsumers * 4);   // each consumer warp's
+      mbar_init(empty_v(st), kConsumers * 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers * kWgThreads) {
+    // the producer warpgroup: one thread issues every load, K_i before V_i
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kConsumers * kWgThreads) {
+      mbar_expect_tx(qbar, Plan::kQBytes);
+      for (int c = 0; c < kChunks; ++c)
+        tma_load(sQ + c * kBoxBytes, &tq, qbar, c * kAtom, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const unsigned ph = ((i / kStages) & 1) ^ 1;
+        mbar_wait(empty_k(st), ph);
+        mbar_expect_tx(full_k(st), kTileBytes);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load(sK(st) + c * kKvBoxBytes, &tk, full_k(st), c * kAtom, kvh,
+                   i * kKeys, b);
+        mbar_wait(empty_v(st), ph);
+        mbar_expect_tx(full_v(st), kTileBytes);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load(sV(st) + c * kKvBoxBytes, &tv, full_v(st), c * kAtom, kvh,
+                   i * kKeys, b);
       }
+    }
+  } else {
+    // a consumer warpgroup: query rows q0 + 64 wg .. + 63. Tile i's Q.K^T
+    // is issued with tile i - 1's P.V, so the softmax of tile i overlaps the
+    // product of tile i - 1; and the two warpgroups take turns to issue
+    // (named barriers 1 and 2), so one's softmax overlaps the other's
+    // products.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = tid / kWgThreads;
+    const int warp = (tid % kWgThreads) / 32, lane = tid % 32;
+    const int quad = lane / 4, t4 = lane % 4;
+    const int r0 = q0 + 64 * wg + 16 * warp + quad;   // rows r0 and r0 + 8
+    // this warpgroup's 64 rows of each Q box (64 rows x 128 bytes)
+    const uint32_t qa = sQ + wg * 64 * 128;
+    // o0[4 j + 2 hr + e] is row r0 + 8 hr, column 8 j + 2 t4 + e; o1 the
+    // same 64 columns on
+    float o0[kN0 / 2], o1[kN1 > 0 ? kN1 / 2 : 1];
 #pragma unroll
-      for (int u = 0; u < kMaxU; ++u) {
-        const int i = tid + u * kMmaThreads;
-        if (i < kBK * cpr) {
-          const int r = i % kBK, j = i / kBK;
-          *reinterpret_cast<uint4*>(sK + r * ks + 8 * j) = kbuf[u];
-          const unsigned w[4] = {vbuf[u].x, vbuf[u].y, vbuf[u].z, vbuf[u].w};
-          unsigned short* vt = reinterpret_cast<unsigned short*>(sVt);
+    for (int i = 0; i < kN0 / 2; ++i) o0[i] = 0.0f;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            vt[(8 * j + 2 * e) * kVtS + r] = static_cast<unsigned short>(w[e] & 0xffffu);
-            vt[(8 * j + 2 * e + 1) * kVtS + r] = static_cast<unsigned short>(w[e] >> 16);
+    for (int i = 0; i < kN1 / 2; ++i) o1[i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+    // P of the last tile, rounded to bf16 (the TPU kernel's
+    // p.astype(v.dtype)): the score blocks 2 kk and 2 kk + 1 are the A
+    // fragment of key step kk
+    unsigned p[4][4];
+    // O += P V over V's tile st; V's key step kk is 16 rows of 128 bytes
+    // into each box
+    auto pv = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<kN0>(o0, p[kk], sw128_desc(sV(st) + kk * 2048, 64, 64));
+        if constexpr (kN1 > 0)
+          wgmma_rs<kN1>(o1, p[kk], sw128_desc(sV(st) + kKvBoxBytes +
+                                                  kk * 2048, 64, 64));
+      }
+    };
+    auto pin_o = [&] {
+      pin<kN0 / 2>(o0);
+      if constexpr (kN1 > 0) pin<kN1 / 2>(o1);
+    };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // S = Q K^T over K's tile st: 64 x 64 in fp32; k-step kk is 32 bytes
+    // into box kk / 4. s[4 j + 2 hr + e] is row r0 + 8 hr, key
+    // k0 + 8 j + 2 t4 + e.
+    float s[32];
+    auto qk = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < kNk; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_n64(s, sw128_desc(qa + (kk / 4) * kBoxBytes + off, 1, 64),
+                     sw128_desc(sK(st) + (kk / 4) * kKvBoxBytes + off, 1, 64),
+                     kk > 0);
+      }
+    };
+    // the online softmax of tile k0: m is the running maximum of the
+    // unscaled scores and p = 2^(s c - m c) with c = scale * log2(e), one
+    // FFMA and one ex2 a score; the mask is compiled into a second copy,
+    // which runs only on the tiles that cross the diagonal or kv_len
+    float corr[2];
+    auto softmax_as = [&](int k0, auto masked_t) {
+      constexpr bool masked = decltype(masked_t)::value;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = r0 + 8 * hr;
+        float mx[2] = {kNegInf, kNegInf};   // two chains
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * hr + e];
+            if constexpr (masked) {
+              const int col = k0 + 8 * j + 2 * t4 + e;
+              if (col >= limit || (causal && col > row)) x = kNegInf;
+            }
+            mx[e] = fmaxf(mx[e], x);
           }
-        }
+        float mt = fmaxf(mx[0], mx[1]);
+        // the row's 64 keys lie on the 4 lanes of a quad
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float m_new = fmaxf(m[hr], mt);
+        corr[hr] = ex2((m[hr] - m_new) * scale_log2);
+        const float mc = m_new * scale_log2;
+        float sum[2] = {0.0f, 0.0f};   // two chains
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * hr + e];
+            x = ex2(fmaf(x, scale_log2, -mc));
+            sum[e] += x;
+          }
+        float rs = sum[0] + sum[1];
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l[hr] = l[hr] * corr[hr] + rs;
+        m[hr] = m_new;
       }
-    }
-    __syncthreads();
+    };
+    auto softmax = [&](int k0) {
+      if (k0 + kKeys > limit || (causal && k0 + kKeys - 1 > q0 + 64 * wg))
+        softmax_as(k0, std::true_type());
+      else
+        softmax_as(k0, std::false_type());
+    };
+    auto pack_p = [&] {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+    mbar_wait(qbar, 0);
+    if (wg == 1) bar_arrive(1);   // warpgroup 0 issues first
 
-    // S = Q K^T: 8 n-tiles of 8 keys; s[j] = rows (ra, rb) x keys
-    // k0 + 8 j + tig * 2 + {0, 1}
-    float sc[kBK / 8][4];
+    // tile 0
+    mbar_wait(full_k(0), 0);
+    bar_sync(1 + wg);   // this warpgroup's turn to issue
+    wgmma_fence();
+    qk(0);
+    wgmma_commit();
+    bar_arrive(2 - wg);   // the other warpgroup's turn
+    wgmma_wait<0>();
+    pin<32>(s);
+    release(empty_k(0));
+    softmax(0);
+    pack_p();
+
+    for (int i = 1; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      const int pst = (i - 1) % kStages;   // tile i - 1's stage
+      mbar_wait(full_k(st), (i / kStages) & 1);
+      mbar_wait(full_v(pst), ((i - 1) / kStages) & 1);
+      bar_sync(1 + wg);
+      wgmma_fence();
+      qk(st);
+      wgmma_commit();
+      pv(pst);
+      wgmma_commit();
+      bar_arrive(2 - wg);
+      wgmma_wait<1>();   // Q.K^T is done; P.V may still run
+      pin<32>(s);
+      release(empty_k(st));
+      softmax(i * kKeys);
+      wgmma_wait<0>();   // tile i - 1's P.V is done with p, o and V
+      pin_o();
+      release(empty_v(pst));
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+      for (int j = 0; j < kN0 / 2; ++j) o0[j] *= corr[(j / 2) % 2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
-      const __nv_bfloat16* krow = sK + (8 * j + gid) * ks + 2 * tig;
-#pragma unroll
-      for (int kk = 0; kk < kMaxD / 16; ++kk) {
-        if (kk < nk) {
-          const unsigned bb[2] = {load_u32(krow + 16 * kk),
-                                  load_u32(krow + 16 * kk + 8)};
-          mma_bf16_16816(sc[j], qa[kk], bb);
-        }
-      }
+      for (int j = 0; j < kN1 / 2; ++j) o1[j] *= corr[(j / 2) % 2];
+      pack_p();
     }
-    // mask, scale and the online softmax of rows ra (e = 0, 1) and rb (2, 3)
+    // the last tile's P.V
+    const int last = (n_tiles - 1) % kStages;
+    mbar_wait(full_v(last), ((n_tiles - 1) / kStages) & 1);
+    bar_sync(1 + wg);
+    wgmma_fence();
+    pv(last);
+    wgmma_commit();
+    if (wg == 0) bar_arrive(2);   // warpgroup 1's last turn
+    wgmma_wait<0>();
+    pin_o();
+
+    const size_t row_q = static_cast<size_t>(H) * D;
+    __nv_bfloat16* ob = out + static_cast<size_t>(b) * S * row_q +
+                        static_cast<size_t>(h) * D;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int row = hr == 0 ? ra : rb;
-      float mt = kNegInf;
+      const int row = r0 + 8 * hr;
+      if (row >= S) continue;
+      const float inv_l = 1.0f / fmaxf(l[hr], 1e-30f);
+      __nv_bfloat16* orow = ob + row * row_q + 2 * t4;
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
+      for (int j = 0; j < kN0 / 8; ++j)
+        *reinterpret_cast<unsigned*>(orow + 8 * j) = pack_bf16(
+            o0[4 * j + 2 * hr] * inv_l, o0[4 * j + 2 * hr + 1] * inv_l);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k0 + 8 * j + 2 * tig + e;
-          const bool live = col < limit && (!causal || row >= col);
-          float& x = sc[j][2 * hr + e];
-          x = live ? x * scale : kNegInf;
-          mt = fmaxf(mt, x);
-        }
-      // the row's 64 keys lie on the 4 lanes of a quad
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_new = fmaxf(m[hr], mt);
-      const float corr = expf(m[hr] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = sc[j][2 * hr + e];
-          x = expf(x - m_new);
-          rs += x;
-        }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[hr] = l[hr] * corr + rs;
-      m[hr] = m_new;
-#pragma unroll
-      for (int j = 0; j < kMaxD / 8; ++j) {
-        o[j][2 * hr] *= corr;
-        o[j][2 * hr + 1] *= corr;
-      }
+      for (int j = 0; j < kN1 / 8; ++j)
+        *reinterpret_cast<unsigned*>(orow + 64 + 8 * j) = pack_bf16(
+            o1[4 * j + 2 * hr] * inv_l, o1[4 * j + 2 * hr + 1] * inv_l);
     }
-    // O += P V, P rounded to bf16 (the TPU kernel's p.astype(v.dtype)); the
-    // score tiles 2 kk and 2 kk + 1 are the A fragment of key step kk
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < kMaxD / 8; ++j) {
-        if (j < nd) {
-          const __nv_bfloat16* vrow = sVt + (8 * j + gid) * kVtS + 16 * kk + 2 * tig;
-          const unsigned bb[2] = {load_u32(vrow), load_u32(vrow + 8)};
-          mma_bf16_16816(o[j], pa, bb);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = hr == 0 ? ra : rb;
-    if (row >= S) continue;
-    const float inv_l = 1.0f / fmaxf(l[hr], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < kMaxD / 8; ++j)
-      if (j < nd)
-        *reinterpret_cast<unsigned*>(ob + row * row_q + 8 * j + 2 * tig) =
-            pack_bf16(o[j][2 * hr] * inv_l, o[j][2 * hr + 1] * inv_l);
   }
 }
 
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int H, int Hkv, int D, float scale, int causal,
-               int kv_len, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) *
-      (static_cast<size_t>(kBK) * (D + 8) + static_cast<size_t>(D) * kVtS);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// Opt a kernel in to `bytes` of dynamic shared memory once per device: the
+// attribute persists, so later launches skip the call.
+cudaError_t opt_in_smem(const void* kernel, int* done, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done[dev] = bytes;
+  return err;
+}
+
+template <int kNk>
+int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                 const CUtensorMap& tv, void* out, int B, int S, int H,
+                 int Hkv, int D, float scale, int causal, int kv_len,
+                 cudaStream_t stream) {
+  static int opted[kMaxDevices];
+  const int smem = WgmmaPlan<(kNk + 3) / 4>::kSmem;
+  cudaError_t err = opt_in_smem(
+      reinterpret_cast<const void*>(flash_attention_wgmma_kernel<kNk>),
+      opted, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      S, H, Hkv, D, scale, causal, kv_len);
+  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  flash_attention_wgmma_kernel<kNk><<<grid, kWgmmaThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, H, Hkv, D,
+      scale * 1.4426950408889634f, causal, kv_len);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int Hkv, int D, float scale, int causal, int kv_len,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(D) * kTS +
-                                       static_cast<size_t>(kBK) * kTS);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, Hkv, D, scale,
-      causal, kv_len);
-  return static_cast<int>(cudaGetLastError());
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver library that the CUDA runtime has
+// loaded (no link against libcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
 }
 
 }  // namespace
 
-// q (B, S, H, D), k and v (B, S, Hkv, D), out (B, S, H, D), all contiguous
-// and 16-byte aligned, of one type: dtype 0 = float32, 1 = bfloat16.
-// D % 16 == 0, D <= 128.
-extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
+// The TMA descriptor of a bf16 tensor viewed as 4-D: dims (innermost first),
+// the byte strides of dims 1..3 (multiples of 16), the box; 128-byte swizzle,
+// zeros outside the tensor. Written to map_out (128 bytes).
+extern "C" int flash_attention_tensor_map(void* map_out, const void* ptr,
+                                          const long long* dims,
+                                          const long long* strides,
+                                          const int* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSharedObjectInitFailed);
+  alignas(64) CUtensorMap map;
+  cuuint64_t gdim[4], gstride[3];
+  cuuint32_t bdim[4], estride[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    bdim[i] = static_cast<cuuint32_t>(box[i]);
+  }
+  for (int i = 0; i < 3; ++i) gstride[i] = static_cast<cuuint64_t>(strides[i]);
+  const CUresult r = fn(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), gdim, gstride, bdim, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  std::memcpy(map_out, &map, sizeof(map));
+  return 0;
+}
+
+// bf16: q, k, v given by their tensor maps (flash_attention_tensor_map with
+// the (64, 1, 128, 1) box), out (B, S, H, D) contiguous. D % 16 == 0,
+// D <= 128.
+extern "C" int flash_attention_bf16(const void* q_map, const void* k_map,
+                                    const void* v_map, void* out, int B, int S,
+                                    int H, int Hkv, int D, float scale,
+                                    int causal, int kv_len,
+                                    cudaStream_t stream) {
+  if (D % 16 != 0 || D < 16 || D > kMaxD || H % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  alignas(64) CUtensorMap tq, tk, tv;
+  std::memcpy(&tq, q_map, sizeof(tq));
+  std::memcpy(&tk, k_map, sizeof(tk));
+  std::memcpy(&tv, v_map, sizeof(tv));
+  using Launch = int (*)(const CUtensorMap&, const CUtensorMap&,
+                        const CUtensorMap&, void*, int, int, int, int, int,
+                        float, int, int, cudaStream_t);
+  static const Launch by_nk[8] = {
+      launch_wgmma<1>, launch_wgmma<2>, launch_wgmma<3>, launch_wgmma<4>,
+      launch_wgmma<5>, launch_wgmma<6>, launch_wgmma<7>, launch_wgmma<8>};
+  return by_nk[D / 16 - 1](tq, tk, tv, out, B, S, H, Hkv, D, scale, causal,
+                           kv_len, stream);
+}
+
+// fp32: q (B, S, H, D), k and v (B, S, Hkv, D), out (B, S, H, D), all
+// contiguous and 16-byte aligned. D % 16 == 0, D <= 128.
+extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int B, int S,
                                    int H, int Hkv, int D, float scale,
                                    int causal, int kv_len,
                                    cudaStream_t stream) {
   if (D % 16 != 0 || D > kMaxD || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch<float>(q, k, v, out, B, S, H, Hkv, D, scale, causal,
-                         kv_len, stream);
-  if (dtype == 1)
-    return launch_mma(q, k, v, out, B, S, H, Hkv, D, scale, causal, kv_len,
-                      stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  static int opted[kMaxDevices];
+  const int smem = static_cast<int>(
+      sizeof(float) * (2 * static_cast<size_t>(D) * kTS +
+                       static_cast<size_t>(kBK) * kTS));
+  cudaError_t err = opt_in_smem(
+      reinterpret_cast<const void*>(flash_attention_kernel<float>), opted,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  flash_attention_kernel<float><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, H, Hkv, D,
+      scale, causal, kv_len);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -1,12 +1,21 @@
-"""Flash-attention wrapper: checks, output allocation and the launch.
+"""Flash-attention wrapper: checks, tensor maps, output allocation and the
+launch.
 
 ``flash_attention`` takes the model's layout, q (B, S, H, D) and k, v
 (B, S, Hkv, D). CPU tensors take the plain version (``ref.py``); CUDA
 tensors launch the kernel in ``kernel.cu`` on the current stream, which
 reads the tensors as they are (no padding of D or S, no transpose, no
-repeated heads) and raises on what it does not take.
+repeated heads) and raises on what it does not take. The bf16 kernel reads
+its inputs through TMA: each tensor is described to the card as 4-D,
+(D, heads, S, B) innermost first, and loaded in boxes of 64 values of one
+head over 128 query or 64 key positions (``tensor_map_plan``); the
+descriptors are cached by pointer, shape and strides, so a repeated call
+encodes none.
 """
 from __future__ import annotations
+
+import collections
+import ctypes
 
 import torch
 
@@ -15,8 +24,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 NAME = "flash_attention"
-MAX_HEAD_DIM = 128          # the kernel's register block: D / 16 <= 8
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128          # two 64-column boxes (bf16), D / 16 <= 8 (fp32)
+TILE = 128                  # bf16: query rows per block
+KEYS = 64                   # bf16: keys per K or V tile
+ATOM = 64                   # bf16 values in one 128-byte swizzled box row
+MAP_BYTES = 128             # sizeof(CUtensorMap)
+MAX_MAPS = 64               # tensor maps kept
+_MAPS: collections.OrderedDict = collections.OrderedDict()
 
 
 def _check(q, k, v, kv_len):
@@ -45,7 +59,7 @@ def _check_cuda(q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("flash_attention reads its inputs in 16-byte "
                              "chunks: they must be 16-byte aligned")
-    if q.dtype not in DTYPES:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention takes float32 or bfloat16, not "
                          f"{q.dtype}")
     d = q.shape[3]
@@ -55,6 +69,48 @@ def _check_cuda(q, k, v):
     if q.shape[0] > 65535 or q.shape[2] > 65535:
         raise ValueError("flash_attention takes at most 65535 sequences "
                          "and heads (the grid's y and z)")
+
+
+def tensor_map_plan(t: torch.Tensor, rows: int = TILE):
+    """The TMA view of a bf16 (B, S, heads, D) tensor with unit stride over
+    D: its dims innermost first (D, heads, S, B), the byte strides of
+    heads, S and B, and the box (ATOM, 1, rows, 1) that one load fills.
+    TMA takes byte strides that are multiples of 16 below 2**40 and a
+    16-byte aligned base; zeros fill the box past D and past S."""
+    if t.dim() != 4 or t.stride(3) != 1:
+        raise ValueError("a tensor map takes a 4-D tensor with unit stride "
+                         "over its last dimension")
+    b, s, h, d = t.shape
+    es = t.element_size()
+    strides = tuple(es * t.stride(i) for i in (2, 1, 0))
+    if any(st % 16 or st >= 2 ** 40 for st in strides):
+        raise ValueError(f"TMA takes byte strides that are multiples of 16 "
+                         f"below 2**40, got {strides}")
+    if t.data_ptr() % 16:
+        raise ValueError("TMA takes a 16-byte aligned tensor")
+    if not 1 <= rows <= 256:
+        raise ValueError(f"a TMA box has 1..256 rows, got {rows}")
+    return (d, h, s, b), strides, (ATOM, 1, rows, 1)
+
+
+def _tensor_map(lib, t: torch.Tensor, rows: int) -> int:
+    """The address of ``t``'s cached tensor map, encoded on first use."""
+    dims, strides, box = tensor_map_plan(t, rows)
+    key = (t.device.index, t.data_ptr(), dims, strides, box)
+    buf = _MAPS.get(key)
+    if buf is None:
+        buf = (ctypes.c_ubyte * MAP_BYTES)()
+        err = lib.flash_attention_tensor_map(
+            ctypes.addressof(buf), t.data_ptr(),
+            (ctypes.c_longlong * 4)(*dims), (ctypes.c_longlong * 3)(*strides),
+            (ctypes.c_int * 4)(*box))
+        _build.check(lib, err, f"{NAME} tensor map")
+        _MAPS[key] = buf
+        if len(_MAPS) > MAX_MAPS:
+            _MAPS.popitem(last=False)
+    else:
+        _MAPS.move_to_end(key)
+    return ctypes.addressof(buf)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -76,10 +132,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
     lib = _build.load(NAME)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, s, h, k.shape[2], d, scale, int(causal),
-            kv_len, stream)
+        if q.dtype == torch.bfloat16:
+            err = lib.flash_attention_bf16(
+                _tensor_map(lib, q, TILE), _tensor_map(lib, k, KEYS),
+                _tensor_map(lib, v, KEYS), out.data_ptr(),
+                b, s, h, k.shape[2], d, scale, int(causal), kv_len, stream)
+        else:
+            err = lib.flash_attention_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                s, h, k.shape[2], d, scale, int(causal), kv_len, stream)
     _build.check(lib, err, NAME)
     KERNEL_LAUNCHES[NAME] += 1
     return out

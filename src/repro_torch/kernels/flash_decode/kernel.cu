@@ -9,7 +9,7 @@
 //   ascending position; p rounded to v's type before P.V; out = acc /
 //   max(l, 1e-30) in q's type; kv_head = head / (H / Hkv).
 // pos is read on the device from an int32 (the TPU kernel takes it as a
-// scalar block), so a decode step needs no device->host copy, and blocks
+// scalar block), so a decode step needs no device->host copy, and positions
 // past pos are never read (the TPU kernel's pl.when(isb * bs <= pos)). The
 // cache is read in the model's layout (B, S_max, Hkv, D) through its
 // strides: the TPU wrapper pads D to 128, pads S to the block and transposes
@@ -18,24 +18,49 @@
 // What bounds it on an H100: bytes. At the serving shapes (B = 8, H = Hkv =
 // 32, D = 112, pos up to 2,079, bf16) a launch reads 2 * B * (pos + 1) * Hkv *
 // D values of K and V (235 MB at pos = 2,047: 70 us at 3.35 TB/s) and does
-// 4 FLOPs per value read. Design: one block of 256 threads per (head,
-// batch) walks the live positions in tiles of 128. Each tile of K and of V
-// is copied to shared memory in its own type with 16-byte loads, all issued
-// before any is used (rows padded to an odd number of 16-byte chunks, so
-// the 16-byte reads of one row per thread do not conflict); one thread per
-// position takes its dot product, a block max and sum update the online
-// softmax, and two threads per column (one per half of the tile) accumulate
-// P.V, summed at the end. With B * H = 256 blocks and one tile in flight
-// per block it does not reach the memory rate; splitting the positions
-// over more blocks with a combine step is later work.
+// 4 FLOPs per value read per query head.
+//
+// Design: split-KV with the combine in a thread-block cluster. The grid is
+// (splits, Hkv, B) with a cluster of `splits` blocks (at most 8, the
+// portable size) along x; split i covers the positions [i * span, (i + 1) *
+// span). The wrapper fixes splits and span from the shapes and the SM count
+// (about two blocks per SM), never from pos, so pos never goes to the host;
+// a split that starts past pos loads nothing. (A split with nothing to
+// read still holds its place until its cluster is done, so on an H100
+// fewer, longer splits ran faster once B * Hkv blocks fill the card.) One
+// block serves all G = H / Hkv query heads of its KV head, so the cache is
+// read once.
+// Each warp streams its own rows with no block-wide barrier: a row is read
+// by a group of lpr lanes, each holding kCpl 16-byte chunks of K and of V
+// (for bf16 at G = 1, 2 chunks: 7 lanes of 8 at D = 112), loaded straight
+// into registers, the next step's rows while this step's are used. A lane
+// reduces its dot products over the group with shuffles and keeps the
+// group's online softmax (m, l, in log2 units: q is scaled by scale *
+// log2(e) once) and its chunks of the accumulator per head in registers.
+// The block's row groups then merge in shared memory in a fixed order, and
+// each block leaves (m, l, acc[G][D]) there; after cluster.sync() every
+// block merges its slice of the outputs over the splits in split order,
+// reading the others' through distributed shared memory (an empty split or
+// row group gives m = -1e30, l = 0, acc = 0; split 0 always holds position
+// 0): no second launch, no scratch in device memory, no atomics, the same
+// result every run.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
-constexpr int kBS = 128;          // positions per tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 2;        // rows a row group loads together
+constexpr int kTile = 64;         // the span is a multiple of this
 constexpr int kMaxD = 128;
+constexpr int kMaxG = 8;          // query heads per KV head
+constexpr int kMaxSplits = 8;     // the portable cluster size
+constexpr int kMaxDevices = 64;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -67,125 +92,299 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f,
   }
 }
 
-// block-wide reduction of one value per thread; every thread gets the result
-template <bool kMax>
-__device__ float block_reduce(float x, float* red) {
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();   // red may still be read by the last reduction
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kThreads / 32; ++w)
-    r = kMax ? fmaxf(r, red[w]) : r + red[w];
-  return r;
+// the floats of shared memory: each row group's m and l per head and its
+// accumulator, then the block's (m, l, acc) that the cluster's blocks read
+__host__ __device__ constexpr int smem_floats(int slots, int kG, int D) {
+  return slots * kG * (D + 2) + kG * (D + 2);
 }
 
-template <typename T>
+// kG >= G query heads per KV head (1, 2, 4 or 8); a lane holds kCpl 16-byte
+// chunks of a row (chunks j, j + lpr, ...); kU rows per row group have their
+// loads in flight together
+template <typename T, int kG, int kCpl, int kU>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, const int* __restrict__ pos_ptr,
-                    T* __restrict__ out, int H, int Hkv, int D, int S_max,
-                    long long k_sb, long long k_ss, long long k_sh,
-                    long long v_sb, long long v_ss, long long v_sh,
-                    float scale) {
+flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                          const T* __restrict__ vc,
+                          const int* __restrict__ pos_ptr, T* __restrict__ out,
+                          int H, int Hkv, int D, int S_max, long long k_sb,
+                          long long k_ss, long long k_sh, long long v_sb,
+                          long long v_ss, long long v_sh, float scale_log2,
+                          int span, int lpr) {
   constexpr int E = 16 / sizeof(T);   // values per 16-byte chunk
-  const int cpr = D / E;              // chunks per row
-  const int rs = cpr | 1;             // row stride in chunks (odd)
-  extern __shared__ float4 smem4[];
-  uint4* sK = reinterpret_cast<uint4*>(smem4);   // [kBS][rs] chunks
-  uint4* sV = sK + kBS * rs;                      // [kBS][rs] chunks
-  const T* sVe = reinterpret_cast<const T*>(sV);  // [kBS][rs * E] values
-  float* sq = reinterpret_cast<float*>(sV + kBS * rs);  // [kMaxD]
-  float* sp = sq + kMaxD;                         // [kBS] rounded p
-  float* red = sp + kBS;                          // [kThreads / 32]
-  float* sacc = red + kThreads / 32;              // [kMaxD]
-
-  const int tid = threadIdx.x;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int kvh = h / (H / Hkv);
-  const T* kb = kc + b * k_sb + kvh * k_sh;
-  const T* vb = vc + b * v_sb + kvh * v_sh;
-  const size_t qoff = (static_cast<size_t>(b) * H + h) * D;
-  for (int c = tid; c < D; c += kThreads) sq[c] = to_f(q[qoff + c]);
-  const int n_live = min(*pos_ptr + 1, S_max);
-  const int half = tid / kBS, col = tid % kBS;   // P.V: a half of the tile
-
-  float m = kNegInf, l = 0.0f, acc = 0.0f;   // acc: column col of half
-  for (int s0 = 0; s0 < n_live; s0 += kBS) {
-    const int nt = min(kBS, n_live - s0);
-    __syncthreads();   // the last tile's P.V is done with sK, sV and sp
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = tid; i < kBS * cpr; i += kThreads) {
-      const int r = i / cpr, j = i % cpr;
-      const bool in = r < nt;
-      const uint4 kv = in ? *reinterpret_cast<const uint4*>(
-          kb + (s0 + r) * k_ss + j * E) : zero;
-      const uint4 vv = in ? *reinterpret_cast<const uint4*>(
-          vb + (s0 + r) * v_ss + j * E) : zero;
-      sK[r * rs + j] = kv;
-      sV[r * rs + j] = vv;
-    }
-    __syncthreads();
-    float s = kNegInf;
-    if (tid < nt) {
-      float dot = 0.0f;
-      for (int j = 0; j < cpr; ++j) {
-        float f[E];
-        unpack(sK[tid * rs + j], f, T());
+  constexpr int W = kCpl * E;         // values of a row per lane
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = H / Hkv, cpr = D / E;
+  const int rpw = 32 / lpr, slots = kWarps * rpw;   // row groups
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int slot = warp * rpw + lane / lpr, j = lane % lpr;
+  bool act[kCpl];
 #pragma unroll
-        for (int e = 0; e < E; ++e) dot = fmaf(sq[j * E + e], f[e], dot);
+  for (int c = 0; c < kCpl; ++c) act[c] = j + lpr * c < cpr;
+  const int split = static_cast<int>(cluster.block_rank());
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const T* kb = kc + b * k_sb + kvh * k_sh + j * E;
+  const T* vb = vc + b * v_sb + kvh * v_sh + j * E;
+  // the G query heads of this KV head are kvh * G .. kvh * G + G - 1; q is
+  // held scaled by scale * log2(e), so the scores come out in log2 units
+  const size_t qoff = (static_cast<size_t>(b) * H +
+                       static_cast<size_t>(kvh) * G) * D;
+  float qv[kG][W], m[kG], l[kG], acc[kG][W];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kCpl; ++c)
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        acc[g][c * E + e] = 0.0f;
+        qv[g][c * E + e] =
+            act[c] && g < G
+                ? to_f(q[qoff + g * D + (j + lpr * c) * E + e]) * scale_log2
+                : 0.0f;
       }
-      s = dot * scale;
+  }
+  const int n_live = min(*pos_ptr + 1, S_max);
+  const int s_begin = split * span;
+  const int s_end = min(s_begin + span, n_live);
+
+  // the block takes kU * slots rows a step (the bound is block-uniform, so
+  // every lane of a warp takes part in the shuffles); the next step's rows
+  // are loaded while this step's are used
+  const int step = kU * slots;
+  uint4 kn[kU][kCpl], vn[kU][kCpl];
+  auto load = [&](int it) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int r = it + u * slots + slot;
+#pragma unroll
+      for (int c = 0; c < kCpl; ++c) {
+        const bool in = act[c] && r < s_end;
+        const long long off = lpr * c * E;
+        kn[u][c] = in ? __ldg(reinterpret_cast<const uint4*>(
+                            kb + r * k_ss + off))
+                      : make_uint4(0u, 0u, 0u, 0u);
+        vn[u][c] = in ? __ldg(reinterpret_cast<const uint4*>(
+                            vb + r * v_ss + off))
+                      : make_uint4(0u, 0u, 0u, 0u);
+      }
     }
-    const float m_new = fmaxf(m, block_reduce<true>(s, red));
-    const float p = expf(s - m_new);
-    const float corr = expf(m - m_new);
-    l = l * corr + block_reduce<false>(p, red);
-    m = m_new;
-    if (tid < kBS) sp[tid] = to_f(from_f<T>(p));   // p.astype(v.dtype)
-    __syncthreads();
-    if (col < D) {
-      float pv = 0.0f;
-      const int t1 = min(nt, (half + 1) * (kBS / 2));
-      for (int t = half * (kBS / 2); t < t1; ++t)
-        pv = fmaf(sp[t], to_f(sVe[t * rs * E + col]), pv);
-      acc = acc * corr + pv;
+  };
+  load(s_begin);
+  for (int it = s_begin; it < s_end; it += step) {
+    uint4 kr[kU][kCpl], vr[kU][kCpl];
+    bool valid[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      valid[u] = it + u * slots + slot < s_end;
+#pragma unroll
+      for (int c = 0; c < kCpl; ++c) {
+        kr[u][c] = kn[u][c];
+        vr[u][c] = vn[u][c];
+      }
+    }
+    load(it + step);
+    float s[kU][kG];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      float d[kG];
+#pragma unroll
+      for (int g = 0; g < kG; ++g) d[g] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kCpl; ++c) {
+        float kf[E];
+        unpack(kr[u][c], kf, T());
+#pragma unroll
+        for (int g = 0; g < kG; ++g)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            d[g] = fmaf(qv[g][c * E + e], kf[e], d[g]);
+      }
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        for (int o = lpr / 2; o >= 1; o >>= 1)
+          d[g] += __shfl_xor_sync(0xffffffffu, d[g], o);
+        s[u][g] = valid[u] ? d[g] : kNegInf;
+      }
+    }
+    float p[kG][kU];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      float mt = kNegInf;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) mt = fmaxf(mt, s[u][g]);
+      const float m_new = fmaxf(m[g], mt);
+      const float corr = exp2f(m[g] - m_new);
+      float ps = 0.0f;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        p[g][u] = valid[u] ? exp2f(s[u][g] - m_new) : 0.0f;
+        ps += p[g][u];
+        p[g][u] = to_f(from_f<T>(p[g][u]));   // p.astype(v.dtype)
+      }
+      l[g] = l[g] * corr + ps;
+      m[g] = m_new;
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc[g][w] *= corr;
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+#pragma unroll
+      for (int c = 0; c < kCpl; ++c) {
+        float vf[E];
+        unpack(vr[u][c], vf, T());
+#pragma unroll
+        for (int g = 0; g < kG; ++g)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            acc[g][c * E + e] = fmaf(p[g][u], vf[e], acc[g][c * E + e]);
+      }
+  }
+
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);   // [slots][kG]
+  float* sl = sm + slots * kG;                    // [slots][kG]
+  float* sa = sl + slots * kG;                    // [slots][kG][D]
+  float* pm = sa + slots * kG * D;                // [kG]
+  float* pl = pm + kG;                            // [kG]
+  float* pacc = pl + kG;                          // [kG][D]
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    if (j == 0) {
+      sm[slot * kG + g] = m[g];
+      sl[slot * kG + g] = l[g];
+    }
+#pragma unroll
+    for (int c = 0; c < kCpl; ++c) {
+      if (act[c]) {
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          sa[(slot * kG + g) * D + (j + lpr * c) * E + e] = acc[g][c * E + e];
+      }
     }
   }
-  if (half == 1 && col < D) sacc[col] = acc;
   __syncthreads();
-  if (half == 0 && col < D)
-    out[qoff + col] = from_f<T>((acc + sacc[col]) / fmaxf(l, 1e-30f));
+  // the block's row groups in order (a group with no row: m = -1e30, l = 0)
+  for (int x = tid; x < G * D; x += kThreads) {
+    const int g = x / D, c = x % D;
+    float mx = kNegInf;
+#pragma unroll 8
+    for (int r = 0; r < slots; ++r) mx = fmaxf(mx, sm[r * kG + g]);
+    float lsum = 0.0f, a = 0.0f;
+#pragma unroll 8
+    for (int r = 0; r < slots; ++r) {
+      const float w = exp2f(sm[r * kG + g] - mx);
+      lsum = fmaf(sl[r * kG + g], w, lsum);
+      a = fmaf(sa[(r * kG + g) * D + c], w, a);
+    }
+    pacc[x] = a;
+    if (c == 0) {
+      pm[g] = mx;
+      pl[g] = lsum;
+    }
+  }
+  cluster.sync();
+
+  // each block of the cluster merges its slice of the G * D outputs over
+  // the splits in split order, reading the others' partial results through
+  // distributed shared memory (all of a thread's reads issued together)
+  const int n = static_cast<int>(cluster.num_blocks());
+  const int per = (G * D + n - 1) / n;
+  const int x1 = min(G * D, (split + 1) * per);
+  for (int x = split * per + tid; x < x1; x += kThreads) {
+    const int g = x / D;
+    float rm[kMaxSplits], rl[kMaxSplits], ra[kMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r) {
+      if (r < n) {
+        rm[r] = cluster.map_shared_rank(pm, r)[g];
+        rl[r] = cluster.map_shared_rank(pl, r)[g];
+        ra[r] = cluster.map_shared_rank(pacc, r)[x];
+      }
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < n) mx = fmaxf(mx, rm[r]);
+    float lsum = 0.0f, a = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r) {
+      if (r < n) {
+        const float w = exp2f(rm[r] - mx);
+        lsum = fmaf(rl[r], w, lsum);
+        a = fmaf(ra[r], w, a);
+      }
+    }
+    out[qoff + x] = from_f<T>(a / fmaxf(lsum, 1e-30f));
+  }
+  cluster.sync();   // each block's shared memory lives until all have read
 }
 
-template <typename T>
-size_t smem_bytes(int D) {
-  const int rs = (D / (16 / static_cast<int>(sizeof(T)))) | 1;
-  return 2 * sizeof(uint4) * kBS * rs +
-         sizeof(float) * (kMaxD + kBS + kThreads / 32 + kMaxD);
-}
-
-template <typename T>
+template <typename T, int kG>
 int launch(const void* q, const void* kc, const void* vc, const int* pos,
            void* out, int B, int H, int Hkv, int D, int S_max,
            long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-           long long v_ss, long long v_sh, float scale,
+           long long v_ss, long long v_sh, float scale, int splits, int span,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  constexpr int kCpl = kG == 1 ? 2 : 1;
+  const auto kernel = flash_decode_split_kernel<T, kG, kCpl, kUnroll>;
+  const int cpr = D / (16 / static_cast<int>(sizeof(T)));
+  int lpr = 1;   // lanes per row: the power of two >= a row's chunks / kCpl
+  while (lpr * kCpl < cpr) lpr *= 2;
+  const int smem = 4 * smem_floats(kWarps * (32 / lpr), kG, D);
+  static int opted[kMaxDevices];   // set the attribute once per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_kernel<T><<<dim3(H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), pos, static_cast<T*>(out), H, Hkv, D, S_max,
-      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (opted[dev] < smem) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted[dev] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, Hkv, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
+                           static_cast<const T*>(kc),
+                           static_cast<const T*>(vc), pos,
+                           static_cast<T*>(out), H, Hkv, D, S_max, k_sb, k_ss,
+                           k_sh, v_sb, v_ss, v_sh,
+                           scale * 1.4426950408889634f, span, lpr);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_g(const void* q, const void* kc, const void* vc, const int* pos,
+             void* out, int B, int H, int Hkv, int D, int S_max,
+             long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+             long long v_ss, long long v_sh, float scale, int splits,
+             int span, cudaStream_t stream) {
+  const int G = H / Hkv;
+  if (G == 1)
+    return launch<T, 1>(q, kc, vc, pos, out, B, H, Hkv, D, S_max, k_sb, k_ss,
+                        k_sh, v_sb, v_ss, v_sh, scale, splits, span, stream);
+  if (G == 2)
+    return launch<T, 2>(q, kc, vc, pos, out, B, H, Hkv, D, S_max, k_sb, k_ss,
+                        k_sh, v_sb, v_ss, v_sh, scale, splits, span, stream);
+  if (G <= 4)
+    return launch<T, 4>(q, kc, vc, pos, out, B, H, Hkv, D, S_max, k_sb, k_ss,
+                        k_sh, v_sb, v_ss, v_sh, scale, splits, span, stream);
+  return launch<T, 8>(q, kc, vc, pos, out, B, H, Hkv, D, S_max, k_sb, k_ss,
+                      k_sh, v_sb, v_ss, v_sh, scale, splits, span, stream);
 }
 
 }  // namespace
@@ -193,22 +392,28 @@ int launch(const void* q, const void* kc, const void* vc, const int* pos,
 // q and out (B, 1, H, D) contiguous; the caches (B, S_max, Hkv, D) with the
 // given element strides for B, S and Hkv and unit stride over D, 16-byte
 // aligned rows (D and the strides multiples of 16 bytes); pos one int32 on
-// the device. dtype 0 = float32, 1 = bfloat16. D <= 128, D % 8 == 0.
+// the device. dtype 0 = float32, 1 = bfloat16. D <= 128, D % 8 == 0,
+// H / Hkv <= 8; splits (1..8) blocks of span positions (a multiple of 64)
+// cover S_max.
 extern "C" int flash_decode_fwd(int dtype, const void* q, const void* kc,
                                 const void* vc, const int* pos, void* out,
                                 int B, int H, int Hkv, int D, int S_max,
                                 long long k_sb, long long k_ss, long long k_sh,
                                 long long v_sb, long long v_ss, long long v_sh,
-                                float scale, cudaStream_t stream) {
-  if (D > kMaxD || D % 8 != 0 || H % Hkv != 0)
+                                float scale, int splits, int span,
+                                cudaStream_t stream) {
+  if (D > kMaxD || D % 8 != 0 || H % Hkv != 0 || H / Hkv > kMaxG ||
+      splits < 1 || splits > kMaxSplits || span % kTile != 0 ||
+      static_cast<long long>(splits) * span < S_max)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch<float>(q, kc, vc, pos, out, B, H, Hkv, D, S_max, k_sb, k_ss,
-                         k_sh, v_sb, v_ss, v_sh, scale, stream);
+    return launch_g<float>(q, kc, vc, pos, out, B, H, Hkv, D, S_max, k_sb,
+                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, splits, span,
+                           stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, kc, vc, pos, out, B, H, Hkv, D, S_max,
-                                 k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                                 stream);
+    return launch_g<__nv_bfloat16>(q, kc, vc, pos, out, B, H, Hkv, D, S_max,
+                                   k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                                   splits, span, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

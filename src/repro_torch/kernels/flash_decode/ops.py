@@ -6,9 +6,15 @@ position. CPU tensors take the plain version (``ref.py``); CUDA tensors
 launch the kernel in ``kernel.cu`` on the current stream. On the card
 ``pos`` is an int32 tensor on the device, read by the kernel itself, so
 the decode step never waits for the host; the caches are read through
-their strides (a layer's slice of the stacked cache is not copied).
+their strides (a layer's slice of the stacked cache is not copied). The
+kernel splits the positions over a cluster of up to 8 blocks per (KV head,
+sequence), each serving all the KV head's query heads; ``split_plan``
+fixes the split count and span from the shapes and the SM count, never
+from pos.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -17,7 +23,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_decode.ref import flash_decode_plain
 
 NAME = "flash_decode"
-MAX_HEAD_DIM = 128          # one thread per output column and half tile
+MAX_HEAD_DIM = 128          # the kernel's kMaxD
+MAX_GROUP = 8               # query heads per KV head a lane keeps (kMaxG)
+TILE = 64                   # cache positions per tile
+MAX_SPLITS = 8              # blocks per cluster (the portable cluster size)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -59,8 +68,34 @@ def _check_cuda(q, k_cache, v_cache, pos):
     if q.shape[3] > MAX_HEAD_DIM or q.shape[3] % 8:
         raise ValueError(f"flash_decode takes D % 8 == 0 and D <= "
                          f"{MAX_HEAD_DIM}, got {q.shape[3]}")
-    if q.shape[0] > 65535:
-        raise ValueError("flash_decode takes at most 65535 sequences")
+    if q.shape[2] // k_cache.shape[2] > MAX_GROUP:
+        raise ValueError(f"flash_decode takes at most {MAX_GROUP} query "
+                         f"heads per kv head, got "
+                         f"{q.shape[2] // k_cache.shape[2]}")
+    if q.shape[0] > 65535 or k_cache.shape[2] > 65535:
+        raise ValueError("flash_decode takes at most 65535 sequences and "
+                         "kv heads (the grid's z and y)")
+
+
+def split_plan(s_max: int, groups: int, n_sm: int) -> tuple[int, int]:
+    """(splits, span) for ``groups`` = B * Hkv clusters on a card of
+    ``n_sm`` SMs: about two blocks per SM in all, at most MAX_SPLITS a
+    cluster and no more than S_max has tiles; each block takes ``span``
+    positions (a multiple of TILE), together covering S_max with none
+    wholly past it. Fixed by the shapes alone, so pos stays on the device;
+    a split that starts past pos loads nothing."""
+    if s_max < 1 or groups < 1 or n_sm < 1:
+        raise ValueError(f"flash_decode takes S_max, B * Hkv and the SM "
+                         f"count >= 1, got {s_max}, {groups}, {n_sm}")
+    tiles = -(-s_max // TILE)
+    want = min(MAX_SPLITS, tiles, max(1, -(-2 * n_sm // groups)))
+    span = -(-tiles // want) * TILE
+    return -(-s_max // span), span
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None):
@@ -76,6 +111,8 @@ def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    splits, span = split_plan(k_cache.shape[1], b * k_cache.shape[2],
+                              _sm_count(q.device.index))
     lib = _build.load(NAME)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -83,7 +120,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None):
             DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h,
             k_cache.shape[2], d, k_cache.shape[1], *k_cache.stride()[:3],
-            *v_cache.stride()[:3], scale, stream)
+            *v_cache.stride()[:3], scale, splits, span, stream)
     _build.check(lib, err, NAME)
     KERNEL_LAUNCHES[NAME] += 1
     return out

@@ -150,11 +150,17 @@ def test_temporal_replay_on_the_card_launches_one_fit_per_boundary_fit(
 
 
 # K4-K6 at the reference's test shapes and at the serve phase's full-width
-# shapes, fp32 and bf16, with chip_smoke.py's checks and tolerances
+# shapes, fp32 and bf16, with chip_smoke.py's checks and tolerances; K4 also
+# at the edges of its 128-row query and 64-key tiles (S = 200 and 1,000),
+# D = 32, 64, 112 and 128, GQA 8/2 and 4/1, and enough blocks for several
+# waves; K5 at GQA groups of 4 and 8
 LM_CASES = ([("flash_attention", s) for s in K4_SHAPES
-             + [(8, 2048, 32, 32, 112)]]
+             + [(8, 2048, 32, 32, 112), (3, 200, 4, 1, 32),
+                (2, 1000, 8, 2, 112), (2, 1000, 4, 1, 128),
+                (4, 512, 32, 32, 64), (2, 1000, 8, 8, 64)]]
             + [("flash_decode", s) for s in K5_SHAPES
-               + [(8, 2080, 32, 32, 112, 2047)]]
+               + [(8, 2080, 32, 32, 112, 2047), (2, 4096, 32, 8, 128, 3000),
+                  (2, 4096, 32, 4, 128, 4000), (1, 500, 8, 1, 64, 499)]]
             + [("ssd_scan", s) for s in K6_SHAPES
                + [(8, 112, 2048, 64, 64, 128)]])
 
@@ -168,6 +174,71 @@ def test_lm_kernels_match_their_plain_versions(cuda, kind, shape):
     # fp32 and bf16, and K4 causal and not
     assert KERNEL_LAUNCHES[kind] == before + (4 if kind ==
                                               "flash_attention" else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [1, 63, 64, 129, 999])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_masks_keys_past_kv_len(cuda, kv_len, causal):
+    """kv_len < S: the tail tile is masked and keys past it never count,
+    causal or not, bf16 (the wgmma path) and fp32."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        q, k, v = lm_kernel_inputs("flash_attention", (2, 1000, 8, 2, 112),
+                                   dtype, kv_len, cuda)
+        got = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        want = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+        assert ((got.float() - want.float()).abs()
+                <= tol * (1 + want.float().abs())).all()
+        k[:, kv_len:] = 1e4
+        v[:, kv_len:] = 1e4
+        assert torch.equal(flash_attention(q, k, v, causal=causal,
+                                           kv_len=kv_len), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2080, 8, 8, 112),
+                                   (8, 2080, 32, 32, 112),
+                                   (2, 4096, 32, 8, 128),
+                                   (2, 4096, 32, 4, 128)])
+def test_flash_decode_kernel_at_the_split_boundaries(cuda, shape):
+    """pos = 0, each split's first and last position and its neighbours,
+    and S_max - 1, with the split plan the wrapper takes on this card."""
+    from repro_torch.kernels.flash_decode.ops import _sm_count, split_plan
+    b, smax, h, hkv, d = shape
+    splits, span = split_plan(smax, b * hkv, _sm_count(cuda.index or 0))
+    assert splits >= 2
+    edges = sorted({0, smax - 1} | {p for i in range(1, splits)
+                                    for p in (i * span - 1, i * span,
+                                              i * span + 1) if p < smax})
+    before = KERNEL_LAUNCHES["flash_decode"]
+    check_lm_kernels([], [(*shape, p) for p in edges], [],
+                     label="split edges")
+    assert KERNEL_LAUNCHES["flash_decode"] == before + 2 * len(edges)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_reads_a_strided_layer_view(cuda):
+    """One layer of a (B, L, S_max, Hkv, D) stack: non-contiguous over B,
+    read through its strides with no copy."""
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_plain
+    g = torch.Generator(device=cuda).manual_seed(1)
+    kc = torch.randn(2, 3, 2080, 8, 112, generator=g, device=cuda)
+    vc = torch.randn(2, 3, 2080, 8, 112, generator=g, device=cuda)
+    q = torch.randn(2, 1, 32, 112, generator=g, device=cuda)
+    for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 2e-5)):
+        kl, vl = kc.to(dtype)[:, 1], vc.to(dtype)[:, 1]
+        assert not kl.is_contiguous()
+        for pos in (0, 1029, 2079):
+            p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+            got = flash_decode(q.to(dtype), kl, vl, p)
+            want = flash_decode_plain(q.to(dtype), kl, vl, p)
+            assert ((got.float() - want.float()).abs()
+                    <= tol * (1 + want.float().abs())).all()
+            # the same every run: the splits merge in a fixed order
+            assert torch.equal(flash_decode(q.to(dtype), kl, vl, p), got)
 
 
 @pytest.mark.cuda
@@ -187,6 +258,15 @@ def test_lm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                     torch.float32, 0, cuda)
     with pytest.raises(ValueError, match="int32"):
         flash_decode(q, kc, vc, 3)       # pos must live on the card
+    q, kc, vc, pos = lm_kernel_inputs("flash_decode", (1, 64, 32, 2, 64, 3),
+                                      torch.float32, 0, cuda)
+    with pytest.raises(ValueError, match="at most 8 query heads"):
+        flash_decode(q, kc, vc, pos)     # G = 16
+    q, k, v = lm_kernel_inputs("flash_attention", (1, 64, 2, 2, 64),
+                               torch.bfloat16, 0, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                        v)
     x, dt, bm, cm, a = lm_kernel_inputs("ssd_scan", (1, 2, 128, 64, 256, 128),
                                         torch.float32, 0, cuda)
     with pytest.raises(ValueError, match="N <= 128"):

@@ -248,3 +248,63 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
 def test_wrappers_refuse_what_they_do_not_take(call):
     with pytest.raises(ValueError):
         call(torch.zeros)
+
+
+# ------------------------------------------- the kernels' host planning
+@pytest.mark.parametrize("s_max,groups,want", [
+    (1, 1, (1, 64)), (64, 1, (1, 64)), (65, 1, (2, 64)), (500, 2, (8, 64)),
+    (513, 16, (5, 128)), (2080, 256, (2, 1088)), (2080, 1024, (1, 2112)),
+    (4096, 32, (8, 512)), (4096, 64, (5, 832))])
+def test_flash_decode_split_plan_covers_s_max_with_at_most_8_splits(
+        s_max, groups, want):
+    """About two blocks per SM of a 132-SM card, from the shapes alone."""
+    from repro_torch.kernels.flash_decode.ops import (MAX_SPLITS, TILE,
+                                                      split_plan)
+    splits, span = split_plan(s_max, groups, 132)
+    assert (splits, span) == want
+    assert 1 <= splits <= MAX_SPLITS and span % TILE == 0
+    # the splits cover S_max and none starts past it
+    assert splits * span >= s_max > (splits - 1) * span
+
+
+@pytest.mark.parametrize("args", [(0, 8, 132), (64, 0, 132), (64, 8, 0)])
+def test_flash_decode_split_plan_refuses_empty_sizes(args):
+    from repro_torch.kernels.flash_decode.ops import split_plan
+    with pytest.raises(ValueError):
+        split_plan(*args)
+
+
+@pytest.mark.parametrize("shape", [(8, 2048, 32, 112), (2, 200, 2, 64),
+                                   (1, 384, 1, 128), (2, 256, 8, 32)])
+@pytest.mark.parametrize("rows", ["TILE", "KEYS"])
+def test_flash_attention_tensor_map_is_4d_over_d_heads_s_b(shape, rows):
+    from repro_torch.kernels.flash_attention import ops
+    b, s, h, d = shape
+    t = torch.zeros(shape, dtype=torch.bfloat16)
+    dims, strides, box = ops.tensor_map_plan(t, getattr(ops, rows))
+    assert dims == (d, h, s, b)
+    assert strides == (2 * d, 2 * h * d, 2 * s * h * d)
+    # one box is 64 values (128 bytes, one swizzle row) of one head over
+    # 128 query or 64 key positions: it never reaches into the next head
+    assert box == (ops.ATOM, 1, getattr(ops, rows), 1) and ops.ATOM * 2 == 128
+
+
+def test_flash_attention_tensor_map_follows_a_view_s_strides():
+    """A layer's slice of a stacked (B, L, S, H, D) tensor is described
+    through its own strides, not copied."""
+    from repro_torch.kernels.flash_attention.ops import tensor_map_plan
+    t = torch.zeros(2, 3, 64, 4, 32, dtype=torch.bfloat16)[:, 1]
+    dims, strides, _ = tensor_map_plan(t)
+    assert dims == (32, 4, 64, 2)
+    assert strides == (2 * 32, 2 * 4 * 32, 2 * 3 * 64 * 4 * 32)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.zeros(1, 8, 2, 36, dtype=torch.bfloat16)[..., :32],
+    lambda: torch.zeros(1, 8, 3, 36, dtype=torch.bfloat16).transpose(2, 3),
+    lambda: torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)[..., 1:],
+])
+def test_flash_attention_tensor_map_refuses_what_tma_does_not_take(make):
+    from repro_torch.kernels.flash_attention.ops import tensor_map_plan
+    with pytest.raises(ValueError):
+        tensor_map_plan(make())

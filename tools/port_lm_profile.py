@@ -27,7 +27,10 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
 
-KERNELS = ("flash_attention", "flash_decode_kernel", "ssd_scan_kernel")
+# the CUDA kernels of K4 (bf16), K5 (one launch: the splits merge in their
+# cluster) and K6, as the profiler names them
+KERNELS = ("flash_attention_wgmma_kernel", "flash_decode_split_kernel",
+           "ssd_scan_kernel")
 
 
 def main() -> None:
