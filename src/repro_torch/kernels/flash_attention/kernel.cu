@@ -26,21 +26,23 @@
 // head's query tiles in falling order of work, so each head's heaviest
 // causal tiles start first and the blocks on the card at once share a few
 // heads' K and V in L2. One producer thread keeps TMA loads of
-// 64-key K and V tiles in flight through a K ring and a V ring in shared
+// 128-key K and V tiles in flight through a K ring and a V ring in shared
 // memory (full and empty mbarriers each), so a K tile is released once
 // Q.K^T has read it and a V tile once P.V has; setmaxnreg moves registers
 // from the producer to the two consumer warpgroups of 64 query rows each.
-// A consumer issues tile i's S = Q.K^T (wgmma m64n64k16, Q and K from
-// shared memory, both K-major) together with tile i - 1's O += P.V (P from
-// registers: the scores' accumulator layout is the A operand's, rounded to
-// bf16 there, the TPU kernel's p.astype(v.dtype); V from shared memory read
-// MN-major with wgmma's transpose bit, so V is never transposed by hand;
-// N = 64 and D - 64 over V's two boxes, 64 + 48 at D = 112), so tile i's
-// softmax overlaps tile i - 1's product; the two consumers take turns to
-// issue (named barriers), so one's softmax overlaps the other's products.
+// A consumer computes S = Q.K^T (wgmma m64n128k16, Q and K from shared
+// memory, both K-major), its softmax, then O += P.V (P from registers: the
+// scores' accumulator layout is the A operand's, rounded to bf16 there, the
+// TPU kernel's p.astype(v.dtype); V from shared memory read MN-major with
+// wgmma's transpose bit, so V is never transposed by hand; N = 64 and
+// D - 64 over V's two boxes, 64 + 48 at D = 112). The two consumers take
+// turns to issue Q.K^T (named barriers), so one's softmax overlaps the
+// other's products. (ptxas holds every thread to the 168 registers of
+// __launch_bounds__(384, 1); overlapping a warpgroup's own softmax with its
+// P.V needs the scores, P and O live at once and spilled.)
 // The tensors are 4-D tensor maps (D, heads, S, B) read in boxes of 64
 // values of one head (one 128-byte swizzled row, the swizzle the wgmma
-// descriptors name) over 128 query or 64 key positions: a box never reaches
+// descriptors name) over 128 positions: a box never reaches
 // into the next head, and TMA fills zeros past D and past S. The softmax
 // stays in fp32 registers: the running maximum of the unscaled scores, and
 // p = 2^(s c - m c) with c = scale * log2(e), one FFMA and one ex2 a score;
@@ -259,7 +261,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // then the K ring and the V ring (kStages tiles each of kChunks boxes of 64
 // rows x 64 columns, 8 KB each), then the mbarriers.
 constexpr int kTile = 128;            // query rows per block
-constexpr int kKeys = 64;             // keys per K or V tile
+constexpr int kKeys = 128;            // keys per K or V tile
 constexpr int kAtom = 64;             // bf16 columns per 128-byte swizzle row
 constexpr int kBoxBytes = kTile * kAtom * 2;      // a Q box
 constexpr int kKvBoxBytes = kKeys * kAtom * 2;   // a K or V box
@@ -341,18 +343,22 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D(64 x 64, fp32) (+)= A(64 x 16, smem) . B(16 x 64, smem), both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+// D(64 x 128, fp32) (+)= A(64 x 16, smem) . B(16 x 128, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
                                              uint64_t db, int acc) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(acc));
 }
 
@@ -418,7 +424,7 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // and a V tile once P.V has.
 template <int kChunks>
 struct WgmmaPlan {
-  static constexpr int kStages = kChunks == 1 ? 8 : 4;
+  static constexpr int kStages = kChunks == 1 ? 4 : 2;
   static constexpr int kQBytes = kChunks * kBoxBytes;
   static constexpr int kTileBytes = kChunks * kKvBoxBytes;
   static constexpr int kBars = 4 * kStages + 1;
@@ -521,11 +527,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   } else {
-    // a consumer warpgroup: query rows q0 + 64 wg .. + 63. Tile i's Q.K^T
-    // is issued with tile i - 1's P.V, so the softmax of tile i overlaps the
-    // product of tile i - 1; and the two warpgroups take turns to issue
-    // (named barriers 1 and 2), so one's softmax overlaps the other's
-    // products.
+    // a consumer warpgroup: query rows q0 + 64 wg .. + 63. The two
+    // warpgroups take turns to issue Q.K^T (named barriers 1 and 2), so
+    // one's softmax overlaps the other's products.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     const int wg = tid / kWgThreads;
     const int warp = (tid % kWgThreads) / 32, lane = tid % 32;
@@ -541,15 +545,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < kN1 / 2; ++i) o1[i] = 0.0f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-    // P of the last tile, rounded to bf16 (the TPU kernel's
-    // p.astype(v.dtype)): the score blocks 2 kk and 2 kk + 1 are the A
-    // fragment of key step kk
-    unsigned p[4][4];
+    // P of the tile, rounded to bf16 (the TPU kernel's p.astype(v.dtype)):
+    // the score blocks 2 kk and 2 kk + 1 are the A fragment of key step kk
+    unsigned p[8][4];
     // O += P V over V's tile st; V's key step kk is 16 rows of 128 bytes
     // into each box
     auto pv = [&](int st) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < 8; ++kk) {
         wgmma_rs<kN0>(o0, p[kk], sw128_desc(sV(st) + kk * 2048, 64, 64));
         if constexpr (kN1 > 0)
           wgmma_rs<kN1>(o1, p[kk], sw128_desc(sV(st) + kKvBoxBytes +
@@ -564,15 +567,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
     };
-    // S = Q K^T over K's tile st: 64 x 64 in fp32; k-step kk is 32 bytes
+    // S = Q K^T over K's tile st: 64 x 128 in fp32; k-step kk is 32 bytes
     // into box kk / 4. s[4 j + 2 hr + e] is row r0 + 8 hr, key
     // k0 + 8 j + 2 t4 + e.
-    float s[32];
+    float s[64];
     auto qk = [&](int st) {
 #pragma unroll
       for (int kk = 0; kk < kNk; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        wgmma_ss_n64(s, sw128_desc(qa + (kk / 4) * kBoxBytes + off, 1, 64),
+        wgmma_ss_n128(s, sw128_desc(qa + (kk / 4) * kBoxBytes + off, 1, 64),
                      sw128_desc(sK(st) + (kk / 4) * kKvBoxBytes + off, 1, 64),
                      kk > 0);
       }
@@ -589,7 +592,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int row = r0 + 8 * hr;
         float mx[2] = {kNegInf, kNegInf};   // two chains
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 16; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float& x = s[4 * j + 2 * hr + e];
@@ -600,7 +603,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             mx[e] = fmaxf(mx[e], x);
           }
         float mt = fmaxf(mx[0], mx[1]);
-        // the row's 64 keys lie on the 4 lanes of a quad
+        // the row's 128 keys lie on the 4 lanes of a quad
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
         const float m_new = fmaxf(m[hr], mt);
@@ -608,7 +611,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const float mc = m_new * scale_log2;
         float sum[2] = {0.0f, 0.0f};   // two chains
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 16; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float& x = s[4 * j + 2 * hr + e];
@@ -630,7 +633,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     };
     auto pack_p = [&] {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < 8; ++kk) {
         p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
         p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
         p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -640,54 +643,32 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(qbar, 0);
     if (wg == 1) bar_arrive(1);   // warpgroup 0 issues first
 
-    // tile 0
-    mbar_wait(full_k(0), 0);
-    bar_sync(1 + wg);   // this warpgroup's turn to issue
-    wgmma_fence();
-    qk(0);
-    wgmma_commit();
-    bar_arrive(2 - wg);   // the other warpgroup's turn
-    wgmma_wait<0>();
-    pin<32>(s);
-    release(empty_k(0));
-    softmax(0);
-    pack_p();
-
-    for (int i = 1; i < n_tiles; ++i) {
+    for (int i = 0; i < n_tiles; ++i) {
       const int st = i % kStages;
-      const int pst = (i - 1) % kStages;   // tile i - 1's stage
       mbar_wait(full_k(st), (i / kStages) & 1);
-      mbar_wait(full_v(pst), ((i - 1) / kStages) & 1);
-      bar_sync(1 + wg);
+      bar_sync(1 + wg);   // this warpgroup's turn to issue
       wgmma_fence();
       qk(st);
       wgmma_commit();
-      pv(pst);
-      wgmma_commit();
-      bar_arrive(2 - wg);
-      wgmma_wait<1>();   // Q.K^T is done; P.V may still run
-      pin<32>(s);
+      // the other warpgroup's turn (warpgroup 1's last turn has no taker)
+      if (wg == 0 || i + 1 < n_tiles) bar_arrive(2 - wg);
+      wgmma_wait<0>();
+      pin<64>(s);
       release(empty_k(st));
       softmax(i * kKeys);
-      wgmma_wait<0>();   // tile i - 1's P.V is done with p, o and V
-      pin_o();
-      release(empty_v(pst));
 #pragma unroll
       for (int j = 0; j < kN0 / 2; ++j) o0[j] *= corr[(j / 2) % 2];
 #pragma unroll
       for (int j = 0; j < kN1 / 2; ++j) o1[j] *= corr[(j / 2) % 2];
       pack_p();
+      mbar_wait(full_v(st), (i / kStages) & 1);
+      wgmma_fence();
+      pv(st);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin_o();
+      release(empty_v(st));
     }
-    // the last tile's P.V
-    const int last = (n_tiles - 1) % kStages;
-    mbar_wait(full_v(last), ((n_tiles - 1) / kStages) & 1);
-    bar_sync(1 + wg);
-    wgmma_fence();
-    pv(last);
-    wgmma_commit();
-    if (wg == 0) bar_arrive(2);   // warpgroup 1's last turn
-    wgmma_wait<0>();
-    pin_o();
 
     const size_t row_q = static_cast<size_t>(H) * D;
     __nv_bfloat16* ob = out + static_cast<size_t>(b) * S * row_q +

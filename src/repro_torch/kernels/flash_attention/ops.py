@@ -8,7 +8,7 @@ reads the tensors as they are (no padding of D or S, no transpose, no
 repeated heads) and raises on what it does not take. The bf16 kernel reads
 its inputs through TMA: each tensor is described to the card as 4-D,
 (D, heads, S, B) innermost first, and loaded in boxes of 64 values of one
-head over 128 query or 64 key positions (``tensor_map_plan``); the
+head over 128 positions (``tensor_map_plan``); the
 descriptors are cached by pointer, shape and strides, so a repeated call
 encodes none.
 """
@@ -26,7 +26,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 NAME = "flash_attention"
 MAX_HEAD_DIM = 128          # two 64-column boxes (bf16), D / 16 <= 8 (fp32)
 TILE = 128                  # bf16: query rows per block
-KEYS = 64                   # bf16: keys per K or V tile
+KEYS = 128                  # bf16: keys per K or V tile
 ATOM = 64                   # bf16 values in one 128-byte swizzled box row
 MAP_BYTES = 128             # sizeof(CUtensorMap)
 MAX_MAPS = 64               # tensor maps kept

@@ -151,7 +151,7 @@ def test_temporal_replay_on_the_card_launches_one_fit_per_boundary_fit(
 
 # K4-K6 at the reference's test shapes and at the serve phase's full-width
 # shapes, fp32 and bf16, with chip_smoke.py's checks and tolerances; K4 also
-# at the edges of its 128-row query and 64-key tiles (S = 200 and 1,000),
+# at the edges of its 128-row query and 128-key tiles (S = 200 and 1,000),
 # D = 32, 64, 112 and 128, GQA 8/2 and 4/1, and enough blocks for several
 # waves; K5 at GQA groups of 4 and 8
 LM_CASES = ([("flash_attention", s) for s in K4_SHAPES
@@ -177,7 +177,7 @@ def test_lm_kernels_match_their_plain_versions(cuda, kind, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv_len", [1, 63, 64, 129, 999])
+@pytest.mark.parametrize("kv_len", [1, 64, 127, 128, 129, 999])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_masks_keys_past_kv_len(cuda, kv_len, causal):
     """kv_len < S: the tail tile is masked and keys past it never count,

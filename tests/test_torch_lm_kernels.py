@@ -285,7 +285,8 @@ def test_flash_attention_tensor_map_is_4d_over_d_heads_s_b(shape, rows):
     assert dims == (d, h, s, b)
     assert strides == (2 * d, 2 * h * d, 2 * s * h * d)
     # one box is 64 values (128 bytes, one swizzle row) of one head over
-    # 128 query or 64 key positions: it never reaches into the next head
+    # the query or key positions of a tile: it never reaches into the next
+    # head
     assert box == (ops.ATOM, 1, getattr(ops, rows), 1) and ops.ATOM * 2 == 128
 
 
