@@ -7,7 +7,8 @@ Phases (any failure exits non-zero, without the final result line):
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit;
   2. build the CUDA kernels from the sources in the checkout (one nvcc per
      source, all at once) and print the build time and ptxas report, and
-     count K4's wgmma (HGMMA) and TMA instructions in its machine code;
+     count K4's wgmma (HGMMA) and TMA instructions and K6's tensor-core
+     (HMMA) and TMA instructions in their machine code;
   3. hold each kernel against its plain PyTorch version on the card (the
      segment-DP kernel bit for bit, over profile kinds, M, G and k);
   4. replay the ``methylseq`` workflow at scale 1.0 through
@@ -44,7 +45,8 @@ Phases (any failure exits non-zero, without the final result line):
      card and on the CPU: equal greedy tokens, logits within a tolerance;
  12. time K4-K6 at their most launched full-width shapes beside their plain
      versions, PyTorch's scaled_dot_product_attention (K4, K5) and bounds,
-     with K4's achieved TFLOP/s and K5's GB/s.
+     with K4's achieved TFLOP/s, K5's and K6's GB/s and K6's largest
+     difference from its plain version there.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``. Imports
@@ -171,18 +173,22 @@ def build_kernels():
             if any(w in line for w in ("Function properties", "registers",
                                        "spill", "smem")):
                 print(f"[build] {name}: {line.strip()}")
-    # K4's bf16 path must run on Hopper's warpgroup products fed by TMA:
-    # count the instructions in the built library's machine code
-    sass = subprocess.run([str(pathlib.Path(_build.nvcc_path()).parent
-                               / "cuobjdump"), "-sass",
-                           str(_build.lib_path("flash_attention"))],
-                          capture_output=True, text=True, timeout=120).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "SYNCS")}
-    print(f"[build] flash_attention SASS: {counts['HGMMA']} HGMMA (wgmma), "
-          f"{counts['UTMALDG']} UTMALDG (TMA loads), {counts['SYNCS']} SYNCS "
-          f"(mbarrier) instructions")
-    if not counts["HGMMA"] or not counts["UTMALDG"]:
-        _fail("flash_attention's library issues no wgmma or no TMA load")
+    # K4's bf16 path must run on Hopper's warpgroup products and K6's on
+    # the tensor cores, both fed by TMA: count the instructions in the
+    # built libraries' machine code
+    for name, mma, what in (("flash_attention", "HGMMA", "wgmma"),
+                            ("ssd_scan", "HMMA", "mma.sync")):
+        sass = subprocess.run([str(pathlib.Path(_build.nvcc_path()).parent
+                                   / "cuobjdump"), "-sass",
+                               str(_build.lib_path(name))],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        counts = {op: sass.count(op) for op in (mma, "UTMALDG", "SYNCS")}
+        print(f"[build] {name} SASS: {counts[mma]} {mma} ({what}), "
+              f"{counts['UTMALDG']} UTMALDG (TMA loads), {counts['SYNCS']} "
+              f"SYNCS (mbarrier) instructions")
+        if not counts[mma] or not counts["UTMALDG"]:
+            _fail(f"{name}'s library issues no {what} or no TMA load")
 
 
 # ----------------------------------------------------------- phase 3
@@ -1289,16 +1295,34 @@ def _k5_bound(b, h, hkv, d, pos, itemsize):
                      4 * b * h * live * d, BF16_FLOPS_PER_S)
 
 
-def _k6_bound(b, h, s, p, n, q, itemsize):
+def _k6_work(b, h, s, p, n, q, itemsize):
     # x, B and C (compute type), dt, a read once; y and the state written
     # (fp32). Per (b, chunk) C.B^T over the causal pairs (shared by the
     # heads); per (b, h, chunk) M.xs over the causal pairs, C.state and the
-    # state update: all fp32 products, at the fp32 rate
+    # state update. Returns (bytes, the products' FLOPs, the FLOPs of the
+    # products with an fp32 operand)
     nc = -(-s // q)
     pairs = q * (q + 1) // 2
-    flops = 2 * b * nc * (pairs * n + h * (pairs * p + 2 * q * p * n))
+    shared = 2 * b * nc * pairs * n
+    per_head = 2 * b * nc * h * (pairs * p + 2 * q * p * n)
     nbytes = itemsize * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h) \
         + 4 * (b * s * h * p + b * h * p * n)
+    return nbytes, shared + per_head, per_head
+
+
+def _k6_bound(b, h, s, p, n, q, itemsize):
+    # at the route's rates: bf16 on the tensor cores, where C.B^T takes one
+    # pass and each product with an fp32 operand (M, the state, x w dt) two
+    # (its bf16 hi and lo); fp32 on the CUDA cores
+    nbytes, flops, fp32_op = _k6_work(b, h, s, p, n, q, itemsize)
+    if itemsize == 2:
+        return _bound_at(nbytes, flops + fp32_op, BF16_FLOPS_PER_S)
+    return _bound_at(nbytes, flops, FP32_FLOPS_PER_S)
+
+
+def _k6_bound_fp32_rate(b, h, s, p, n, q, itemsize):
+    # the products at the fp32 CUDA-core rate (PR 13's and PR 14's bound)
+    nbytes, flops, _ = _k6_work(b, h, s, p, n, q, itemsize)
     return _bound_at(nbytes, flops, FP32_FLOPS_PER_S)
 
 
@@ -1360,7 +1384,11 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
         "plain_ms": _time_ms(lambda: ssd_scan_plain(x, dt, bm, cm, a,
                                                     q_chunk=qc), 5, 2),
         "bound_ms": bound, "bound_by": by, "library_ms": None}
-    del x, dt, bm, cm, a
+    (y, st), (wy, wst) = (ssd_scan(x, dt, bm, cm, a, q_chunk=qc),
+                          ssd_scan_plain(x, dt, bm, cm, a, q_chunk=qc))
+    k6_err = max(float((y - wy).abs().max()), float((st - wst).abs().max()))
+    k6_rel = float((y - wy).abs().max() / wy.abs().max())
+    del x, dt, bm, cm, a, y, st, wy, wst
     torch.cuda.empty_cache()
     for name, shape in (("flash_attention", k4_shape),
                         ("flash_decode", k5_shape), ("ssd_scan", k6_shape)):
@@ -1370,6 +1398,14 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
               f"{r['plain_ms']:.5f} ms, library {lib}, bound "
               f"{r['bound_ms']:.3e} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms']:.3f} of the bound")
+    r = rows["ssd_scan"]
+    k6_bytes = _k6_work(*k6_shape, 2)[0]
+    fp32_bound, _ = _k6_bound_fp32_rate(*k6_shape, 2)
+    print(f"[time] ssd_scan {k6_shape} bf16: {k6_bytes / r['ms'] / 1e6:.1f} "
+          f"GB/s of its {k6_bytes / 1e6:.1f} MB; bound {r['bound_ms']:.4f} "
+          f"ms at the tensor-core and HBM rates, {fp32_bound:.4f} ms with "
+          f"the products at the fp32 CUDA-core rate; largest |kernel - "
+          f"plain| {k6_err:.3e} ({k6_rel:.3e} of the largest |y|)")
     # the achieved rates of K4 (operations) and K5 (bytes), as the bounds
     # count them
     b, s, h, hkv, d = k4_shape

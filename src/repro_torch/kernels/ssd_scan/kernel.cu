@@ -1,9 +1,10 @@
 // Mamba2's chunked SSD scan (state-space duality), one block per (head,
-// batch) walking the chunks in order with the (P, N) state on chip.
+// sequence) walking the chunks in order with the head's (P, N) state on
+// chip.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan/kernel.py::ssd_scan_bhsp
 // (body _ssd_body) and its wrapper ops.py::ssd_scan, and computes, per chunk
-// of Q positions (all in fp32; x, B and C are read in their own type):
+// of Q positions (x, B and C read in their own type, the rest in fp32):
 //   da = dt * a[h];  cum = cumsum(da);  xs = x * dt
 //   y_diag[q] = sum_{t <= q} (C_q . B_t) exp(cum_q - cum_t) xs_t
 //   y_off[q]  = exp(cum_q) (C_q . state)
@@ -17,24 +18,34 @@
 // copied; a ragged last chunk reads its missing rows as dt = 0 and x = B = C
 // = 0, which is inert (the TPU wrapper's padding) and is not stored.
 //
-// What bounds it on an H100: at the serving shapes (B = 8, H = 112, P = N =
-// 64, S = 256..2048) it reads x (bf16) and writes y (fp32), 0.7 GB at S =
-// 2048 (0.21 ms at 3.35 TB/s), and does about 2 Q P N + Q^2 P / 2 fp32
-// FLOPs per position and head (45 GFLOP at S = 2048, 0.67 ms at the fp32
-// rate): operations bound it. This first kernel runs on CUDA cores in fp32
-// FMA and recomputes C.B^T (Q x Q), which is the same for every head, in
-// each head's block. Design: 256 threads as 16 x 16; per chunk B and C
-// (rows padded to N + 1 floats), xs (rows padded to P + 1), dt and cum are
-// staged in shared memory, B, C and x with 16-byte loads all issued before
-// any is stored (cum summed in order by one thread); each product is
+// What bounds it on an H100: at the serving shape (B = 8, H = 112, S =
+// 2048, P = N = 64, Q = 128) in bf16 it reads x, B, C and dt and writes y
+// and the state in fp32, 730.9 MB, 0.2182 ms at 3.35 TB/s. Its products
+// (C.B^T, M.x over the causal pairs, C.state^T and the state update) are
+// 45.4 GFLOP: 0.677 ms at the fp32 CUDA-core rate, but 0.092 ms on the
+// bf16 tensor cores even with two passes for every fp32 operand. So bytes
+// bound the bf16 kernel (ssd_scan_tc_kernel, below), which runs every
+// product on the tensor cores: y and the final state are its only writes;
+// TMA brings x, B and C in once per head, the next chunk's while this
+// chunk's products run; and two blocks share an SM (100 KB of shared
+// memory each, at most 128 registers a thread) where N <= 64.
+//
+// The fp32 kernel (ssd_scan_kernel) runs on CUDA cores in fp32 FMA and
+// recomputes C.B^T in each head's block: 256 threads as 16 x 16; per chunk
+// B and C (rows padded to N + 1 floats), xs (rows padded to P + 1), dt and
+// cum are staged in shared memory, B, C and x with 16-byte loads all issued
+// before any is stored (cum summed in order by one thread); each product is
 // register-blocked (y_off and y as 8 rows x 4 columns a thread, the new
 // state 4 x 8, C.B^T 8 x 8), so a thread reads 12 to 16 shared values per
-// 32 to 64 FMAs; the
-// masked C.B^T is written over B and C (Q x Q floats, 64 KB at Q = 128,
-// above the default 48 KB, so the kernel opts in to more shared memory);
-// then y = y_off + M.xs is written once.
+// 32 to 64 FMAs; the masked C.B^T is written over B and C (Q x Q floats,
+// 64 KB at Q = 128, above the default 48 KB, so the kernel opts in to more
+// shared memory); then y = y_off + M.xs is written once.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -43,34 +54,16 @@ constexpr int kMaxQ = 128;      // chunk rows ty + 16 i, i < 8
 constexpr int kMaxP = 64;       // head width: 16 j + tx (j < 4) or ty + 16 i (i < 4)
 constexpr int kMaxN = 128;      // state width: tx + 16 j, j < 8
 
-// the 16 / sizeof(T) values of one 16-byte chunk, as floats
-__device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* f,
-                                       __nv_bfloat16) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 // Stage rows 0..Q-1 of a (rows x W) tile (row stride ld elements) in shared
 // memory as floats, dst[r * dld + c], times rscale[r * rld] where given;
 // rows nv..Q-1 are zeros. 16-byte loads, all of a thread's issued before
 // any is stored; consecutive threads take consecutive rows, so the stores
 // of rows padded to an odd stride do not conflict.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, long long ld,
-                                      int nv, int Q, int W, float* dst,
-                                      int dld, const float* rscale,
-                                      long long rld) {
-  constexpr int E = 16 / sizeof(T);
+__device__ __forceinline__ void stage(const float* __restrict__ src,
+                                      long long ld, int nv, int Q, int W,
+                                      float* dst, int dld,
+                                      const float* rscale, long long rld) {
+  constexpr int E = 4;   // floats in a 16-byte load
   constexpr int kMaxU = kMaxQ * kMaxN / (E * kThreads);
   const int cw = W / E, n = Q * cw;
   uint4 buf[kMaxU];
@@ -89,18 +82,17 @@ __device__ __forceinline__ void stage(const T* __restrict__ src, long long ld,
     const int i = threadIdx.x + u * kThreads;
     if (i < n) {
       const int r = i % Q, j = i / Q;
-      float f[E];
-      unpack(buf[u], f, T());
+      const float f[E] = {__uint_as_float(buf[u].x), __uint_as_float(buf[u].y),
+                          __uint_as_float(buf[u].z), __uint_as_float(buf[u].w)};
 #pragma unroll
       for (int e = 0; e < E; ++e) dst[r * dld + j * E + e] = f[e] * sc[u];
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const T* __restrict__ bm, const T* __restrict__ cm,
+ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ bm, const float* __restrict__ cm,
                 const float* __restrict__ a, float* __restrict__ y,
                 float* __restrict__ final_state, int S, int H, int P, int N,
                 int Q, long long x_sb, long long x_ss, long long x_sh,
@@ -121,9 +113,9 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int tx = tid % 16, ty = tid / 16;
   const int h = blockIdx.x, b = blockIdx.y;
   const float ah = a[h];
-  const T* xb = x + b * x_sb + h * x_sh;
-  const T* bb = bm + b * b_sb;
-  const T* cb = cm + b * c_sb;
+  const float* xb = x + b * x_sb + h * x_sh;
+  const float* bb = bm + b * b_sb;
+  const float* cb = cm + b * c_sb;
   const float* dtb = dt + static_cast<size_t>(b) * S * H + h;
   float* yb = y + (static_cast<size_t>(b) * S * H + h) * P;
   // this thread's rows and columns, clamped for the loads (results at
@@ -290,21 +282,593 @@ size_t smem_bytes(int P, int N, int Q) {
                           (bc > qq ? bc : qq));
 }
 
-template <typename T>
-int launch(const void* x, const float* dt, const void* bm, const void* cm,
-           const float* a, float* y, float* fin, int B, int S, int H, int P,
-           int N, int Q, long long x_sb, long long x_ss, long long x_sh,
-           long long b_sb, long long b_ss, long long c_sb, long long c_ss,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(P, N, Q);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// ------------------------------------------------------------------------
+// The bf16 path on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators), 8 warps a block. Per chunk, thread 0 has TMA bring the
+// next chunk's B and x (a two-stage ring, one mbarrier a stage) and, once
+// every warp holds its C fragments, the next C (one slot); warp 0 brings
+// dt with cp.async and computes cum (a shuffle scan) and w dt = exp(cum_end
+// - cum) dt. Tiles have 128-byte rows in TMA's 128-byte swizzle, so
+// ldmatrix reads 8 rows without bank conflicts.
+//
+// Each warp owns 16 chunk rows: m-tiles 0-3 for warps 0-3 and 7-4 for
+// warps 4-7, so the two warps of a scheduler share 9 causal key tiles.
+//   y_off = C.state^T (C from registers, the state's hi and lo passes),
+//   scaled per row by exp(cum_q);
+//   for each causal key tile kk: G = C.B^T (the next tile's issued before
+//   this tile's M.x), M = G exp(cum_q - cum_t) dt_t built from G's
+//   accumulators (on the diagonal tile only t <= q is kept, by selection,
+//   since exp above the diagonal may overflow), split hi + lo in registers
+//   and used as the A operand of y += M.x (x as it is, exact in bf16).
+// Then warp w updates state rows 16 (w % 4) .., columns (w / 4) N / 2 ..
+// in registers, state = exp(cum_end) state + (x^T w dt, split hi + lo).B,
+// and writes its hi/lo split for the next chunk's C.state^T.
+// Every fp32 operand (M, the state, x w dt) runs as two bf16 passes, hi and
+// the rounding remainder lo, so each product keeps ~16 bits of its fp32
+// operand and the sums stay fp32.
+
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcP = 64;   // x tiles and state rows, P zero-padded to 64
+
+// Shared memory of the bf16 kernel. B, C, x and the state's hi/lo split are
+// tiles of 128-byte rows (64 bf16 columns), N = 128 as two such tiles.
+template <int NT>
+struct TcPlan {
+  static constexpr int kSub = kMaxQ * 128;          // 64 columns of a chunk
+  static constexpr int kBTile = (NT / 64) * kSub;   // B or C
+  static constexpr int kX = kBTile;                 // x within a stage
+  static constexpr int kStage = kX + kSub;          // B and x, by TMA
+  static constexpr int kC = 2 * kStage;
+  static constexpr int kStateSub = kTcP * 128;      // 64 state columns
+  static constexpr int kStateHalf = (NT / 64) * kStateSub;
+  static constexpr int kState = kC + kBTile;        // hi, then lo
+  static constexpr int kDt = kState + 2 * kStateHalf;   // [2][kMaxQ] fp32
+  static constexpr int kCum = kDt + 2 * 4 * kMaxQ;
+  static constexpr int kWdt = kCum + 4 * kMaxQ;
+  static constexpr int kBar = kWdt + 4 * kMaxQ;     // full[2], C full
+  // and slack to align the base to 1024 bytes (TMA's 128-byte swizzle)
+  static constexpr int kBytes = kBar + 3 * 8 + 1024;
+  static constexpr int kMinBlocks = kBytes <= 113 * 1024 ? 2 : 1;
+};
+
+// ---- PTX wrappers
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// the box at (c0, c1, c2[, c3]) of a 3-D or 4-D tensor map, completing on bar
+__device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map,
+                                            unsigned bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map,
+                                            unsigned bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// d += a.b, a 16 x 16 (row), b 16 x 8 (col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two floats as bf16x2, round to nearest; `lo` in the low half
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+// e^v, flushing results below 2^-126 to zero
+__device__ __forceinline__ float exp_ftz(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v * 1.4426950408889634f));
+  return r;
+}
+// ---- end PTX wrappers
+
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+// (v0, v1) as bf16x2 hi and the bf16x2 of what hi leaves over
+__device__ __forceinline__ void split2(float v0, float v1, unsigned& hi,
+                                       unsigned& lo) {
+  hi = pack_bf16x2(v0, v1);
+  lo = pack_bf16x2(v0 - bf16_lo(hi), v1 - bf16_hi(hi));
+}
+// byte offset of (row, col) in a tile of 128-byte rows, 64 columns per `sub`
+// bytes, each 16-byte unit XOR-swizzled by the row's low three bits (TMA's
+// 128-byte swizzle), so ldmatrix reads 8 rows without bank conflicts
+__device__ __forceinline__ unsigned toff(int row, int col, int sub) {
+  return (col >> 6) * sub + row * 128 + ((((col >> 3) ^ row) & 7) << 4) +
+         (col & 7) * 2;
+}
+// a lane's offset `off` moved right by `units` 16-byte units, where the
+// lane's own unit and units % 8 share no bits
+__device__ __forceinline__ unsigned toff_add(unsigned off, int units,
+                                             int sub) {
+  return (off ^ ((units & 7) << 4)) + (units >> 3) * sub;
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kTcThreads, TcPlan<NT>::kMinBlocks)
+ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tb,
+                   const __grid_constant__ CUtensorMap tc,
+                   const float* __restrict__ dt, const float* __restrict__ a,
+                   float* __restrict__ y, float* __restrict__ final_state,
+                   int S, int H, int P, int N, int Q) {
+  using L = TcPlan<NT>;
+  constexpr int kSub = L::kSub, kSSub = L::kStateSub;
+  constexpr int kKt = NT / 16;         // k tiles over N
+  constexpr int kNh = NT / 16;         // state n tiles of 8 per warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* const smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const unsigned sbase = smem_u32(smem);
+  float* const sCum = reinterpret_cast<float*>(smem + L::kCum);
+  float* const sWdt = reinterpret_cast<float*>(smem + L::kWdt);
+  const unsigned bar_c = sbase + L::kBar + 16;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;          // fragment row, column pair
+  const int lr = lane & 7, lm = lane >> 3;         // ldmatrix row, matrix
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int QT = (Q + 15) & ~15, MT = QT / 16;
+  const int nchunks = (S + Q - 1) / Q;
+  const float ah = a[h];
+  const float* const dtb = dt + static_cast<size_t>(b) * S * H + h;
+  constexpr unsigned kTileTx = 128u * (NT / 64 + 1);   // bytes a row, B and x
+
+  // thread 0: B and x of the chunk at c0 into stage s; C into its slot
+  auto issue_stage = [&](int s, int c0) {
+    const unsigned dst = sbase + s * L::kStage, bar = sbase + L::kBar + 8 * s;
+    mbar_expect_tx(bar, kTileTx * Q);
+#pragma unroll
+    for (int k = 0; k < NT / 64; ++k)
+      tma_load_3d(dst + k * kSub, &tb, bar, 64 * k, c0, b);
+    tma_load_4d(dst + L::kX, &tx, bar, 0, h, c0, b);
+  };
+  auto issue_c = [&](int c0) {
+    mbar_expect_tx(bar_c, 128u * (NT / 64) * Q);
+#pragma unroll
+    for (int k = 0; k < NT / 64; ++k)
+      tma_load_3d(sbase + L::kC + k * kSub, &tc, bar_c, 64 * k, c0, b);
+  };
+  // warp 0: dt of the chunk at c0 into its stage (rows >= nv read as 0)
+  auto load_dt = [&](int s, int c0) {
+    const int nv = min(Q, S - c0);
+    for (int r = lane; r < QT; r += 32)
+      cp_async4(sbase + L::kDt + 4 * (s * kMaxQ + r),
+                dtb + (r < nv ? static_cast<size_t>(c0 + r) * H : 0), r < nv);
+    cp_async_commit();
+  };
+
+  // the state: this warp's rows 16 pm + g (+ 8), columns n0 + 8 j + 2 t4;
+  // its hi/lo split starts at zero, as do the tile rows Q..QT-1 that no
+  // load writes
+  const int pm = warp & 3, n0 = (warp >> 2) * (NT / 2);
+  float st[kNh][4];
+#pragma unroll
+  for (int j = 0; j < kNh; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[j][e] = 0.0f;
+  for (int i = tid; i < 2 * L::kStateHalf / 16; i += kTcThreads)
+    reinterpret_cast<uint4*>(smem + L::kState)[i] = make_uint4(0, 0, 0, 0);
+  if (Q < QT) {
+    const int tiles = 2 * (NT / 64 + 1) + NT / 64, per = (QT - Q) * 8;
+    for (int i = tid; i < tiles * per; i += kTcThreads) {
+      const int t = i / per, r = Q + (i % per) / 8, u = i % 8;
+      *reinterpret_cast<uint4*>(smem + t * kSub + r * 128 + u * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+  if (tid == 0) {
+    mbar_init(sbase + L::kBar, 1);
+    mbar_init(sbase + L::kBar + 8, 1);
+    mbar_init(bar_c, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    issue_stage(0, 0);
+    issue_c(0);
+  }
+  if (warp == 0) load_dt(0, 0);
+
+  // this warp's 16 chunk rows: m-tiles 0-3 and 7-4, so that the warps w and
+  // w + 4 of a scheduler share 9 causal key tiles
+  const int mt = warp < 4 ? warp : 11 - warp, q0 = 16 * mt;
+  // per-lane ldmatrix offsets at key tile 0; tile kk adds kk 16 rows (the
+  // swizzle depends on the row's low three bits only)
+  const unsigned oB = toff(lr + 8 * (lm >> 1), 8 * (lm & 1), kSub);
+  const unsigned oXd = toff(lr + 8 * (lm & 1), 8 * (lm >> 1), kSub);
+  const unsigned oXs = toff(lr + 8 * (lm >> 1), 16 * pm + 8 * (lm & 1), kSub);
+  const unsigned oBs = toff(lr + 8 * (lm & 1), n0 + 8 * (lm >> 1), kSub);
+  for (int c = 0; c < nchunks; ++c) {
+    const int c0 = c * Q, nv = min(Q, S - c0), s = c & 1;
+    const unsigned stg = sbase + s * L::kStage;
+    const float* sDt =
+        reinterpret_cast<const float*>(smem + L::kDt) + s * kMaxQ;
+    __syncthreads();   // the last chunk is done with stage s ^ 1
+    if (tid == 0 && c + 1 < nchunks) issue_stage(s ^ 1, c0 + Q);
+
+    // warp 0: cum = cumsum(dt a) and w dt = exp(cum_end - cum) dt
+    if (warp == 0) {
+      cp_async_wait_all();
+      __syncwarp();
+      if (c + 1 < nchunks) load_dt(s ^ 1, c0 + Q);
+      float v[4], run = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * lane + i;
+        run += r < QT ? sDt[r] * ah : 0.0f;
+        v[i] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float up = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += up;
+      }
+      const float excl = incl - run;
+      const float cend = __shfl_sync(0xffffffffu, incl, 31);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * lane + i;
+        sCum[r] = excl + v[i];
+        sWdt[r] = r < QT ? exp_ftz(cend - (excl + v[i])) * sDt[r] : 0.0f;
+      }
+    }
+    mbar_wait(sbase + L::kBar + 8 * s, (c >> 1) & 1);   // B and x landed
+    mbar_wait(bar_c, c & 1);                             // C landed
+
+    // this warp's C rows as A fragments, one per k tile over N
+    unsigned cf[kKt][4];
+    float yacc[8][4];
+    if (mt < MT) {
+#pragma unroll
+      for (int kt = 0; kt < kKt; ++kt)
+        ldsm_x4(sbase + L::kC +
+                    toff(q0 + lr + 8 * (lm & 1), 16 * kt + 8 * (lm >> 1), kSub),
+                cf[kt]);
+      // y_off = C.state^T, the state's hi and lo passes
+      const unsigned shi = sbase + L::kState, slo = shi + L::kStateHalf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yacc[j][e] = 0.0f;
+#pragma unroll
+      for (int kt = 0; kt < kKt; ++kt)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          const unsigned off = 16 * np * 128 + toff_add(oB, 2 * kt, kSSub);
+          unsigned bh[4], bl[4];
+          ldsm_x4(shi + off, bh);
+          ldsm_x4(slo + off, bl);
+          mma_bf16(yacc[2 * np], cf[kt], bh[0], bh[1]);
+          mma_bf16(yacc[2 * np], cf[kt], bl[0], bl[1]);
+          mma_bf16(yacc[2 * np + 1], cf[kt], bh[2], bh[3]);
+          mma_bf16(yacc[2 * np + 1], cf[kt], bl[2], bl[3]);
+        }
+    }
+    __syncthreads();   // cum ready; every warp holds its C fragments
+    if (tid == 0 && c + 1 < nchunks) issue_c(c0 + Q);
+
+    if (mt < MT) {
+      const float cq0 = sCum[q0 + g], cq1 = sCum[q0 + g + 8];
+      {
+        const float e0 = exp_ftz(cq0), e1 = exp_ftz(cq1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          yacc[j][0] *= e0;
+          yacc[j][1] *= e0;
+          yacc[j][2] *= e1;
+          yacc[j][3] *= e1;
+        }
+      }
+      // G = C.B^T of key tile kk
+      auto c_bt = [&](int kk, float (&gt)[2][4]) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gt[j][e] = 0.0f;
+        const unsigned base = stg + kk * 16 * 128;
+#pragma unroll
+        for (int kt = 0; kt < kKt; ++kt) {
+          unsigned bf[4];
+          ldsm_x4(base + toff_add(oB, 2 * kt, kSub), bf);
+          mma_bf16(gt[0], cf[kt], bf[0], bf[1]);
+          mma_bf16(gt[1], cf[kt], bf[2], bf[3]);
+        }
+      };
+      // y += M.x over the causal key tiles, M = G exp(cum_q - cum_t) dt_t
+      float gt[2][4];
+      c_bt(0, gt);
+      for (int kk = 0; kk <= mt; ++kk) {
+        const int t0 = 16 * kk;
+        float gn[2][4];
+        if (kk < mt) c_bt(kk + 1, gn);   // the next tile's G in flight
+        // A fragments (rows g, k 0-7), (g + 8, 0-7), (g, 8-15), (g + 8, 8-15)
+        unsigned mhi[4], mlo[4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int t = t0 + 8 * j + 2 * t4;
+          const float2 ct = *reinterpret_cast<const float2*>(sCum + t);
+          const float2 dtt = *reinterpret_cast<const float2*>(sDt + t);
+          float m[4] = {gt[j][0] * exp_ftz(cq0 - ct.x) * dtt.x,
+                        gt[j][1] * exp_ftz(cq0 - ct.y) * dtt.y,
+                        gt[j][2] * exp_ftz(cq1 - ct.x) * dtt.x,
+                        gt[j][3] * exp_ftz(cq1 - ct.y) * dtt.y};
+          if (kk == mt) {   // the diagonal tile: t <= q only (the exponent
+                            // above it may overflow, so select, not scale)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (8 * j + 2 * t4 + (e & 1) > g + 8 * (e >> 1)) m[e] = 0.0f;
+          }
+          split2(m[0], m[1], mhi[2 * j], mlo[2 * j]);
+          split2(m[2], m[3], mhi[2 * j + 1], mlo[2 * j + 1]);
+        }
+        const unsigned xt = stg + L::kX + kk * 16 * 128;
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          unsigned bf[4];
+          ldsm_x4_t(xt + toff_add(oXd, 2 * np, kSub), bf);
+          mma_bf16(yacc[2 * np], mhi, bf[0], bf[1]);
+          mma_bf16(yacc[2 * np], mlo, bf[0], bf[1]);
+          mma_bf16(yacc[2 * np + 1], mhi, bf[2], bf[3]);
+          mma_bf16(yacc[2 * np + 1], mlo, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gt[j][e] = gn[j][e];
+      }
+      // y rows < nv, columns < P
+      float* const yb = y + (static_cast<size_t>(b) * S * H + h) * P;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = q0 + g + 8 * half;
+        if (q >= nv) continue;
+        float* row = yb + static_cast<size_t>(c0 + q) * H * P;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (8 * j < P)
+            *reinterpret_cast<float2*>(row + 8 * j + 2 * t4) =
+                make_float2(yacc[j][2 * half], yacc[j][2 * half + 1]);
+      }
+    }
+
+    // state = exp(cum_end) state + (x^T w dt).B, then its hi/lo split
+    {
+      const float eend = exp_ftz(sCum[QT - 1]);
+#pragma unroll
+      for (int j = 0; j < kNh; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] *= eend;
+      for (int kt = 0; kt < MT; ++kt) {
+        const int t0 = 16 * kt;
+        unsigned xa[4], ahi[4], alo[4];
+        ldsm_x4_t(stg + L::kX + oXs + t0 * 128, xa);
+        const float2 w0 = *reinterpret_cast<const float2*>(sWdt + t0 + 2 * t4);
+        const float2 w1 =
+            *reinterpret_cast<const float2*>(sWdt + t0 + 8 + 2 * t4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 w = i < 2 ? w0 : w1;
+          split2(bf16_lo(xa[i]) * w.x, bf16_hi(xa[i]) * w.y, ahi[i], alo[i]);
+        }
+        const unsigned bt = stg + t0 * 128;
+#pragma unroll
+        for (int jj = 0; jj < kNh / 2; ++jj) {
+          unsigned bf[4];
+          ldsm_x4_t(bt + toff_add(oBs, 2 * jj, kSub), bf);
+          mma_bf16(st[2 * jj], ahi, bf[0], bf[1]);
+          mma_bf16(st[2 * jj], alo, bf[0], bf[1]);
+          mma_bf16(st[2 * jj + 1], ahi, bf[2], bf[3]);
+          mma_bf16(st[2 * jj + 1], alo, bf[2], bf[3]);
+        }
+      }
+      unsigned char* const shi = smem + L::kState;
+#pragma unroll
+      for (int j = 0; j < kNh; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          unsigned hi, lo;
+          split2(st[j][2 * half], st[j][2 * half + 1], hi, lo);
+          const unsigned off =
+              toff(16 * pm + g + 8 * half, n0 + 8 * j + 2 * t4, kSSub);
+          *reinterpret_cast<unsigned*>(shi + off) = hi;
+          *reinterpret_cast<unsigned*>(shi + L::kStateHalf + off) = lo;
+        }
+    }
+  }
+
+  // the final state, rows < P and columns < N
+  float* const fb = final_state + (static_cast<size_t>(b) * H + h) * P * N;
+#pragma unroll
+  for (int j = 0; j < kNh; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = 16 * pm + g + 8 * half, n = n0 + 8 * j + 2 * t4;
+      if (p < P && n < N)
+        *reinterpret_cast<float2*>(fb + p * N + n) =
+            make_float2(st[j][2 * half], st[j][2 * half + 1]);
+    }
+}
+
+constexpr int kMaxDevices = 64;
+
+// Opt a kernel in to `bytes` of dynamic shared memory once per device: the
+// attribute persists, so later launches skip the call.
+cudaError_t opt_in_smem(const void* kernel, int* done, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done[dev] = bytes;
+  return err;
+}
+
+int launch_f32(const void* x, const float* dt, const void* bm, const void* cm,
+               const float* a, float* y, float* fin, int B, int S, int H,
+               int P, int N, int Q, long long x_sb, long long x_ss,
+               long long x_sh, long long b_sb, long long b_ss, long long c_sb,
+               long long c_ss, cudaStream_t stream) {
+  static int opted[kMaxDevices];
+  const int smem = static_cast<int>(smem_bytes(P, N, Q));
+  cudaError_t err = opt_in_smem(
+      reinterpret_cast<const void*>(ssd_scan_kernel), opted, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_scan_kernel<T><<<dim3(H, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, static_cast<const T*>(bm),
-      static_cast<const T*>(cm), a, y, fin, S, H, P, N, Q, x_sb, x_ss, x_sh,
-      b_sb, b_ss, c_sb, c_ss);
+  ssd_scan_kernel<<<dim3(H, B), kThreads, smem, stream>>>(
+      static_cast<const float*>(x), dt, static_cast<const float*>(bm),
+      static_cast<const float*>(cm), a, y, fin, S, H, P, N, Q, x_sb, x_ss,
+      x_sh, b_sb, b_ss, c_sb, c_ss);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver library that the CUDA runtime has
+// loaded (no link against libcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA descriptor of a bf16 tensor of `rank` dims (innermost first, byte
+// strides of dims 1.. multiples of 16) loaded in boxes of 64 values by Q
+// rows (dim 2 of x (P, H, S, B), dim 1 of B and C (N, S, B)); 128-byte
+// swizzle, zeros outside the tensor.
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rank,
+                       const long long* dims, const long long* strides,
+                       int Q) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSharedObjectInitFailed;
+  cuuint64_t gdim[4], gstride[3];
+  cuuint32_t box[4], estride[4] = {1, 1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    box[i] = i == 0 ? 64 : (i == rank - 2 ? Q : 1);
+  }
+  for (int i = 0; i + 1 < rank; ++i)
+    gstride[i] = static_cast<cuuint64_t>(strides[i]) * 2;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                        const_cast<void*>(ptr), gdim, gstride, box, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int NT>
+int launch_tc(const void* x, const float* dt, const void* bm, const void* cm,
+              const float* a, float* y, float* fin, int B, int S, int H,
+              int P, int N, int Q, long long x_sb, long long x_ss,
+              long long x_sh, long long b_sb, long long b_ss, long long c_sb,
+              long long c_ss, cudaStream_t stream) {
+  alignas(64) CUtensorMap tx, tb, tc;
+  const long long xd[4] = {P, H, S, B}, xs[3] = {x_sh, x_ss, x_sb};
+  const long long bd[3] = {N, S, B}, bs[2] = {b_ss, b_sb}, cs[2] = {c_ss, c_sb};
+  cudaError_t err = tensor_map(&tx, x, 4, xd, xs, Q);
+  if (err == cudaSuccess) err = tensor_map(&tb, bm, 3, bd, bs, Q);
+  if (err == cudaSuccess) err = tensor_map(&tc, cm, 3, bd, cs, Q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static int opted[kMaxDevices];
+  constexpr int smem = TcPlan<NT>::kBytes;
+  err = opt_in_smem(reinterpret_cast<const void*>(ssd_scan_tc_kernel<NT>),
+                    opted, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_scan_tc_kernel<NT><<<dim3(H, B), kTcThreads, smem, stream>>>(
+      tx, tb, tc, dt, a, y, fin, S, H, P, N, Q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -314,9 +878,9 @@ int launch(const void* x, const float* dt, const void* bm, const void* cm,
 // P; dt (B, S, H) fp32 contiguous, already softplused; B and C (B, S, N) with
 // strides (b_sb, b_ss) and (c_sb, c_ss) and unit stride over N; a (H,) fp32
 // = -exp(a_log); y (B, S, H, P) and final_state (B, H, P, N) fp32
-// contiguous. dtype 0 = float32, 1 = bfloat16 for x, B and C, whose rows
-// are read in 16-byte chunks (16-byte aligned, P and N multiples of 16
-// bytes). Q <= 128, P <= 64, N <= 128.
+// contiguous. dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores)
+// for x, B and C, whose rows are read in 16-byte chunks (16-byte aligned, P
+// and N multiples of 16 bytes). Q <= 128, P <= 64, N <= 128.
 extern "C" int ssd_scan_fwd(int dtype, const void* x, const float* dt,
                             const void* bm, const void* cm, const float* a,
                             float* y, float* final_state, int B, int S, int H,
@@ -329,13 +893,14 @@ extern "C" int ssd_scan_fwd(int dtype, const void* x, const float* dt,
       P % per16 != 0 || N % per16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch<float>(x, dt, bm, cm, a, y, final_state, B, S, H, P, N, Q,
+    return launch_f32(x, dt, bm, cm, a, y, final_state, B, S, H, P, N, Q,
+                      x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss, stream);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 64)
+    return launch_tc<64>(x, dt, bm, cm, a, y, final_state, B, S, H, P, N, Q,
                          x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss, stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, bm, cm, a, y, final_state, B, S, H, P,
-                                 N, Q, x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss,
-                                 stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tc<128>(x, dt, bm, cm, a, y, final_state, B, S, H, P, N, Q,
+                        x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss, stream);
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -5,7 +5,8 @@ as the convolution gives them (slices with unit stride over the last
 dimension), dt (B, S, H) already softplused and a = -exp(a_log). It
 returns y and the final state. CPU tensors take the plain chunked version
 (``ref.py``); CUDA tensors launch the kernel in ``kernel.cu`` on the
-current stream, which reads the slices through their strides.
+current stream, which reads the slices through their strides: in fp32 the
+CUDA-core kernel, in bf16 the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -16,9 +17,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
 
 NAME = "ssd_scan"
-MAX_CHUNK = 128             # the register blocks: 8 rows of 16 threads
-MAX_HEAD_DIM = 64           # 4 columns of 16
-MAX_STATE = 128             # 8 columns of 16
+MAX_CHUNK = 128             # fp32: 8 rows of 16 threads; bf16: 8 warps of 16
+MAX_HEAD_DIM = 64           # fp32: 4 columns of 16; bf16: one 64-wide x tile
+MAX_STATE = 128             # fp32: 8 columns of 16; bf16: two 64-wide tiles
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -86,6 +87,8 @@ def ssd_scan(x, dt, bmat, cmat, a, *, q_chunk: int = 128):
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if b * h == 0:
         return y, final
+    if s == 0:             # no positions: the state stays zero
+        return y, final.zero_()
     lib = _build.load(NAME)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):

@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 # the segment-DP profiles, kinds and grid of chip_smoke.py
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 from chip_smoke import (K3_GS, K3_KINDS, K3_MS, K4_SHAPES,  # noqa: E402
-                        K5_SHAPES, K6_SHAPES, check_lm_kernels,
+                        K5_SHAPES, K6_SHAPES, LM_TOL, check_lm_kernels,
                         k3_profiles, lm_kernel_inputs, to_cpu)
 
 from repro_torch.kernels import KERNEL_LAUNCHES  # noqa: E402
@@ -174,6 +174,58 @@ def test_lm_kernels_match_their_plain_versions(cuda, kind, shape):
     # fp32 and bf16, and K4 causal and not
     assert KERNEL_LAUNCHES[kind] == before + (4 if kind ==
                                               "flash_attention" else 2)
+
+
+# K6's bf16 path on the tensor cores, fed by TMA: x, B and C as the strided
+# slices of one (B, S, H P + 2 N) buffer that models/ssm.py makes, at a
+# ragged last chunk (S = 200, Q = 64), N = 8 and 128, P = 16 and 64, B x H
+# of 1 and 2 (below the SM count), odd head counts, chunks that are not a
+# multiple of 16 rows (Q = 40, 24) and the serve's shape; y and the final
+# state each held to chip_smoke.py's LM_TOL
+K6_TC_CASES = [(1, 2, 200, 16, 8, 64), (2, 3, 200, 64, 128, 64),
+               (1, 1, 256, 64, 64, 128), (1, 2, 384, 16, 64, 128),
+               (2, 7, 300, 64, 8, 128), (3, 5, 100, 32, 128, 40),
+               (1, 3, 96, 24, 16, 24), (8, 112, 2048, 64, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K6_TC_CASES)
+def test_ssd_scan_bf16_kernel_reads_the_convolution_output(cuda, shape):
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
+    b, h, s, p, n, q = shape
+    rng = np.random.default_rng(sum(shape))
+    di = h * p
+    xbc = _randn(rng, b, s, di + 2 * n, device=cuda).to(torch.bfloat16)
+    x = xbc[..., :di].reshape(b, s, h, p)
+    bm, cm = xbc[..., di:di + n], xbc[..., di + n:]
+    assert x.data_ptr() == xbc.data_ptr()          # views, not copies
+    dt = torch.nn.functional.softplus(_randn(rng, b, s, h, device=cuda)
+                                      - 1.0)
+    a = -torch.exp(torch.linspace(-1.0, 0.5, h, device=cuda))
+    before = KERNEL_LAUNCHES["ssd_scan"]
+    y, state = ssd_scan(x, dt, bm, cm, a, q_chunk=q)
+    want_y, want_state = ssd_scan_plain(x, dt, bm, cm, a, q_chunk=q)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES["ssd_scan"] == before + 1
+    assert y.shape == (b, s, h, p) and state.shape == (b, h, p, n)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    tol = LM_TOL["ssd_scan"][1]
+    assert float((y - want_y).abs().max()) <= tol * float(
+        want_y.abs().max())
+    assert float((state - want_state).abs().max()) <= tol * float(
+        want_state.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_of_no_positions_leaves_a_zero_state(cuda, dtype):
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    x, dt, bm, cm, a = lm_kernel_inputs("ssd_scan", (2, 3, 0, 16, 8, 64),
+                                        dtype, 0, cuda)
+    y, state = ssd_scan(x, dt, bm, cm, a, q_chunk=64)
+    assert y.shape == (2, 0, 3, 16)
+    assert state.shape == (2, 3, 16, 8) and not bool(state.any())
 
 
 @pytest.mark.cuda

@@ -220,6 +220,59 @@ def test_ssd_scan_fp32_spread_is_that_of_two_fp32_evaluations():
     assert _rel(y32, kern) < FP32_TOL
 
 
+# The bf16 CUDA kernel works in tiles of 16 chunk rows: a chunk Q that is
+# not a multiple of 16 leaves rows Q..16 ceil(Q / 16) of its tile outside
+# the chunk, and a ragged last chunk leaves rows past S; both must be
+# inert. The plain version, which the CPU path runs and the kernel is held
+# to on the card, agrees with the reference's oracle at such Q.
+@pytest.mark.parametrize("s,qc", [(77, 16), (100, 40), (200, 64),
+                                  (130, 128), (5, 128), (96, 24)])
+def test_ssd_scan_plain_matches_the_reference_oracle_at_any_chunk(s, qc):
+    x, dt, bm, cm, a_log = _ssd_inputs(1, 3, s, 16, 8, seed=s + qc)
+    a = -np.exp(a_log)
+    t = [torch.from_numpy(v) for v in (x, dt, bm, cm)]
+    y, state = ssd_scan(*t, torch.from_numpy(a), q_chunk=qc)
+    oracle = ssd_scan_ref(jnp.asarray(x).transpose(0, 2, 1, 3),
+                          jnp.asarray(dt).transpose(0, 2, 1),
+                          jnp.asarray(bm), jnp.asarray(cm),
+                          jnp.asarray(a)).transpose(0, 2, 1, 3)
+    assert _rel(y, oracle) < FP32_TOL
+    _, rstate = ssd_scan_recurrence(*t, torch.from_numpy(a))
+    assert _rel(state, rstate) < FP32_TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_reads_the_slices_of_the_convolution_output(dtype):
+    """models/ssm.py hands K6 x, B and C as strided views of one (B, S,
+    H P + 2 N) buffer, which the kernels read in place (the bf16 kernel
+    through tensor maps over the views): the CPU path gives the same
+    result on the views as on contiguous copies, and the reference's
+    kernel agrees."""
+    b, h, s, p, n = 2, 3, 200, 16, 8
+    rng = np.random.default_rng(5)
+    xbc = rng.standard_normal((b, s, h * p + 2 * n)).astype(np.float32)
+    dt = np.array(jax.nn.softplus(
+        rng.standard_normal((b, s, h)).astype(np.float32) - 1.0))
+    a = -np.exp(np.linspace(-1.0, 0.5, h).astype(np.float32))
+    jbuf, tbuf = _both(xbc, dtype)
+    di = h * p
+    views = (tbuf[..., :di].reshape(b, s, h, p), tbuf[..., di:di + n],
+             tbuf[..., di + n:])
+    assert not any(v.is_contiguous() for v in views)
+    tdt, ta = torch.from_numpy(dt), torch.from_numpy(a)
+    tx, tb, tc = views
+    y, state = ssd_scan(tx, tdt, tb, tc, ta, q_chunk=64)
+    y2, state2 = ssd_scan(tx.contiguous(), tdt, tb.contiguous(),
+                          tc.contiguous(), ta, q_chunk=64)
+    torch.testing.assert_close(y, y2, rtol=0, atol=0)
+    torch.testing.assert_close(state, state2, rtol=0, atol=0)
+    kern = j_ssd_scan(jbuf[..., :di].reshape(b, s, h, p).transpose(0, 2, 1, 3),
+                      jnp.asarray(dt).transpose(0, 2, 1), jbuf[..., di:di + n],
+                      jbuf[..., di + n:], jnp.asarray(a), q_chunk=64,
+                      interpret=True).transpose(0, 2, 1, 3)
+    assert _rel(y, kern) < (3e-2 if dtype == "bfloat16" else FP32_TOL)
+
+
 # ------------------------------------------------------------ wrappers
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     before = dict(KERNEL_LAUNCHES)

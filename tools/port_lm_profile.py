@@ -28,9 +28,9 @@ import time
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
 
 # the CUDA kernels of K4 (bf16), K5 (one launch: the splits merge in their
-# cluster) and K6, as the profiler names them
+# cluster) and K6 (bf16, on the tensor cores), as the profiler names them
 KERNELS = ("flash_attention_wgmma_kernel", "flash_decode_split_kernel",
-           "ssd_scan_kernel")
+           "ssd_scan_tc_kernel")
 
 
 def main() -> None:
