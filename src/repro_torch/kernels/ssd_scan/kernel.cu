@@ -28,7 +28,9 @@
 // product on the tensor cores: y and the final state are its only writes;
 // TMA brings x, B and C in once per head, the next chunk's while this
 // chunk's products run; and two blocks share an SM (100 KB of shared
-// memory each, at most 128 registers a thread) where N <= 64.
+// memory each, at most 128 registers a thread) where N <= 64. What keeps
+// it above that bound is the warp with the most causal key tiles: one warp
+// issues mma.sync at most once per ~12.8 cycles (tools/port_mma_rate.py).
 //
 // The fp32 kernel (ssd_scan_kernel) runs on CUDA cores in fp32 FMA and
 // recomputes C.B^T in each head's block: 256 threads as 16 x 16; per chunk
