@@ -1321,7 +1321,7 @@ def _k6_bound(b, h, s, p, n, q, itemsize):
 
 
 def _k6_bound_fp32_rate(b, h, s, p, n, q, itemsize):
-    # the products at the fp32 CUDA-core rate (PR 13's and PR 14's bound)
+    # the products at the fp32 CUDA-core rate (the CUDA-core kernel's bound)
     nbytes, flops, _ = _k6_work(b, h, s, p, n, q, itemsize)
     return _bound_at(nbytes, flops, FP32_FLOPS_PER_S)
 

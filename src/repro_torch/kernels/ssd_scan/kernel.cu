@@ -813,8 +813,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver library that the CUDA runtime has
-// loaded (no link against libcuda)
+// cuTensorMapEncodeTiled from libcuda.so.1, which the CUDA runtime has
+// loaded (no link against it)
 EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {
     void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
