@@ -10,7 +10,9 @@ Phases (any failure exits non-zero, without the final result line):
      count K4's wgmma (HGMMA) and TMA instructions and K6's tensor-core
      (HMMA) and TMA instructions in their machine code;
   3. hold each kernel against its plain PyTorch version on the card (the
-     segment-DP kernel bit for bit, over profile kinds, M, G and k);
+     segment-DP and k-NN kernels bit for bit, over profile kinds, M, G and
+     k, and over ties, k and warps a query; the fused MLP predict also bit
+     for bit against the five launches it replaces);
   4. replay the ``methylseq`` workflow at scale 1.0 through
      ``SizeyMethod(device="cuda")`` (the peak path) with the launch
      counters zeroed just before; every kernel of the path must have
@@ -23,14 +25,19 @@ Phases (any failure exits non-zero, without the final result line):
      time-integrated wastage and failures must lie within the reference's
      spread; then through ``make_method("ks_plus", device="cuda")``, which
      must give the reference's totals exactly; every shape the kernels
-     were given in 4 and 5 is then checked as in 3;
+     were given in 4 and 5 is then checked as in 3, with every k;
   6. replay a small scale of both Sizey paths on the card and on the CPU
      through the port and compare the decisions;
-  7. time each kernel, its plain version and a one-call library yardstick
-     with CUDA events, beside the least time the card could take;
+  7. time each kernel, its plain version and a library yardstick with CUDA
+     events, beside the least time the card could take; K1 and K2 at every
+     shape the replays launched, each also split into its device time
+     (torch.profiler) and the host's time to issue it, with each replay's
+     launch-weighted total, and mlp.predict_batch beside the five launches
+     it replaces;
   8. hold K4 flash_attention, K5 flash_decode and K6 ssd_scan against their
      plain versions on the card at the reference's test shapes, fp32 and
-     bf16;
+     bf16; K6 in bf16 also no farther from its plain version, relative to
+     the largest |y|, than twice the fp32 kernel fed the same values;
   9. serve zamba2-7b at full width (bf16, random weights from a seed) on the
      card through ``ServeEngine`` with ``KVCacheSizer``: 32 requests in 4
      batches of 8, prompts of 256..2048 tokens, 32 new tokens each at
@@ -46,7 +53,8 @@ Phases (any failure exits non-zero, without the final result line):
  12. time K4-K6 at their most launched full-width shapes beside their plain
      versions, PyTorch's scaled_dot_product_attention (K4, K5) and bounds,
      with K4's achieved TFLOP/s, K5's and K6's GB/s and K6's largest
-     difference from its plain version there.
+     difference from its plain version there, in bf16 and from the fp32
+     kernel fed the same values (the bf16 one at most twice the fp32).
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``. Imports
@@ -133,9 +141,10 @@ T_TW_RTOL = 6e-4
 K1_SHAPES = [(1, 1, 1, 32), (1, 7, 1, 32), (1, 128, 1, 32), (1, 256, 1, 32),
              (1, 1024, 1, 32), (3, 300, 4, 32)]
 K2_SHAPES = [(1, 128, 1), (64, 128, 1), (128, 128, 1), (256, 256, 1),
-             (1024, 1024, 1), (37, 300, 4)]
+             (1024, 1024, 1), (37, 300, 4), (4, 500, 2), (3, 77, 1)]
 # K2 keeps its k nearest in a register list of 5 for k <= 5 (the main
-# path's k = 5) and of 32 above: both are checked
+# path's k = 5) and of 32 above: both are checked, at every number of warps
+# a query
 K2_KS = (5, 1, 8, 32)
 # K3: the profile kinds, M (a young pool to PROFILE_WINDOW = 512), G (the
 # main path's 32 and edges) and k in {1, 2, 4, G} it is held to, bitwise;
@@ -144,8 +153,12 @@ K3_KINDS = ("random", "ties", "step", "constant", "zero")
 K3_MS = (1, 3, 5, 64, 128, 512)
 K3_GS = (4, 32, 33)
 K3_TIMED = (8, 32, 128, 512)
-K1_TIMED = [1, 64, 128, 256, 1024]
-K2_TIMED = [(1, 128), (64, 128), (128, 128), (256, 256), (1024, 1024)]
+# phase 7 times K1 and K2 at every shape the replays launched and at these
+K1_TIMED = [(1, 1024, 1, 32)]
+K2_TIMED = [(1024, 1024, 1)]
+# mlp.predict_batch beside the five launches it replaces, (M, T, d, h)
+PREDICT_TIMED = [(1, 1, 1, 32), (1, 128, 1, 32), (1, 4, 2, 32),
+                 (1, 512, 2, 32)]
 
 
 def gpu_line() -> str:
@@ -202,6 +215,30 @@ def _k1_inputs(m, t, d, h, seed, dev):
             f(m, h, 1, sc=0.5), f(m, 1, sc=0.1))
 
 
+def _mlp_predict_inputs(t, d, h, seed, dev):
+    """One model's features, weights and normalisation statistics, as
+    ``mlp.predict_batch`` hands them to the fused entry: x (T, d), w1 (d,
+    h), b1 (h,), w2 (h, 1), b2 (1,), mu_x, sd_x (d,), mu_y, sd_y ()."""
+    import numpy as np
+    import torch
+    x, w1, b1, w2, b2 = _k1_inputs(1, t, d, h, seed, dev)
+    rng = np.random.default_rng(seed + 1)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    return (x[0] * 5.0 + 20.0, w1[0], b1[0], w2[0], b2[0],
+            f(rng.uniform(10.0, 30.0, d)), f(rng.uniform(1.0, 8.0, d)),
+            f(rng.uniform(1.0, 50.0)), f(rng.uniform(0.5, 20.0)))
+
+
+def _composed_predict(x, w1, b1, w2, b2, mu_x, sd_x, mu_y, sd_y):
+    """The MLP model's predict as five launches: the eager normalisation,
+    ``ensemble_mlp_forward`` and the eager de-normalisation."""
+    from repro_torch.kernels.ensemble_mlp.ops import ensemble_mlp_forward
+    xn = ((x - mu_x) / sd_x).contiguous()
+    yn = ensemble_mlp_forward(xn[None], w1[None], b1[None], w2[None],
+                              b2[None])[0]
+    return yn * sd_y + mu_y
+
+
 def _k2_inputs(q, t, d, seed, dev, ties: bool):
     import numpy as np
     import torch
@@ -223,47 +260,74 @@ def _k2_inputs(q, t, d, seed, dev, ties: bool):
 
 def check_kernels(k1_shapes=K1_SHAPES, k2_shapes=K2_SHAPES,
                   ks=K2_KS) -> dict:
-    """Every kernel against its plain version on the card, K2 with and
-    without ties and at each k of ``ks``. Returns the largest absolute
-    difference per kernel."""
+    """Every kernel against its plain version on the card: K1's forward,
+    and for one model (M = 1) its fused prediction, also bitwise against
+    the five launches it replaces; K2 with and without ties, at each k of
+    ``ks`` and each number of warps a query, then with no valid row and
+    with fewer valid rows than k. Returns the largest absolute difference
+    per kernel."""
     import torch
-    from repro_torch.kernels.ensemble_mlp.ops import ensemble_mlp_forward
-    from repro_torch.kernels.ensemble_mlp.ref import ensemble_mlp_ref
-    from repro_torch.kernels.knn.ops import knn_predict, pairwise_sq_dists
+    from repro_torch.kernels.ensemble_mlp.ops import (ensemble_mlp_forward,
+                                                      mlp_predict)
+    from repro_torch.kernels.ensemble_mlp.ref import (ensemble_mlp_ref,
+                                                      mlp_predict_ref)
+    from repro_torch.kernels.knn.ops import (SPLITS, knn_predict,
+                                             pairwise_sq_dists)
     from repro_torch.kernels.knn.ref import (knn_predict_ref,
                                              pairwise_sq_dists_ref)
     dev = torch.device("cuda")
     err = {"ensemble_mlp": 0.0, "knn_predict": 0.0}
-    for i, (m, t, d, h) in enumerate(k1_shapes):
-        args = _k1_inputs(m, t, d, h, i, dev)
-        got = ensemble_mlp_forward(*args)
-        want = ensemble_mlp_ref(*args)
+
+    def k1_close(got, want, what):
         torch.cuda.synchronize()
         diff = (got - want).abs()
-        e = float(diff.max())
+        e = float(diff.max()) if diff.numel() else 0.0
         ok = bool((diff <= K1_TOL * (1 + want.abs())).all())
-        print(f"[check] ensemble_mlp M={m} T={t} d={d} h={h}: max abs err "
-              f"{e:.3e} (tol {K1_TOL:g} x (1+|plain|)) {'ok' if ok else 'FAIL'}")
+        print(f"[check] {what}: max abs err {e:.3e} (tol {K1_TOL:g} x "
+              f"(1+|plain|)) {'ok' if ok else 'FAIL'}")
         if not ok:
-            _fail(f"ensemble_mlp disagrees at {(m, t, d, h)}")
+            _fail(f"{what} disagrees with its plain version")
         err["ensemble_mlp"] = max(err["ensemble_mlp"], e)
+
+    for i, (m, t, d, h) in enumerate(k1_shapes):
+        args = _k1_inputs(m, t, d, h, i, dev)
+        k1_close(ensemble_mlp_forward(*args), ensemble_mlp_ref(*args),
+                 f"ensemble_mlp M={m} T={t} d={d} h={h}")
+        if m != 1:
+            continue
+        args = _mlp_predict_inputs(t, d, h, i, dev)
+        got = mlp_predict(*args)
+        k1_close(got, mlp_predict_ref(*args),
+                 f"ensemble_mlp fused predict T={t} d={d} h={h}")
+        if not torch.equal(got, _composed_predict(*args)):
+            _fail(f"the fused predict at T={t} d={d} rounds otherwise "
+                  f"than the five launches it replaces")
+    if any(m == 1 for m, *_ in k1_shapes):
+        print("[check] ensemble_mlp fused predict: bitwise equal to the "
+              "eager normalisation, ensemble_mlp_forward and the eager "
+              "de-normalisation on the card at these shapes")
+
+    def k2_equal(qs, hist, ys, mask, scale, k, what):
+        want = knn_predict_ref(qs, hist, ys, mask, scale, k)
+        for s in SPLITS:
+            got = knn_predict(qs, hist, ys, mask, scale, k, splits=s)
+            torch.cuda.synchronize()
+            err["knn_predict"] = max(err["knn_predict"],
+                                     float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                _fail(f"knn_predict disagrees at {what}, k={k}, {s} warps "
+                      f"a query")
+
     for i, (q, t, d) in enumerate(k2_shapes):
         for ties in (False, True):
             qs, hist, ys, mask, scale = _k2_inputs(q, t, d, 100 + i, dev,
                                                    ties)
-            e = 0.0
             for k in ks:
-                got = knn_predict(qs, hist, ys, mask, scale, k)
-                want = knn_predict_ref(qs, hist, ys, mask, scale, k)
-                torch.cuda.synchronize()
-                e = max(e, float((got - want).abs().max()))
-                if not torch.equal(got, want):
-                    _fail(f"knn_predict disagrees at {(q, t, d, ties)}, "
-                          f"k={k}")
+                k2_equal(qs, hist, ys, mask, scale, k, (q, t, d, ties))
             print(f"[check] knn_predict Q={q} T={t} d={d} ties={ties} "
-                  f"k={','.join(map(str, ks))}: max abs err {e:.3e} (tol: "
-                  f"bitwise equal) ok")
-            err["knn_predict"] = max(err["knn_predict"], e)
+                  f"k={','.join(map(str, ks))}, {'/'.join(map(str, SPLITS))}"
+                  f" warps a query: max abs err {err['knn_predict']:.3e} "
+                  f"(tol: bitwise equal) ok")
             one = torch.ones_like(scale)
             got = pairwise_sq_dists(qs, hist, mask)
             want = pairwise_sq_dists_ref(qs, hist, mask)
@@ -271,13 +335,19 @@ def check_kernels(k1_shapes=K1_SHAPES, k2_shapes=K2_SHAPES,
             if not torch.equal(got, want):
                 _fail(f"pairwise_sq_dists disagrees at {(q, t, d, ties)}")
             # with scale = 1 the fused kernel's distances are these
-            nn = knn_predict(qs, hist, ys, mask, one, 5)
-            if not torch.equal(nn, knn_predict_ref(qs, hist, ys, mask,
-                                                   one, 5)):
-                _fail(f"knn_predict (scale 1) disagrees at {(q, t, d)}")
+            k2_equal(qs, hist, ys, mask, one, 5, (q, t, d, "scale 1"))
+            if ties:   # no valid row; fewer valid rows than k
+                none = torch.zeros_like(mask)
+                few = torch.zeros_like(mask)
+                few[torch.arange(0, t, max(t // 3, 1), device=dev)[:3]] = 1.0
+                for mk, what in ((none, "no valid row"),
+                                 (few, "3 valid rows")):
+                    for k in ks:
+                        k2_equal(qs, hist, ys, mk, scale, k, (q, t, d, what))
     if k2_shapes:
-        print("[check] pairwise_sq_dists (the TPU kernel's own function): "
-              "bitwise equal to its plain version at these K2 shapes")
+        print("[check] knn_predict with no valid row and with 3 valid rows, "
+              "and pairwise_sq_dists (the TPU kernel's own function): "
+              "bitwise equal to their plain versions at these K2 shapes")
     return err
 
 
@@ -412,10 +482,10 @@ def _recording_shapes():
     from repro_torch.core.temporal import segments
     shapes = {"ensemble_mlp": Counter(), "knn_predict": Counter(),
               "segment_dp": Counter()}
-    k1, k2, k3 = mlp.ensemble_mlp_forward, knn.knn_predict, segments.fit_cuts
+    k1, k2, k3 = mlp.mlp_predict, knn.knn_predict, segments.fit_cuts
 
     def rec_k1(x, w1, *a):
-        shapes["ensemble_mlp"][(*x.shape, w1.shape[2])] += 1
+        shapes["ensemble_mlp"][(1, *x.shape, w1.shape[1])] += 1
         return k1(x, w1, *a)
 
     def rec_k2(queries, hist, *a):
@@ -426,11 +496,11 @@ def _recording_shapes():
         shapes["segment_dp"][(*P.shape, k)] += 1
         return k3(P, k)
 
-    mlp.ensemble_mlp_forward, knn.knn_predict = rec_k1, rec_k2
+    mlp.mlp_predict, knn.knn_predict = rec_k1, rec_k2
     segments.fit_cuts = rec_k3
 
     def restore():
-        mlp.ensemble_mlp_forward, knn.knn_predict = k1, k2
+        mlp.mlp_predict, knn.knn_predict = k1, k2
         segments.fit_cuts = k3
     return shapes, restore
 
@@ -644,6 +714,47 @@ def _time_ms(fn, reps: int = 60, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def _device_ms(fn, match=None, n: int = 50):
+    """Device time per call from torch.profiler: the kernels (and copies)
+    that ``n`` calls of ``fn`` ran on the card, only those whose name
+    holds ``match`` where given; None when the profiler shows no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and (match is None or match in e.name))
+    return total / n / 1e3 if total > 0 else None
+
+
+def _host_ms(fn, n: int = 300) -> float:
+    """Host time per call: ``time.perf_counter`` over ``n`` calls issued
+    without a synchronise, so what the host spends to issue one call."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / n
+
+
+def _fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.5f} ms"
+
+
 def _bound(nbytes: int, flops: int):
     """The least time (ms) the card could take: the larger of the bytes
     over the memory rate and the fp32 operations over the fp32 rate."""
@@ -653,11 +764,17 @@ def _bound(nbytes: int, flops: int):
                                                            "operations")
 
 
-def _k1_bound(m, t, d, h):
+def _k1_bound(m, t, d, h, norm: bool = False):
     # each input read once, the output written once; per row: the d-long
-    # dot, the bias, tanh and the multiply-add into the output, per unit
-    return _bound(4 * (m * t * d + m * d * h + 2 * m * h + m + m * t),
-                  m * t * h * (2 * d + 4))
+    # dot, the bias, tanh and the multiply-add into the output, per unit;
+    # with ``norm`` (the fused predict) also the four statistics, and per
+    # row a subtract and a divide per feature and the output's multiply-add
+    nbytes = 4 * (m * t * d + m * d * h + 2 * m * h + m + m * t)
+    flops = m * t * h * (2 * d + 4)
+    if norm:
+        nbytes += 4 * (2 * d + 2)
+        flops += m * t * (2 * d + 2)
+    return _bound(nbytes, flops)
 
 
 def _k2_bound(q, t, d, n_valid):
@@ -728,58 +845,140 @@ def segment_dp_row(launched) -> dict:
     return row
 
 
-def time_kernels(k1_ts=K1_TIMED, k2_qts=K2_TIMED, d: int = 1) -> dict:
-    """K1 at (1, T, d, 32) for each T of ``k1_ts`` and K2 at (Q, T, d),
-    k = 5, for each (Q, T) of ``k2_qts``, beside their plain versions and
-    library yardsticks."""
+def _row_line(what, r):
+    return (f"[time] {what}: loop {r['ms']:.5f} ms, device "
+            f"{_fmt_ms(r['device_ms'])}, host {r['host_ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms, "
+            f"bound {r['bound_ms']:.3e} ms ({r['bound_by']})")
+
+
+def time_k1(shapes) -> dict:
+    """K1 as the main path launches it, the fused predict of one model, at
+    each (1, T, d, h) of ``shapes``: the loop time per call (CUDA events
+    over back-to-back calls), the kernel's device time (torch.profiler),
+    the host's time to issue a call (no synchronise), the plain version,
+    the library yardstick (addmm and tanh with the eager normalisation)
+    and the bound."""
     import torch
-    from repro_torch.kernels.ensemble_mlp.ops import ensemble_mlp_forward
-    from repro_torch.kernels.ensemble_mlp.ref import ensemble_mlp_ref
-    from repro_torch.kernels.knn.ops import knn_predict
+    from repro_torch.kernels.ensemble_mlp.ops import mlp_predict
+    from repro_torch.kernels.ensemble_mlp.ref import mlp_predict_ref
+    dev = torch.device("cuda")
+    rows = {}
+    for shape in shapes:
+        _m, t, d, h = shape
+        args = _mlp_predict_inputs(t, d, h, 7, dev)
+        x, w1, b1, w2, b2, mu_x, sd_x, mu_y, sd_y = args
+
+        def library():
+            xn = (x - mu_x) / sd_x
+            hid = torch.addmm(b1, xn, w1).tanh_()
+            return torch.addmm(b2, hid, w2)[:, 0].mul_(sd_y).add_(mu_y)
+
+        def kernel():
+            return mlp_predict(*args)
+
+        bound, by = _k1_bound(1, t, d, h, norm=True)
+        rows[shape] = r = {
+            "ms": _time_ms(kernel),
+            "device_ms": _device_ms(kernel, "ensemble_mlp_kernel"),
+            "host_ms": _host_ms(kernel),
+            "plain_ms": _time_ms(lambda: mlp_predict_ref(*args)),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": _time_ms(library)}
+        print(_row_line(f"ensemble_mlp fused predict (M,T,d,h)={shape}",
+                           r))
+    return rows
+
+
+def time_k2(shapes) -> dict:
+    """K2 (k = 5) at each (Q, T, d) of ``shapes``, with the same columns as
+    :func:`time_k1` (library: cdist and topk), and the kernel's device time
+    at each number of warps a query (what ``plan_splits`` is set from)."""
+    import torch
+    from repro_torch.kernels.knn.ops import SPLITS, knn_predict, plan_splits
     from repro_torch.kernels.knn.ref import knn_predict_ref
     dev = torch.device("cuda")
     rows = {}
-    for t in k1_ts:
-        x, w1, b1, w2, b2 = _k1_inputs(1, t, d, 32, 7, dev)
-
-        def library(x=x, w1=w1, b1=b1, w2=w2, b2=b2):
-            hid = torch.baddbmm(b1[:, None, :], x, w1).tanh_()
-            return torch.baddbmm(b2[:, None, :], hid, w2)
-
-        bound, by = _k1_bound(1, t, d, 32)
-        r = {"ms": _time_ms(lambda: ensemble_mlp_forward(x, w1, b1, w2, b2)),
-             "plain_ms": _time_ms(lambda: ensemble_mlp_ref(x, w1, b1, w2,
-                                                           b2)),
-             "bound_ms": bound, "bound_by": by,
-             "library_ms": _time_ms(library)}
-        rows[("ensemble_mlp", t)] = r
-        print(f"[time] ensemble_mlp M=1 T={t} d={d} h=32: kernel "
-              f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
-              f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.3e} ms "
-              f"({by})")
-    for q, t in k2_qts:
+    for shape in shapes:
+        q, t, d = shape
         qs, hist, ys, mask, scale = _k2_inputs(q, t, d, 11, dev, False)
         n_valid = int((mask > 0).sum())
 
-        def library(qs=qs, hist=hist, ys=ys, mask=mask, scale=scale):
+        def library():
             d2 = torch.cdist(qs / scale, hist / scale)
             d2 = d2.masked_fill(mask[None, :] <= 0, float("inf"))
             _v, idx = torch.topk(d2, 5, largest=False)
             return ys[idx].mean(-1)
 
+        def kernel():
+            return knn_predict(qs, hist, ys, mask, scale, 5)
+
         bound, by = _k2_bound(q, t, d, n_valid)
-        r = {"ms": _time_ms(lambda: knn_predict(qs, hist, ys, mask, scale,
-                                                5)),
-             "plain_ms": _time_ms(lambda: knn_predict_ref(qs, hist, ys, mask,
-                                                          scale, 5)),
-             "bound_ms": bound, "bound_by": by,
-             "library_ms": _time_ms(library)}
-        rows[("knn_predict", (q, t))] = r
-        print(f"[time] knn_predict Q={q} T={t} d={d} k=5: kernel "
-              f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
-              f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.3e} ms "
-              f"({by})")
+        rows[shape] = r = {
+            "ms": _time_ms(kernel),
+            "device_ms": _device_ms(kernel, "knn_predict_kernel"),
+            "host_ms": _host_ms(kernel),
+            "plain_ms": _time_ms(lambda: knn_predict_ref(qs, hist, ys, mask,
+                                                         scale, 5)),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": _time_ms(library)}
+        print(_row_line(f"knn_predict (Q,T,d)={shape} k=5, "
+                           f"{plan_splits(q, t)} warps a query", r))
+        dev_s = {s: _device_ms(lambda s=s: knn_predict(
+            qs, hist, ys, mask, scale, 5, splits=s), "knn_predict_kernel")
+            for s in SPLITS}
+        print(f"[time] knn_predict (Q,T,d)={shape} device time by warps a "
+              f"query: " + ", ".join(f"{s}: {_fmt_ms(v)}"
+                                     for s, v in dev_s.items()))
     return rows
+
+
+def time_mlp_predict(shapes) -> None:
+    """``mlp.predict_batch`` as a whole (one launch of the fused predict)
+    beside the five launches it replaces (the eager normalisation,
+    ``ensemble_mlp_forward``, the eager de-normalisation), in turns, at
+    each (1, T, d, h) of ``shapes``: the loop time, the device time of all
+    their kernels and the host's time to issue a call."""
+    import torch
+    from repro_torch.core.models import mlp
+    dev = torch.device("cuda")
+    for shape in shapes:
+        _m, t, d, h = shape
+        args = _mlp_predict_inputs(t, d, h, 7, dev)
+        x, w1, b1, w2, b2, mu_x, sd_x, mu_y, sd_y = args
+        state = mlp.MLPState(w1, b1, w2, b2, (), (), None, mu_x, sd_x, mu_y,
+                             sd_y, None)
+        fns = {"predict_batch": lambda: mlp.predict_batch(state, x),
+               "composed": lambda: _composed_predict(*args)}
+        res = {k: {"ms": [], "device_ms": [], "host_ms": []} for k in fns}
+        for k in ("predict_batch", "composed", "composed", "predict_batch"):
+            res[k]["ms"].append(_time_ms(fns[k]))
+            res[k]["device_ms"].append(_device_ms(fns[k]))
+            res[k]["host_ms"].append(_host_ms(fns[k]))
+        mean = {k: {c: (None if None in v else sum(v) / len(v))
+                    for c, v in r.items()} for k, r in res.items()}
+        f, c = mean["predict_batch"], mean["composed"]
+        print(f"[time] mlp.predict_batch (M,T,d,h)={shape}: fused (1 "
+              f"launch) loop {f['ms']:.5f} ms, device {_fmt_ms(f['device_ms'])}"
+              f", host {f['host_ms']:.5f} ms; composed (5 launches) loop "
+              f"{c['ms']:.5f} ms, device {_fmt_ms(c['device_ms'])}, host "
+              f"{c['host_ms']:.5f} ms; fused/composed loop "
+              f"{f['ms'] / c['ms']:.3f} (mean of 2 turns each)")
+
+
+def replay_totals(label: str, shapes: dict, k1: dict, k2: dict) -> None:
+    """A replay's K1 and K2 time: each recorded shape's launches times its
+    per-call loop and device times, summed."""
+    for name, rows in (("ensemble_mlp", k1), ("knn_predict", k2)):
+        counts = shapes[name]
+        n = sum(counts.values())
+        loop = sum(c * rows[s]["ms"] for s, c in counts.items())
+        devs = [rows[s]["device_ms"] for s in counts]
+        dev = None if None in devs else sum(
+            c * rows[s]["device_ms"] for s, c in counts.items())
+        print(f"[time] {label} replay {name}: {n} launches over "
+              f"{len(counts)} shapes, launch-weighted total loop "
+              f"{loop:.3f} ms, device {_fmt_ms(dev)}")
 
 
 # ----------------------------------------------------------- phases 8-12
@@ -942,6 +1141,11 @@ def check_lm_kernels(k4_shapes, k5_shapes, k6_shapes, label="check") -> dict:
                 extra = (f"; from the fp64 plain version y {ry64:.3e} "
                          f"state {rs64:.3e}")
                 del ty, ts
+            else:
+                ry32, rs32 = k6_fp32_distance(x, dt, bm, cm, a, qc, wy, wst)
+                extra = (f"; the fp32 kernel fed the same values y "
+                         f"{ry32:.3e} state {rs32:.3e} (bf16 y tol twice "
+                         f"that)")
             ok = max(ry, rs, r64) <= tol
             print(f"[{label}] ssd_scan (B,H,S,P,N,Q)={shape} "
                   f"{str(dtype)[6:]}: y rel err {ry:.3e}, final state rel "
@@ -949,12 +1153,30 @@ def check_lm_kernels(k4_shapes, k5_shapes, k6_shapes, label="check") -> dict:
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 _fail(f"ssd_scan disagrees with its plain version at {shape}")
+            if dtype == bf16 and ry > 2 * ry32:
+                _fail(f"ssd_scan in bf16 at {shape} lies {ry:.3e} of the "
+                      f"largest |y| from its plain version, more than twice "
+                      f"the fp32 kernel's {ry32:.3e}: not fp32 math")
             err["ssd_scan"] = max(err["ssd_scan"],
                                   float((y - wy).abs().max()),
                                   float((st - wst).abs().max()))
             del x, dt, bm, cm, y, st, wy, wst
     torch.cuda.empty_cache()
     return err
+
+
+def k6_fp32_distance(x, dt, bm, cm, a, qc, wy, wst):
+    """The fp32 kernel fed bf16 inputs' values cast up: its largest
+    distance from the plain version (``wy``, ``wst``, which computes in fp32
+    from the same values) relative to the largest |y| and |state|. The bf16
+    kernel does fp32 math when it lies no farther than about this."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    f32 = torch.float32
+    y, st = ssd_scan(x.to(f32), dt, bm.to(f32), cm.to(f32), a, q_chunk=qc)
+    torch.cuda.synchronize()
+    return (float((y - wy).abs().max() / wy.abs().max()),
+            float((st - wst).abs().max() / wst.abs().max()))
 
 
 def reference_kv_bytes(cfg, batch: int, max_seq: int) -> int:
@@ -1312,11 +1534,11 @@ def _k6_work(b, h, s, p, n, q, itemsize):
 
 def _k6_bound(b, h, s, p, n, q, itemsize):
     # at the route's rates: bf16 on the tensor cores, where C.B^T takes one
-    # pass and each product with an fp32 operand (M, the state, x w dt) two
-    # (its bf16 hi and lo); fp32 on the CUDA cores
+    # pass and each product with an fp32 operand (M, the state, x w dt)
+    # three (its bf16 hi, mid and lo); fp32 on the CUDA cores
     nbytes, flops, fp32_op = _k6_work(b, h, s, p, n, q, itemsize)
     if itemsize == 2:
-        return _bound_at(nbytes, flops + fp32_op, BF16_FLOPS_PER_S)
+        return _bound_at(nbytes, flops + 2 * fp32_op, BF16_FLOPS_PER_S)
     return _bound_at(nbytes, flops, FP32_FLOPS_PER_S)
 
 
@@ -1388,6 +1610,7 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
                           ssd_scan_plain(x, dt, bm, cm, a, q_chunk=qc))
     k6_err = max(float((y - wy).abs().max()), float((st - wst).abs().max()))
     k6_rel = float((y - wy).abs().max() / wy.abs().max())
+    k6_rel32, _ = k6_fp32_distance(x, dt, bm, cm, a, qc, wy, wst)
     del x, dt, bm, cm, a, y, st, wy, wst
     torch.cuda.empty_cache()
     for name, shape in (("flash_attention", k4_shape),
@@ -1405,7 +1628,13 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
           f"GB/s of its {k6_bytes / 1e6:.1f} MB; bound {r['bound_ms']:.4f} "
           f"ms at the tensor-core and HBM rates, {fp32_bound:.4f} ms with "
           f"the products at the fp32 CUDA-core rate; largest |kernel - "
-          f"plain| {k6_err:.3e} ({k6_rel:.3e} of the largest |y|)")
+          f"plain| {k6_err:.3e} ({k6_rel:.3e} of the largest |y|; the fp32 "
+          f"kernel fed the same values {k6_rel32:.3e}, tol for bf16 twice "
+          f"that)")
+    if k6_rel > 2 * k6_rel32:
+        _fail(f"ssd_scan in bf16 at {k6_shape} lies {k6_rel:.3e} of the "
+              f"largest |y| from its plain version, more than twice the fp32 "
+              f"kernel's {k6_rel32:.3e}: not fp32 math")
     # the achieved rates of K4 (operations) and K5 (bytes), as the bounds
     # count them
     b, s, h, hkv, d = k4_shape
@@ -1487,7 +1716,7 @@ def main() -> int:
     k1_seen = sorted(s for s in seen["ensemble_mlp"] if s not in K1_SHAPES)
     k2_seen = sorted(s for s in seen["knn_predict"] if s not in K2_SHAPES)
     if k1_seen or k2_seen:
-        more = check_kernels(k1_seen, k2_seen, ks=(5,))
+        more = check_kernels(k1_seen, k2_seen)
         errors = {k: max(v, more.get(k, 0.0)) for k, v in errors.items()}
     listed = {(m, g, k) for m in K3_MS for g in K3_GS
               for k in (1, 2, 4, g)}
@@ -1498,27 +1727,24 @@ def main() -> int:
                                    check_segment_dp(k3_seen))
     card_vs_cpu("sizey", ALLOC_RTOL, WASTAGE_RTOL)
     card_vs_cpu("sizey_temporal", T_ALLOC_RTOL, T_TW_RTOL, T_APART)
-    # the K1 and K2 JSON rows are timed at the shape the peak path launched
-    # most (d = 1, h = 32: the timed inputs use those); K3's is the
-    # launch-weighted mean over the temporal path's shapes
+    # K1 and K2 at every shape the replays launched; their JSON rows at the
+    # shape the peak path launched most; K3's is the launch-weighted mean
+    # over the temporal path's shapes
     k1_row = main["shapes"]["ensemble_mlp"].most_common(1)[0][0]
     k2_row = main["shapes"]["knn_predict"].most_common(1)[0][0]
     k3_launched = temporal["shapes"]["segment_dp"]
-    if k1_row[0] != 1 or k1_row[2:] != (1, 32) or k2_row[2] != 1 \
-            or any(s[1:] != (32, 4) for s in k3_launched):
-        _fail(f"main path launched unexpected shapes {k1_row}, {k2_row}, "
+    if any(s[1:] != (32, 4) for s in k3_launched):
+        _fail(f"the temporal path launched unexpected K3 shapes "
               f"{sorted(k3_launched)}")
-    timings = time_kernels(
-        sorted(set(K1_TIMED) | {k1_row[1]}),
-        sorted(set(K2_TIMED) | {k2_row[:2]}))
+    k1_times = time_k1(sorted(seen["ensemble_mlp"] | set(K1_TIMED)))
+    k2_times = time_k2(sorted(seen["knn_predict"] | set(K2_TIMED)))
+    time_mlp_predict(PREDICT_TIMED)
+    for label, run in (("peak", main), ("temporal", temporal)):
+        replay_totals(label, run["shapes"], k1_times, k2_times)
     k3_times = time_segment_dp(K3_TIMED)
-    # the temporal path's most launched K1 and K2 shapes, at d = 2
-    t_k1 = temporal["shapes"]["ensemble_mlp"].most_common(2)
-    t_k2 = temporal["shapes"]["knn_predict"].most_common(2)
-    time_kernels(sorted({s[1] for s, _c in t_k1}),
-                 sorted({s[:2] for s, _c in t_k2}), d=2)
-    k1 = timings[("ensemble_mlp", k1_row[1])]
-    k2 = timings[("knn_predict", k2_row[:2])]
+    json_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    k1 = {c: k1_times[k1_row][c] for c in json_keys}
+    k2 = {c: k2_times[k2_row][c] for c in json_keys}
     k3 = segment_dp_row(k3_launched)
     k3_by_m = {}
     for (m, _g, _k), c in temporal["shapes"]["segment_dp"].items():
@@ -1526,8 +1752,9 @@ def main() -> int:
     print("[time] segment_dp launches on the temporal path at the timed M: "
           + ", ".join(f"M={m}: {k3_by_m.get(m, 0)}" for m in k3_times))
     print(f"[time] JSON rows at the most launched shapes: ensemble_mlp "
-          f"(M,T,d,h)={k1_row}, knn_predict (Q,T,d)={k2_row} (peak path); "
-          f"segment_dp at the temporal path's launch-weighted mean")
+          f"(M,T,d,h)={k1_row} (the fused predict), knn_predict "
+          f"(Q,T,d)={k2_row} (peak path); segment_dp at the temporal path's "
+          f"launch-weighted mean")
     kernels = [
         {"name": "ensemble_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/ensemble_mlp/kernel.cu",

@@ -10,8 +10,9 @@ dimension and the lowest final loss wins. The incremental update runs
 
 Training is plain torch with the gradients written out, in the order the
 reference's autodiff takes them (the tanh derivative as
-``(g + g*h) * (1 - h)``). ``predict_batch`` runs the forward through the
-ensemble-MLP kernel (:mod:`repro_torch.kernels.ensemble_mlp`).
+``(g + g*h) * (1 - h)``). ``predict_batch`` is one launch of the fused
+MLP-predict kernel (:mod:`repro_torch.kernels.ensemble_mlp`), normalisation
+and de-normalisation included.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.config import SizeyConfig
-from repro_torch.kernels.ensemble_mlp.ops import ensemble_mlp_forward
+from repro_torch.kernels.ensemble_mlp.ops import mlp_predict
 from repro_torch.utils.misc import device_constant
 
 _EPS = 1e-6
@@ -168,8 +169,7 @@ def update(state: MLPState, xs, ys, mask, new_idx: int, key,
 
 
 def predict_batch(state: MLPState, xq: torch.Tensor) -> torch.Tensor:
-    """(K, d) -> (K,); the forward is one ensemble-MLP kernel call."""
-    xn = ((xq - state.mu_x) / state.sd_x).contiguous()
-    yn = ensemble_mlp_forward(xn[None], state.w1[None], state.b1[None],
-                              state.w2[None], state.b2[None])[0]
-    return yn * state.sd_y + state.mu_y
+    """(K, d) -> (K,) in one launch of the fused MLP-predict kernel."""
+    return mlp_predict(xq.contiguous(), state.w1, state.b1, state.w2,
+                       state.b2, state.mu_x, state.sd_x, state.mu_y,
+                       state.sd_y)

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parent
 SOURCES = {
     "ensemble_mlp": _PKG / "ensemble_mlp" / "kernel.cu",
@@ -40,10 +42,13 @@ SIGNATURES = {
     "ensemble_mlp": {
         # x, w1, b1, w2, b2, out, M, T, d, h, stream
         "ensemble_mlp_forward_f32": (_P,) * 6 + (_I,) * 4 + (_P,),
+        # x, w1, b1, w2, b2, mu_x, sd_x, mu_y, sd_y, out, T, d, h, stream
+        "mlp_predict_f32": (_P,) * 10 + (_I,) * 3 + (_P,),
     },
     "knn": {
-        # queries, hist, ys, mask, scale, out, Q, T, d, k, stream
-        "knn_predict_f32": (_P,) * 6 + (_I,) * 4 + (_P,),
+        # queries, hist, ys, mask, scale, out, Q, T, d, k, warps a query,
+        # stream
+        "knn_predict_f32": (_P,) * 6 + (_I,) * 5 + (_P,),
         # queries, hist, mask, out, Q, T, d, stream
         "pairwise_sq_dists_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
     },
@@ -156,3 +161,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.kernel_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")
+
+
+def launch(fn, index: int, *args) -> int:
+    """Call a kernel's C function ``fn`` with ``args`` and the current
+    stream of CUDA device ``index``, on that device; returns its error
+    code. It enters the device's context only when ``index`` is not the
+    current device, and reads the stream as an int without making a Stream
+    object, so a call on the current device costs one stream lookup and the
+    ctypes call."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)

@@ -1,1 +1,2 @@
-from repro_torch.kernels.ensemble_mlp.ops import ensemble_mlp_forward
+from repro_torch.kernels.ensemble_mlp.ops import (ensemble_mlp_forward,
+                                                  mlp_predict)

@@ -22,15 +22,16 @@
 // 2048, P = N = 64, Q = 128) in bf16 it reads x, B, C and dt and writes y
 // and the state in fp32, 730.9 MB, 0.2182 ms at 3.35 TB/s. Its products
 // (C.B^T, M.x over the causal pairs, C.state^T and the state update) are
-// 45.4 GFLOP: 0.677 ms at the fp32 CUDA-core rate, but 0.092 ms on the
-// bf16 tensor cores even with two passes for every fp32 operand. So bytes
-// bound the bf16 kernel (ssd_scan_tc_kernel, below), which runs every
-// product on the tensor cores: y and the final state are its only writes;
-// TMA brings x, B and C in once per head, the next chunk's while this
-// chunk's products run; and two blocks share an SM (100 KB of shared
-// memory each, at most 128 registers a thread) where N <= 64. What keeps
-// it above that bound is the warp with the most causal key tiles: one warp
-// issues mma.sync at most once per ~12.8 cycles (tools/port_mma_rate.py).
+// 45.4 GFLOP: 0.677 ms at the fp32 CUDA-core rate, but 0.137 ms on the
+// bf16 tensor cores even with three passes for every fp32 operand (135.8
+// GFLOP). So bytes bound the bf16 kernel (ssd_scan_tc_kernel, below), which
+// runs every product on the tensor cores: y and the final state are its
+// only writes; TMA brings x, B and C in once per head, the next chunk's
+// while this chunk's products run; and two blocks share an SM (108 KB of
+// shared memory each, at most 128 registers a thread) where N <= 64. What
+// keeps it above that bound is the warp with the most causal key tiles: one
+// warp issues mma.sync at most once per ~12.8 cycles
+// (tools/port_mma_rate.py).
 //
 // The fp32 kernel (ssd_scan_kernel) runs on CUDA cores in fp32 FMA and
 // recomputes C.B^T in each head's block: 256 threads as 16 x 16; per chunk
@@ -289,32 +290,40 @@ size_t smem_bytes(int P, int N, int Q) {
 // accumulators), 8 warps a block. Per chunk, thread 0 has TMA bring the
 // next chunk's B and x (a two-stage ring, one mbarrier a stage) and, once
 // every warp holds its C fragments, the next C (one slot); warp 0 brings
-// dt with cp.async and computes cum (a shuffle scan) and w dt = exp(cum_end
+// dt with cp.async and computes cum (lane 0, in order) and w dt = exp(cum_end
 // - cum) dt. Tiles have 128-byte rows in TMA's 128-byte swizzle, so
 // ldmatrix reads 8 rows without bank conflicts.
 //
 // Each warp owns 16 chunk rows: m-tiles 0-3 for warps 0-3 and 7-4 for
 // warps 4-7, so the two warps of a scheduler share 9 causal key tiles.
-//   y_off = C.state^T (C from registers, the state's hi and lo passes),
+//   y_off = C.state^T (C from registers, the state's hi, mid and lo
+//   passes),
 //   scaled per row by exp(cum_q);
 //   for each causal key tile kk: G = C.B^T (the next tile's issued before
 //   this tile's M.x), M = G exp(cum_q - cum_t) dt_t built from G's
 //   accumulators (on the diagonal tile only t <= q is kept, by selection,
-//   since exp above the diagonal may overflow), split hi + lo in registers
-//   and used as the A operand of y += M.x (x as it is, exact in bf16).
+//   since exp above the diagonal may overflow), split hi + mid + lo in
+//   registers and used as the A operand of y += M.x (x as it is, exact in
+//   bf16).
 // Then warp w updates state rows 16 (w % 4) .., columns (w / 4) N / 2 ..
-// in registers, state = exp(cum_end) state + (x^T w dt, split hi + lo).B,
-// and writes its hi/lo split for the next chunk's C.state^T.
-// Every fp32 operand (M, the state, x w dt) runs as two bf16 passes, hi and
-// the rounding remainder lo, so each product keeps ~16 bits of its fp32
-// operand and the sums stay fp32.
+// in registers, state = exp(cum_end) state + (x^T w dt, split hi + mid +
+// lo).B, and writes its hi/mid/lo split for the next chunk's C.state^T.
+// Every fp32 operand (M, the state, x w dt) runs as three bf16 passes: hi,
+// then mid, the bf16 of what hi leaves over, then lo, the bf16 of what mid
+// leaves over. Each bf16 holds 8 significant bits, so the three keep ~24
+// bits of the fp32 operand, which is fp32's own precision: the scan is
+// fp32 math, as the reference's (src/repro/models/ssm.py: "All SSD math
+// runs in fp32"). C.B^T takes one pass (both operands are bf16 inputs);
+// every sum stays fp32.
 
 constexpr int kTcWarps = 8;
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcP = 64;   // x tiles and state rows, P zero-padded to 64
 
-// Shared memory of the bf16 kernel. B, C, x and the state's hi/lo split are
-// tiles of 128-byte rows (64 bf16 columns), N = 128 as two such tiles.
+// Shared memory of the bf16 kernel. B, C, x and the state's hi/mid/lo split
+// are tiles of 128-byte rows (64 bf16 columns), N = 128 as two such tiles;
+// dt, cum and w dt have a buffer per stage, as cum and w dt are computed a
+// chunk ahead.
 template <int NT>
 struct TcPlan {
   static constexpr int kSub = kMaxQ * 128;          // 64 columns of a chunk
@@ -324,11 +333,11 @@ struct TcPlan {
   static constexpr int kC = 2 * kStage;
   static constexpr int kStateSub = kTcP * 128;      // 64 state columns
   static constexpr int kStateHalf = (NT / 64) * kStateSub;
-  static constexpr int kState = kC + kBTile;        // hi, then lo
-  static constexpr int kDt = kState + 2 * kStateHalf;   // [2][kMaxQ] fp32
-  static constexpr int kCum = kDt + 2 * 4 * kMaxQ;
-  static constexpr int kWdt = kCum + 4 * kMaxQ;
-  static constexpr int kBar = kWdt + 4 * kMaxQ;     // full[2], C full
+  static constexpr int kState = kC + kBTile;        // hi, mid, then lo
+  static constexpr int kDt = kState + 3 * kStateHalf;   // [2][kMaxQ] fp32
+  static constexpr int kCum = kDt + 2 * 4 * kMaxQ;   // [2][kMaxQ] fp32
+  static constexpr int kWdt = kCum + 2 * 4 * kMaxQ;  // [2][kMaxQ] fp32
+  static constexpr int kBar = kWdt + 2 * 4 * kMaxQ;  // full[2], C full
   // and slack to align the base to 1024 bytes (TMA's 128-byte swizzle)
   static constexpr int kBytes = kBar + 3 * 8 + 1024;
   static constexpr int kMinBlocks = kBytes <= 113 * 1024 ? 2 : 1;
@@ -420,6 +429,17 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+// d += a0.b0 + a1.b1 + a2.b2, three passes of one fp32 product (hi, mid,
+// lo)
+__device__ __forceinline__ void mma_sum3(float* d, const unsigned* a0,
+                                         unsigned b00, unsigned b01,
+                                         const unsigned* a1, unsigned b10,
+                                         unsigned b11, const unsigned* a2,
+                                         unsigned b20, unsigned b21) {
+  mma_bf16(d, a0, b00, b01);
+  mma_bf16(d, a1, b10, b11);
+  mma_bf16(d, a2, b20, b21);
+}
 // two floats as bf16x2, round to nearest; `lo` in the low half
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   unsigned r;
@@ -440,11 +460,14 @@ __device__ __forceinline__ float bf16_lo(unsigned u) {
 __device__ __forceinline__ float bf16_hi(unsigned u) {
   return __uint_as_float(u & 0xffff0000u);
 }
-// (v0, v1) as bf16x2 hi and the bf16x2 of what hi leaves over
-__device__ __forceinline__ void split2(float v0, float v1, unsigned& hi,
-                                       unsigned& lo) {
+// (v0, v1) as bf16x2 hi, mid, the bf16x2 of what hi leaves over, and lo,
+// the bf16x2 of what mid leaves over (both remainders are exact in fp32)
+__device__ __forceinline__ void split3(float v0, float v1, unsigned& hi,
+                                       unsigned& mid, unsigned& lo) {
   hi = pack_bf16x2(v0, v1);
-  lo = pack_bf16x2(v0 - bf16_lo(hi), v1 - bf16_hi(hi));
+  const float r0 = v0 - bf16_lo(hi), r1 = v1 - bf16_hi(hi);
+  mid = pack_bf16x2(r0, r1);
+  lo = pack_bf16x2(r0 - bf16_lo(mid), r1 - bf16_hi(mid));
 }
 // byte offset of (row, col) in a tile of 128-byte rows, 64 columns per `sub`
 // bytes, each 16-byte unit XOR-swizzled by the row's low three bits (TMA's
@@ -476,8 +499,8 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
   unsigned char* const smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const unsigned sbase = smem_u32(smem);
-  float* const sCum = reinterpret_cast<float*>(smem + L::kCum);
-  float* const sWdt = reinterpret_cast<float*>(smem + L::kWdt);
+  float* const sCum0 = reinterpret_cast<float*>(smem + L::kCum);
+  float* const sWdt0 = reinterpret_cast<float*>(smem + L::kWdt);
   const unsigned bar_c = sbase + L::kBar + 16;
 
   const int tid = threadIdx.x;
@@ -515,16 +538,40 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
     cp_async_commit();
   };
 
+  // warp 0: cum = cumsum(dt a) of the chunk whose dt is in stage s, in
+  // order and rounding each product and sum as the plain version does (a
+  // parallel scan rounds the running sums otherwise, and exp(cum_q -
+  // cum_t) carries that error at every pair), then w dt = exp(cum_end -
+  // cum) dt; lane 0 runs the chain, in the slack of warp 0, whose rows
+  // have the fewest causal key tiles
+  auto scan_dt = [&](int s) {
+    const float* const d = reinterpret_cast<const float*>(smem + L::kDt) +
+                           s * kMaxQ;
+    float* const cum = sCum0 + s * kMaxQ;
+    if (lane == 0) {
+      float run = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < QT; ++r) {
+        run = __fadd_rn(run, __fmul_rn(d[r], ah));
+        cum[r] = run;
+      }
+    }
+    __syncwarp();
+    const float cend = cum[QT - 1];
+    for (int r = lane; r < kMaxQ; r += 32)
+      sWdt0[s * kMaxQ + r] = r < QT ? exp_ftz(cend - cum[r]) * d[r] : 0.0f;
+  };
+
   // the state: this warp's rows 16 pm + g (+ 8), columns n0 + 8 j + 2 t4;
-  // its hi/lo split starts at zero, as do the tile rows Q..QT-1 that no
-  // load writes
+  // its hi/mid/lo split starts at zero, as do the tile rows Q..QT-1 that
+  // no load writes
   const int pm = warp & 3, n0 = (warp >> 2) * (NT / 2);
   float st[kNh][4];
 #pragma unroll
   for (int j = 0; j < kNh; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) st[j][e] = 0.0f;
-  for (int i = tid; i < 2 * L::kStateHalf / 16; i += kTcThreads)
+  for (int i = tid; i < 3 * L::kStateHalf / 16; i += kTcThreads)
     reinterpret_cast<uint4*>(smem + L::kState)[i] = make_uint4(0, 0, 0, 0);
   if (Q < QT) {
     const int tiles = 2 * (NT / 64 + 1) + NT / 64, per = (QT - Q) * 8;
@@ -561,35 +608,20 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
     const unsigned stg = sbase + s * L::kStage;
     const float* sDt =
         reinterpret_cast<const float*>(smem + L::kDt) + s * kMaxQ;
+    const float* const sCum = sCum0 + s * kMaxQ;
+    const float* const sWdt = sWdt0 + s * kMaxQ;
     __syncthreads();   // the last chunk is done with stage s ^ 1
     if (tid == 0 && c + 1 < nchunks) issue_stage(s ^ 1, c0 + Q);
 
-    // warp 0: cum = cumsum(dt a) and w dt = exp(cum_end - cum) dt
+    // warp 0: the first chunk's cum (later chunks' are computed a chunk
+    // ahead), then the next chunk's dt into the stage the last chunk used
     if (warp == 0) {
-      cp_async_wait_all();
-      __syncwarp();
+      if (c == 0) {
+        cp_async_wait_all();
+        __syncwarp();
+        scan_dt(0);
+      }
       if (c + 1 < nchunks) load_dt(s ^ 1, c0 + Q);
-      float v[4], run = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 4 * lane + i;
-        run += r < QT ? sDt[r] * ah : 0.0f;
-        v[i] = run;
-      }
-      float incl = run;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += up;
-      }
-      const float excl = incl - run;
-      const float cend = __shfl_sync(0xffffffffu, incl, 31);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 4 * lane + i;
-        sCum[r] = excl + v[i];
-        sWdt[r] = r < QT ? exp_ftz(cend - (excl + v[i])) * sDt[r] : 0.0f;
-      }
     }
     mbar_wait(sbase + L::kBar + 8 * s, (c >> 1) & 1);   // B and x landed
     mbar_wait(bar_c, c & 1);                             // C landed
@@ -603,8 +635,9 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
         ldsm_x4(sbase + L::kC +
                     toff(q0 + lr + 8 * (lm & 1), 16 * kt + 8 * (lm >> 1), kSub),
                 cf[kt]);
-      // y_off = C.state^T, the state's hi and lo passes
-      const unsigned shi = sbase + L::kState, slo = shi + L::kStateHalf;
+      // y_off = C.state^T, the state's hi, mid and lo passes
+      const unsigned shi = sbase + L::kState, smid = shi + L::kStateHalf,
+                     slo = smid + L::kStateHalf;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -614,13 +647,14 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           const unsigned off = 16 * np * 128 + toff_add(oB, 2 * kt, kSSub);
-          unsigned bh[4], bl[4];
+          unsigned bh[4], bm[4], bl[4];
           ldsm_x4(shi + off, bh);
+          ldsm_x4(smid + off, bm);
           ldsm_x4(slo + off, bl);
-          mma_bf16(yacc[2 * np], cf[kt], bh[0], bh[1]);
-          mma_bf16(yacc[2 * np], cf[kt], bl[0], bl[1]);
-          mma_bf16(yacc[2 * np + 1], cf[kt], bh[2], bh[3]);
-          mma_bf16(yacc[2 * np + 1], cf[kt], bl[2], bl[3]);
+          mma_sum3(yacc[2 * np], cf[kt], bh[0], bh[1], cf[kt], bm[0], bm[1],
+                   cf[kt], bl[0], bl[1]);
+          mma_sum3(yacc[2 * np + 1], cf[kt], bh[2], bh[3], cf[kt], bm[2],
+                   bm[3], cf[kt], bl[2], bl[3]);
         }
     }
     __syncthreads();   // cum ready; every warp holds its C fragments
@@ -661,7 +695,7 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
         float gn[2][4];
         if (kk < mt) c_bt(kk + 1, gn);   // the next tile's G in flight
         // A fragments (rows g, k 0-7), (g + 8, 0-7), (g, 8-15), (g + 8, 8-15)
-        unsigned mhi[4], mlo[4];
+        unsigned mhi[4], mmid[4], mlo[4];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int t = t0 + 8 * j + 2 * t4;
@@ -677,18 +711,18 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
             for (int e = 0; e < 4; ++e)
               if (8 * j + 2 * t4 + (e & 1) > g + 8 * (e >> 1)) m[e] = 0.0f;
           }
-          split2(m[0], m[1], mhi[2 * j], mlo[2 * j]);
-          split2(m[2], m[3], mhi[2 * j + 1], mlo[2 * j + 1]);
+          split3(m[0], m[1], mhi[2 * j], mmid[2 * j], mlo[2 * j]);
+          split3(m[2], m[3], mhi[2 * j + 1], mmid[2 * j + 1], mlo[2 * j + 1]);
         }
         const unsigned xt = stg + L::kX + kk * 16 * 128;
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           unsigned bf[4];
           ldsm_x4_t(xt + toff_add(oXd, 2 * np, kSub), bf);
-          mma_bf16(yacc[2 * np], mhi, bf[0], bf[1]);
-          mma_bf16(yacc[2 * np], mlo, bf[0], bf[1]);
-          mma_bf16(yacc[2 * np + 1], mhi, bf[2], bf[3]);
-          mma_bf16(yacc[2 * np + 1], mlo, bf[2], bf[3]);
+          mma_sum3(yacc[2 * np], mhi, bf[0], bf[1], mmid, bf[0], bf[1], mlo,
+                   bf[0], bf[1]);
+          mma_sum3(yacc[2 * np + 1], mhi, bf[2], bf[3], mmid, bf[2], bf[3],
+                   mlo, bf[2], bf[3]);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -710,7 +744,7 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
       }
     }
 
-    // state = exp(cum_end) state + (x^T w dt).B, then its hi/lo split
+    // state = exp(cum_end) state + (x^T w dt).B, then its hi/mid/lo split
     {
       const float eend = exp_ftz(sCum[QT - 1]);
 #pragma unroll
@@ -719,7 +753,7 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
         for (int e = 0; e < 4; ++e) st[j][e] *= eend;
       for (int kt = 0; kt < MT; ++kt) {
         const int t0 = 16 * kt;
-        unsigned xa[4], ahi[4], alo[4];
+        unsigned xa[4], ahi[4], amid[4], alo[4];
         ldsm_x4_t(stg + L::kX + oXs + t0 * 128, xa);
         const float2 w0 = *reinterpret_cast<const float2*>(sWdt + t0 + 2 * t4);
         const float2 w1 =
@@ -727,17 +761,18 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float2 w = i < 2 ? w0 : w1;
-          split2(bf16_lo(xa[i]) * w.x, bf16_hi(xa[i]) * w.y, ahi[i], alo[i]);
+          split3(bf16_lo(xa[i]) * w.x, bf16_hi(xa[i]) * w.y, ahi[i], amid[i],
+                 alo[i]);
         }
         const unsigned bt = stg + t0 * 128;
 #pragma unroll
         for (int jj = 0; jj < kNh / 2; ++jj) {
           unsigned bf[4];
           ldsm_x4_t(bt + toff_add(oBs, 2 * jj, kSub), bf);
-          mma_bf16(st[2 * jj], ahi, bf[0], bf[1]);
-          mma_bf16(st[2 * jj], alo, bf[0], bf[1]);
-          mma_bf16(st[2 * jj + 1], ahi, bf[2], bf[3]);
-          mma_bf16(st[2 * jj + 1], alo, bf[2], bf[3]);
+          mma_sum3(st[2 * jj], ahi, bf[0], bf[1], amid, bf[0], bf[1], alo,
+                   bf[0], bf[1]);
+          mma_sum3(st[2 * jj + 1], ahi, bf[2], bf[3], amid, bf[2], bf[3], alo,
+                   bf[2], bf[3]);
         }
       }
       unsigned char* const shi = smem + L::kState;
@@ -745,13 +780,22 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
       for (int j = 0; j < kNh; ++j)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          unsigned hi, lo;
-          split2(st[j][2 * half], st[j][2 * half + 1], hi, lo);
+          unsigned hi, mid, lo;
+          split3(st[j][2 * half], st[j][2 * half + 1], hi, mid, lo);
           const unsigned off =
               toff(16 * pm + g + 8 * half, n0 + 8 * j + 2 * t4, kSSub);
           *reinterpret_cast<unsigned*>(shi + off) = hi;
-          *reinterpret_cast<unsigned*>(shi + L::kStateHalf + off) = lo;
+          *reinterpret_cast<unsigned*>(shi + L::kStateHalf + off) = mid;
+          *reinterpret_cast<unsigned*>(shi + 2 * L::kStateHalf + off) = lo;
         }
+    }
+
+    // warp 0: the next chunk's cum and w dt, while the warps with more
+    // causal key tiles finish this chunk
+    if (warp == 0 && c + 1 < nchunks) {
+      cp_async_wait_all();
+      __syncwarp();
+      scan_dt(s ^ 1);
     }
   }
 

@@ -12,14 +12,19 @@ torch = pytest.importorskip("torch")
 
 # the segment-DP profiles, kinds and grid of chip_smoke.py
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-from chip_smoke import (K3_GS, K3_KINDS, K3_MS, K4_SHAPES,  # noqa: E402
-                        K5_SHAPES, K6_SHAPES, LM_TOL, check_lm_kernels,
-                        k3_profiles, lm_kernel_inputs, to_cpu)
+from chip_smoke import (K1_TOL, K3_GS, K3_KINDS, K3_MS,  # noqa: E402
+                        K4_SHAPES, K5_SHAPES, K6_SHAPES, LM_TOL,
+                        _composed_predict, _mlp_predict_inputs,
+                        check_lm_kernels, k3_profiles, k6_fp32_distance,
+                        lm_kernel_inputs, to_cpu)
 
 from repro_torch.kernels import KERNEL_LAUNCHES  # noqa: E402
-from repro_torch.kernels.ensemble_mlp.ops import ensemble_mlp_forward  # noqa: E402
-from repro_torch.kernels.ensemble_mlp.ref import ensemble_mlp_ref  # noqa: E402
-from repro_torch.kernels.knn.ops import knn_predict, pairwise_sq_dists  # noqa: E402
+from repro_torch.kernels.ensemble_mlp.ops import (ensemble_mlp_forward,  # noqa: E402
+                                                  mlp_predict)
+from repro_torch.kernels.ensemble_mlp.ref import (ensemble_mlp_ref,  # noqa: E402
+                                                  mlp_predict_ref)
+from repro_torch.kernels.knn.ops import (SPLITS, knn_predict,  # noqa: E402
+                                         pairwise_sq_dists)
 from repro_torch.kernels.knn.ref import (knn_predict_ref,  # noqa: E402
                                          pairwise_sq_dists_ref)
 
@@ -81,6 +86,61 @@ def test_knn_kernels_equal_plain(cuda, q, t, d, ties, k):
     assert KERNEL_LAUNCHES["knn_predict"] == before + 1
     assert torch.equal(pairwise_sq_dists(qs, hist, mask),
                        pairwise_sq_dists_ref(qs, hist, mask))
+
+
+# the fused predict at the replays' (T, d) and ragged ones: within K1_TOL
+# of its plain version and bitwise the five launches it replaces
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(1, 1), (128, 1), (256, 1), (4, 2),
+                                 (128, 2), (256, 2), (512, 2), (1024, 2),
+                                 (7, 3), (300, 4)])
+def test_fused_mlp_predict_matches_plain(cuda, t, d):
+    args = _mlp_predict_inputs(t, d, 32, t + d, cuda)
+    before = KERNEL_LAUNCHES["ensemble_mlp"]
+    got = mlp_predict(*args)
+    assert KERNEL_LAUNCHES["ensemble_mlp"] == before + 1
+    want = mlp_predict_ref(*args)
+    assert bool(((got - want).abs() <= K1_TOL * (1 + want.abs())).all())
+    assert torch.equal(got, _composed_predict(*args))
+
+
+# K2 at every (Q, T, d) the peak and temporal replays launch, and at T not a
+# multiple of 32, Q from 1 to 1024: bitwise its plain version with and
+# without ties, k of 1, 5 and 32, every number of warps a query
+K2_REPLAY = [(1, 128, 1), (128, 128, 1), (256, 256, 1), (4, 128, 2),
+             (4, 256, 2), (4, 512, 2), (128, 128, 2), (256, 256, 2),
+             (512, 512, 2), (1024, 1024, 2), (1024, 1024, 1), (1, 33, 1),
+             (2, 95, 2), (9, 161, 2), (65, 300, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("q,t,d", K2_REPLAY)
+def test_knn_kernel_is_bitwise_plain_at_the_replay_shapes(cuda, q, t, d,
+                                                          ties):
+    from chip_smoke import _k2_inputs
+    qs, hist, ys, mask, scale = _k2_inputs(q, t, d, q + t, cuda, ties)
+    for k in (1, 5, 32):
+        want = knn_predict_ref(qs, hist, ys, mask, scale, k)
+        for s in SPLITS:
+            assert torch.equal(knn_predict(qs, hist, ys, mask, scale, k,
+                                           splits=s), want), (k, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [0, 1, 3, 4])
+@pytest.mark.parametrize("k", [1, 5, 32])
+def test_knn_kernel_with_fewer_valid_rows_than_k(cuda, valid, k):
+    from chip_smoke import _k2_inputs
+    qs, hist, ys, _mask, scale = _k2_inputs(6, 200, 2, valid, cuda, True)
+    mask = torch.zeros(200, device=cuda)
+    mask[torch.arange(valid, device=cuda) * 37 + 5] = 1.0
+    want = knn_predict_ref(qs, hist, ys, mask, scale, k)
+    if valid == 0:
+        assert not bool(want.any())
+    for s in SPLITS:
+        assert torch.equal(knn_predict(qs, hist, ys, mask, scale, k,
+                                       splits=s), want)
 
 
 @pytest.mark.cuda
@@ -171,9 +231,11 @@ def test_lm_kernels_match_their_plain_versions(cuda, kind, shape):
     before = KERNEL_LAUNCHES[kind]
     check_lm_kernels(*([shape] if k == kind else [] for k in
                        ("flash_attention", "flash_decode", "ssd_scan")))
-    # fp32 and bf16, and K4 causal and not
-    assert KERNEL_LAUNCHES[kind] == before + (4 if kind ==
-                                              "flash_attention" else 2)
+    # fp32 and bf16, K4 causal and not, K6's fp32 kernel also fed the bf16
+    # inputs' values
+    assert KERNEL_LAUNCHES[kind] == before + {"flash_attention": 4,
+                                              "flash_decode": 2,
+                                              "ssd_scan": 3}[kind]
 
 
 # K6's bf16 path on the tensor cores, fed by TMA: x, B and C as the strided
@@ -215,6 +277,23 @@ def test_ssd_scan_bf16_kernel_reads_the_convolution_output(cuda, shape):
         want_y.abs().max())
     assert float((state - want_state).abs().max()) <= tol * float(
         want_state.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K6_TC_CASES)
+def test_ssd_scan_bf16_kernel_does_fp32_math(cuda, shape):
+    """K6's bf16 kernel lies no farther from the fp32 plain version,
+    relative to the largest |y|, than twice the fp32 kernel fed the same
+    values (three bf16 passes for every fp32 operand)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
+    x, dt, bm, cm, a = lm_kernel_inputs("ssd_scan", shape, torch.bfloat16,
+                                        sum(shape), cuda)
+    q = shape[5]
+    y, _st = ssd_scan(x, dt, bm, cm, a, q_chunk=q)
+    wy, wst = ssd_scan_plain(x, dt, bm, cm, a, q_chunk=q)
+    ry32, _ = k6_fp32_distance(x, dt, bm, cm, a, q, wy, wst)
+    assert float((y - wy).abs().max() / wy.abs().max()) <= 2 * ry32
 
 
 @pytest.mark.cuda

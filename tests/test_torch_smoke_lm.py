@@ -54,7 +54,7 @@ def test_lm_phases_run_on_the_cpu_with_plain_kernels(monkeypatch):
             (attention, "flash_attention", "flash_attention"),
             (attention, "flash_decode", "flash_decode"),
             (ssm, "ssd_scan", "ssd_scan"),
-            (mlp, "ensemble_mlp_forward", "ensemble_mlp"),
+            (mlp, "mlp_predict", "ensemble_mlp"),
             (knn, "knn_predict", "knn_predict")):
         _counting(monkeypatch, module, attr, name)
     rows = m.lm_phases()
