@@ -11,8 +11,9 @@ Phases (any failure exits non-zero, without the final result line):
      (HMMA) and TMA instructions in their machine code;
   3. hold each kernel against its plain PyTorch version on the card (the
      segment-DP and k-NN kernels bit for bit, over profile kinds, M, G and
-     k, and over ties, k and warps a query; the fused MLP predict also bit
-     for bit against the five launches it replaces);
+     k, with the segment DP also at the edges of its tiling plan, and over
+     ties, k and warps a query; the fused MLP predict also bit for bit
+     against the five launches it replaces);
   4. replay the ``methylseq`` workflow at scale 1.0 through
      ``SizeyMethod(device="cuda")`` (the peak path) with the launch
      counters zeroed just before; every kernel of the path must have
@@ -30,7 +31,8 @@ Phases (any failure exits non-zero, without the final result line):
      through the port and compare the decisions;
   7. time each kernel, its plain version and a library yardstick with CUDA
      events, beside the least time the card could take; K1 and K2 at every
-     shape the replays launched, each also split into its device time
+     shape the replays launched and K3 at four M and at every M the
+     temporal path launched, each also split into its device time
      (torch.profiler) and the host's time to issue it, with each replay's
      launch-weighted total, and mlp.predict_batch beside the five launches
      it replaces;
@@ -153,6 +155,17 @@ K3_KINDS = ("random", "ties", "step", "constant", "zero")
 K3_MS = (1, 3, 5, 64, 128, 512)
 K3_GS = (4, 32, 33)
 K3_TIMED = (8, 32, 128, 512)
+K3_KERNEL = "segment_dp_fit_kernel"   # its name in torch.profiler
+# K3 at the edges of its plan (repro_torch.kernels.segment_dp.ops.plan),
+# checked on the card only: no profile, and M = Mt - 1, Mt, Mt + 1 and
+# 2 Mt + 1 at G = 32 (Mt = 101 profiles a tile); G = 169 and 170 (the last
+# with the cost matrix in shared memory and the first in device scratch),
+# 337 and 338 (the last with one band of start columns and the first with
+# two) and 1024, at M = 1..3; every k of {1, 2, 4, G}, every profile kind
+K3_EDGE_MG = ([(0, 32), (100, 32), (101, 32), (102, 32), (203, 32)]
+              + [(m, g) for g in (169, 170, 337, 338, 1024)
+                 for m in (1, 2, 3)])
+K3_EDGES = [(m, g, k) for m, g in K3_EDGE_MG for k in sorted({1, 2, 4, g})]
 # phase 7 times K1 and K2 at every shape the replays launched and at these
 K1_TIMED = [(1, 1024, 1, 32)]
 K2_TIMED = [(1024, 1024, 1)]
@@ -798,27 +811,34 @@ def _k3_bound(m, g, k):
 
 def time_segment_dp(ms, g: int = 32, k: int = 4, quick: bool = False
                     ) -> dict:
-    """K3 and its plain version at (M, G, k) for each M of ``ms``; with
-    ``quick``, fewer windows and no line printed per M. No single PyTorch
-    call computes this function, so no library yardstick."""
+    """K3 and its plain version at (M, G, k) for each M of ``ms``: the loop
+    time a call, the kernel's device time (torch.profiler) and the host's
+    time to issue a call, beside the bound; with ``quick``, fewer windows
+    and no line printed per M. No single PyTorch call computes this
+    function, so no library yardstick."""
     import torch
     from repro_torch.kernels.segment_dp.ops import fit_cuts
     from repro_torch.kernels.segment_dp.ref import fit_cuts_plain
     dev = torch.device("cuda")
     # ~M + G eager launches a plain call: fewer windows for it
-    reps, plain_reps = ((10, 5), (3, 2)) if quick else ((60, 10), (15, 3))
+    reps, plain_reps, host_n, dev_n = (((10, 5), (3, 2), 100, 10) if quick
+                                       else ((60, 10), (15, 3), 300, 50))
     rows = {}
     for m in ms:
         P = torch.from_numpy(k3_profiles("random", m, g, seed=m)).to(dev)
         bound, by = _k3_bound(m, g, k)
-        r = {"ms": _time_ms(lambda: fit_cuts(P, k), *reps),
-             "plain_ms": _time_ms(lambda: fit_cuts_plain(P, k), *plain_reps),
-             "bound_ms": bound, "bound_by": by, "library_ms": None}
-        rows[m] = r
+
+        def fit():
+            return fit_cuts(P, k)
+
+        rows[m] = r = {
+            "ms": _time_ms(fit, *reps),
+            "device_ms": _device_ms(fit, K3_KERNEL, dev_n),
+            "host_ms": _host_ms(fit, host_n),
+            "plain_ms": _time_ms(lambda: fit_cuts_plain(P, k), *plain_reps),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
         if not quick:
-            print(f"[time] segment_dp M={m} G={g} k={k}: kernel "
-                  f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
-                  f"none, bound {r['bound_ms']:.3e} ms ({by})")
+            print(_row_line(f"segment_dp (M,G,k)={(m, g, k)}", r))
     return rows
 
 
@@ -826,29 +846,37 @@ def segment_dp_row(launched) -> dict:
     """K3's JSON row: the kernel's, the plain version's and the bound's
     time at every (M, 32, 4) the temporal path launched, averaged with the
     launches at each as weights, so that it stands for one fit of that
-    path (the launches are spread flat over M = 3 to 129)."""
+    path (the launches are spread flat over M = 3 to 129); the device and
+    host times a call are averaged the same way and printed."""
     from collections import Counter
     times = time_segment_dp(sorted({m for m, _g, _k in launched}),
                             quick=True)
     n = sum(launched.values())
-    row = {key: sum(c * times[m][key] for (m, _g, _k), c in launched.items())
-           / n for key in ("ms", "plain_ms", "bound_ms")}
+    keys = ("ms", "plain_ms", "bound_ms", "host_ms") + (
+        ("device_ms",) if all(t["device_ms"] is not None
+                              for t in times.values()) else ())
+    mean = {key: sum(c * times[m][key] for (m, _g, _k), c in launched.items())
+            / n for key in keys}
     by = Counter()
     for (m, _g, _k), c in launched.items():
         by[times[m]["bound_by"]] += c
+    row = {key: mean[key] for key in ("ms", "plain_ms", "bound_ms")}
     row.update(bound_by=by.most_common(1)[0][0], library_ms=None)
     print(f"[time] segment_dp JSON row, the launch-weighted mean over the "
           f"{len(times)} shapes (M, 32, 4) of the temporal path's {n} "
-          f"launches: kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f}"
-          f" ms, library none, bound {row['bound_ms']:.3e} ms "
-          f"({row['bound_by']})")
+          f"launches: loop {row['ms']:.5f} ms, device "
+          f"{_fmt_ms(mean.get('device_ms'))}, host {mean['host_ms']:.5f} ms, "
+          f"plain {row['plain_ms']:.5f} ms, library none, bound "
+          f"{row['bound_ms']:.3e} ms ({row['bound_by']})")
     return row
 
 
 def _row_line(what, r):
+    lib = ("none" if r["library_ms"] is None
+           else f"{r['library_ms']:.5f} ms")
     return (f"[time] {what}: loop {r['ms']:.5f} ms, device "
             f"{_fmt_ms(r['device_ms'])}, host {r['host_ms']:.5f} ms, plain "
-            f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms, "
+            f"{r['plain_ms']:.5f} ms, library {lib}, "
             f"bound {r['bound_ms']:.3e} ms ({r['bound_by']})")
 
 
@@ -1706,7 +1734,8 @@ def main() -> int:
     t_start = time.perf_counter()
     build_kernels()
     errors = check_kernels()
-    errors["segment_dp"] = check_segment_dp()
+    errors["segment_dp"] = max(check_segment_dp(),
+                               check_segment_dp(K3_EDGES))
     main = main_path()
     temporal = temporal_path()
     ks_plus = ks_plus_path()
@@ -1719,7 +1748,7 @@ def main() -> int:
         more = check_kernels(k1_seen, k2_seen)
         errors = {k: max(v, more.get(k, 0.0)) for k, v in errors.items()}
     listed = {(m, g, k) for m in K3_MS for g in K3_GS
-              for k in (1, 2, 4, g)}
+              for k in (1, 2, 4, g)} | set(K3_EDGES)
     k3_seen = sorted((set(temporal["shapes"]["segment_dp"])
                       | set(ks_plus["shapes"]["segment_dp"])) - listed)
     if k3_seen:

@@ -53,10 +53,11 @@ SIGNATURES = {
         "pairwise_sq_dists_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
     },
     "segment_dp": {
-        # profiles, cost, back, cuts, M, G, k, stream
-        "segment_dp_fit_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
-        # profiles, cost, M, G, stream
-        "segment_cost_f32": (_P,) * 2 + (_I,) * 2 + (_P,),
+        # profiles, cost and back scratch (null: shared memory), cuts, M,
+        # G, k, the plan's mt and cap, stream
+        "segment_dp_fit_f32": (_P,) * 4 + (_I,) * 5 + (_P,),
+        # profiles, cost, M, G, the plan's mt and cap, stream
+        "segment_cost_f32": (_P,) * 2 + (_I,) * 4 + (_P,),
     },
     "flash_attention": {
         # q, k, v, out, B, S, H, Hkv, D, scale, causal, kv_len, stream

@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 
 # the segment-DP profiles, kinds and grid of chip_smoke.py
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-from chip_smoke import (K1_TOL, K3_GS, K3_KINDS, K3_MS,  # noqa: E402
+from chip_smoke import (K1_TOL, K3_EDGE_MG, K3_GS, K3_KINDS,  # noqa: E402
+                        K3_MS,
                         K4_SHAPES, K5_SHAPES, K6_SHAPES, LM_TOL,
                         _composed_predict, _mlp_predict_inputs,
                         check_lm_kernels, k3_profiles, k6_fp32_distance,
@@ -153,13 +154,7 @@ def test_wrappers_refuse_non_contiguous_input(cuda):
                              torch.zeros((1, 1), device=cuda))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", K3_KINDS)
-@pytest.mark.parametrize("g", K3_GS)
-@pytest.mark.parametrize("m", K3_MS)
-def test_segment_dp_kernel_equals_plain_bitwise(cuda, kind, m, g):
-    """chip_smoke.py's phase 3 for one (M, G) and profile kind: its
-    profiles, seeds and grid."""
+def _segment_dp_equals_plain(cuda, kind, m, g):
     from repro_torch.kernels.segment_dp.ops import fit_cuts, segment_cost
     from repro_torch.kernels.segment_dp.ref import (cost_matrix_plain,
                                                     cost_matrix_ref,
@@ -176,6 +171,28 @@ def test_segment_dp_kernel_equals_plain_bitwise(cuda, kind, m, g):
     cost = segment_cost(tP)
     assert torch.equal(cost, cost_matrix_plain(tP))
     np.testing.assert_array_equal(cost.cpu().numpy(), cost_matrix_ref(P))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", K3_KINDS)
+@pytest.mark.parametrize("g", K3_GS)
+@pytest.mark.parametrize("m", K3_MS)
+def test_segment_dp_kernel_equals_plain_bitwise(cuda, kind, m, g):
+    """chip_smoke.py's phase 3 for one (M, G) and profile kind: its
+    profiles, seeds and grid."""
+    _segment_dp_equals_plain(cuda, kind, m, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", K3_KINDS)
+@pytest.mark.parametrize("m,g", K3_EDGE_MG)
+def test_segment_dp_kernel_at_its_plan_edges_equals_plain_bitwise(cuda, kind,
+                                                                  m, g):
+    """The same at the edges of the kernel's tiling plan (chip_smoke.py's
+    K3_EDGES): M around one tile of profiles, the cost matrix in shared
+    memory and in device scratch, one band of start columns and two, and
+    G = 1024."""
+    _segment_dp_equals_plain(cuda, kind, m, g)
 
 
 @pytest.mark.cuda

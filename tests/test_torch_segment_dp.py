@@ -217,3 +217,203 @@ def test_segment_helpers_equal_the_reference():
                                   jseg.grid_profile((), 4, 2.0))
     np.testing.assert_array_equal(tseg.grid_profile((), 4),
                                   jseg.grid_profile((), 4))
+
+
+# ------------------------------------------------- the kernel's tiling plan
+# kernel.cu builds the cost matrix in tiles of ``mt`` profiles and bands of
+# start columns (ops.plan), and picks each DP column's minimum with two warp
+# reductions. The CPU cannot run the kernel; these tests hold its plan and
+# the order of its arithmetic, emulated in numpy float32, to the oracle.
+
+def _row_start(r, L):
+    return r * L - r * (r - 1) // 2
+
+
+def _row_of(e, L, bw):
+    """kernel.cu::row_of in float32: the row of a band's entry e."""
+    b = np.float32(2 * L + 1)
+    disc = b * b - np.float32(8.0) * np.float32(e)
+    r = int((b - np.sqrt(disc)) * np.float32(0.5))
+    r = max(0, min(r, bw - 1))
+    while r > 0 and _row_start(r, L) > e:
+        r -= 1
+    while r + 1 < bw and _row_start(r + 1, L) <= e:
+        r += 1
+    return r
+
+
+def tiled_cost(P: np.ndarray, plan) -> np.ndarray:
+    """The cost matrix in kernel.cu's order: per band, per tile of
+    ``plan.mt`` profiles, phase A (each (m, i) walks its row, each value
+    rounded as the kernel rounds it) into the tile, then phase B (each
+    entry adds the tile's values in m order to its running sum)."""
+    m, g = P.shape
+    C = np.full((g + 1, g + 1), np.inf, np.float32)
+    one = np.float32(1.0)
+    for i0, i1, E in plan.bands:
+        L, bw, m0 = g - i0, i1 - i0, 0
+        while True:
+            mc = min(plan.mt, m - m0)
+            T = np.full((mc, E), np.nan, np.float32)
+            rows = P[m0:m0 + mc]
+            for r in range(bw):                    # phase A, over m at once
+                i, start = i0 + r, _row_start(r, L)
+                rmax = rows[:, i].copy()
+                csum = rows[:, i].copy()
+                width = one
+                T[:, start] = rmax * width - csum
+                for s in range(1, g - i):
+                    v = rows[:, i + s]
+                    rmax = np.maximum(rmax, v)
+                    csum = csum + v
+                    width = width + one
+                    T[:, start + s] = rmax * width - csum
+            for e in range(E):                     # phase B
+                r = _row_of(e, L, bw)
+                i = i0 + r
+                j = i + 1 + e - _row_start(r, L)
+                acc = np.float32(0.0) if m0 == 0 else C[i, j]
+                for ml in range(mc):
+                    acc = np.float32(acc + T[ml, e])
+                C[i, j] = acc
+            m0 += mc
+            if m0 >= m:
+                break
+    return C
+
+
+def _check_plan(m, g):
+    p = tops.plan(m, g)
+    assert 1 <= p.mt <= max(m, 1)
+    # the tiles [0, mt), [mt, 2 mt), ... cover m = 0..M-1 once each
+    assert sum(min(p.mt, m - m0) for m0 in range(0, m, p.mt)) == m
+    # the bands cover the start columns 0..G-1 once each, in order, and a
+    # band's rows lay its entries (i, j > i) out on [0, E) once each
+    assert p.bands[0][0] == 0 and p.bands[-1][1] == g
+    for (a0, a1, ea), (b0, _b1, _eb) in zip(p.bands, p.bands[1:]):
+        assert a1 == b0
+    for i0, i1, e in p.bands:
+        assert i1 > i0 and e == sum(g - i for i in range(i0, i1))
+        assert e <= p.cap or i1 == i0 + 1
+        assert _row_start(i1 - i0, g - i0) == e
+    assert sum(e for _, _, e in p.bands) == g * (g + 1) // 2
+    # within one block's shared memory, for every k and both entry points
+    for k in (1, g):
+        assert p.smem_bytes(g, k) <= tops.SMEM_BYTES
+    assert p.smem_bytes(g, 1, fit=False) <= tops.SMEM_BYTES
+    assert p.cost_in_smem == (g <= 169)
+    return p
+
+
+@pytest.mark.parametrize("g_lo,g_hi", [(1, 256), (257, 512), (513, 768),
+                                       (769, 1024)])
+def test_plan_covers_each_cost_entry_once_within_a_blocks_shared_memory(
+        g_lo, g_hi):
+    """For G = 1..1024 and M = 1..600: every M at the edges of the tiles
+    (1..3, Mt - 1, Mt, Mt + 1, 2 Mt + 1, 600) and, since the plan's Mt is
+    min(M, the largest that fits), every M in between takes one of them."""
+    for g in range(g_lo, g_hi + 1):
+        full = tops.plan(600, g).mt
+        for m in {1, 2, 3, 600} | {x for x in (full - 1, full, full + 1,
+                                              2 * full + 1) if 1 <= x <= 600}:
+            p = _check_plan(m, g)
+            assert p.mt == min(m, full)
+            assert p.bands == tops.plan(600, g).bands
+        assert (len(tops.plan(600, g).bands) == 1) == (g <= 337)
+    tops.plan.cache_clear()
+
+
+def test_plan_edges_are_the_ones_chip_smoke_checks():
+    """chip_smoke.py's K3_EDGES are the plan's edges: Mt = 101 at G = 32,
+    the cost matrix in shared memory up to G = 169, one band of start
+    columns up to G = 337."""
+    from chip_smoke import K3_EDGE_MG
+    assert tops.plan(600, 32).mt == 101
+    assert tops.plan(3, 169).cost_in_smem and not tops.plan(3, 170).cost_in_smem
+    assert len(tops.plan(3, 337).bands) == 1 < len(tops.plan(3, 338).bands)
+    assert {(100, 32), (101, 32), (102, 32), (203, 32)} <= set(K3_EDGE_MG)
+    assert {(m, g) for g in (169, 170, 337, 338, 1024) for m in (1, 2, 3)} \
+        <= set(K3_EDGE_MG)
+
+
+@pytest.mark.parametrize("g", list(range(1, 65)) + [169, 170, 337, 338,
+                                                    1024])
+def test_row_of_finds_every_entrys_row(g):
+    """kernel.cu's closed-form row of a band entry (phase B) is exact."""
+    for i0, i1, e_band in tops.plan(3, g).bands:
+        L, bw = g - i0, i1 - i0
+        want = np.repeat(np.arange(bw), [L - r for r in range(bw)])
+        step = max(1, e_band // 4096)       # G = 1024: every 13th entry
+        for e in range(0, e_band, step):
+            assert _row_of(e, L, bw) == want[e], (g, i0, e)
+
+
+@pytest.mark.parametrize("m,g", [(0, 32), (1, 32), (7, 32), (101, 32),
+                                 (102, 32), (203, 32), (5, 1), (9, 4),
+                                 (4, 33), (3, 170), (1, 338), (2, 339)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_tiled_build_order_is_the_oracle_bitwise(kind, m, g):
+    P = profiles(kind, m, g, seed=m * 100 + g)
+    np.testing.assert_array_equal(tiled_cost(P, tops.plan(m, g)),
+                                  jref.cost_matrix_ref(P))
+
+
+def _dp_key(c: np.float32, i: int) -> int:
+    """kernel.cu::dp_key: unsigned order is the candidates' order; NaN
+    first at row 0 and last elsewhere."""
+    if np.isnan(c):
+        c = np.float32(-np.inf if i == 0 else np.inf)
+    u = int(np.float32(c).view(np.uint32))
+    return (~u & 0xffffffff) if u & 0x80000000 else u | 0x80000000
+
+
+def warp_pick(cand: np.ndarray) -> int:
+    """kernel.cu's pick of one DP column: each of 32 lanes keeps its rows'
+    smallest key with a strict <, then the smallest key over the lanes and
+    the smallest row among the lanes holding it."""
+    keys, args = [], []
+    for lane in range(32):
+        key, arg = 0xffffffff, 0
+        for i in range(lane, len(cand), 32):
+            c = _dp_key(cand[i], i)
+            if c < key:
+                key, arg = c, i
+        keys.append(key)
+        args.append(arg)
+    best = min(keys)
+    return min(a if k == best else 0xffffffff for k, a in zip(keys, args))
+
+
+def serial_pick(cand: np.ndarray) -> int:
+    """The first design's scan: from row 0, a strict <."""
+    best, arg = cand[0], 0
+    for i in range(1, len(cand)):
+        if cand[i] < best:
+            best, arg = cand[i], i
+    return arg
+
+
+@pytest.mark.parametrize("n", [2, 5, 32, 33, 64, 65, 170, 1025])
+def test_dp_warp_pick_is_the_first_minimum(n):
+    """On ties, on inf and on all-inf columns the warp reduction gives
+    np.argmin's (first) index; with NaN candidates, the serial scan's."""
+    rng = np.random.default_rng(n)
+    inf = np.float32(np.inf)
+    cols = [rng.integers(0, 3, n).astype(np.float32) for _ in range(20)]
+    cols += [np.full(n, inf), np.full(n, np.float32(2.5))]
+    for _ in range(20):
+        c = rng.integers(0, 4, n).astype(np.float32)
+        c[rng.random(n) < 0.5] = inf
+        cols.append(c)
+    c = np.full(n, inf)
+    c[-1] = 1.0
+    cols.append(c)
+    for c in cols:
+        assert warp_pick(c) == np.argmin(c) == serial_pick(c)
+    for _ in range(20):
+        c = rng.integers(0, 3, n).astype(np.float32)
+        c[rng.random(n) < 0.3] = np.nan
+        assert warp_pick(c) == serial_pick(c)
+    c = np.full(n, np.float32(1.0))
+    c[0] = np.nan
+    assert warp_pick(c) == serial_pick(c) == 0

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where one call of K1 and K2 spends its time on the card: the loop time
-per call (CUDA events over back-to-back calls), the kernel's device time
-(torch.profiler) and the host's time to issue the call (perf_counter over
-calls without a synchronise), at the shapes the methylseq replays launch.
+"""Where one call of K1, K2 and K3 spends its time on the card: the loop
+time per call (CUDA events over back-to-back calls), the kernel's device
+time (torch.profiler) and the host's time to issue the call (perf_counter
+over calls without a synchronise), at the shapes the methylseq replays
+launch (K3: a boundary fit at chip_smoke.py's K3_TIMED, G = 32, k = 4).
 
     python3 tools/port_host_split.py [--src DIR]
 
@@ -47,6 +48,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels.ensemble_mlp import ops as k1ops
     from repro_torch.kernels.knn.ops import knn_predict
+    from repro_torch.kernels.segment_dp.ops import fit_cuts
     import repro_torch
     print(f"[split] {cs.gpu_line()}; the port from "
           f"{pathlib.Path(repro_torch.__file__).parents[1]}")
@@ -75,6 +77,12 @@ def main() -> int:
              + (" (planned warps a query)" if plans else ""),
              lambda: knn_predict(qs, hist, ys, mask, scale, 5),
              "knn_predict_kernel")
+    # the first design's kernel was segment_dp_kernel, the redesign's
+    # segment_dp_fit_kernel
+    for m in cs.K3_TIMED:
+        P = torch.from_numpy(cs.k3_profiles("random", m, 32, seed=m)).to(dev)
+        line(f"segment_dp (M,G,k)={(m, 32, 4)}", lambda P=P: fit_cuts(P, 4),
+             "segment_dp")
     return 0
 
 
