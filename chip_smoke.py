@@ -57,6 +57,20 @@ Phases (any failure exits non-zero, without the final result line):
      with K4's achieved TFLOP/s, K5's and K6's GB/s and K6's largest
      difference from its plain version there, in bf16 and from the fp32
      kernel fed the same values (the bf16 one at most twice the fp32).
+ 13. (run after 7, before 8) the cluster engine: (a) ``SizeyMethod`` and
+     (b) ``sizey_temporal`` on ``simulate_cluster`` (methylseq at scale
+     1.0 on 8 nodes, Poisson root arrivals, (b) with node crashes), the
+     counters zeroed before each: wastage and failures within twice the
+     reference's spread, K1 and K2 once per predictor dispatch, K3 once
+     per boundary fit, predict dispatches at most waves x pools and fewer
+     than phase 4's, RESIZE waves counted; (c) a journaled peak run with
+     node crashes, bitwise its unjournaled twin, killed at 4 seeded bytes
+     of its journal before its last model-sized wave, repaired and
+     resumed, each resumed run bitwise the uninterrupted one and deciding
+     with the models again; (d) both paths on the engine at 0.05 on the
+     card and on the CPU, with equal integer choices, waves, events and
+     dispatches; every K1, K2 and K3 shape launched that 3-5 did not
+     check is checked as in 3, and K1 and K2 are timed at them.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``. Imports
@@ -172,6 +186,61 @@ K2_TIMED = [(1024, 1024, 1)]
 # mlp.predict_batch beside the five launches it replaces, (M, T, d, h)
 PREDICT_TIMED = [(1, 1, 1, 32), (1, 128, 1, 32), (1, 4, 2, 32),
                  (1, 512, 2, 32)]
+
+# phase 13, the cluster engine: methylseq at scale 1.0 on 8 homogeneous
+# nodes at the trace's machine cap, the default backfill policy, ttf 1.0,
+# with Poisson root arrivals at 30 an hour, the rate the reference's own
+# cluster benchmark staggers its roots at for this reason
+# (benchmarks/temporal_bench.py, "cluster + overhead"): with every root
+# at t = 0 each pool's instances become ready in one wave, all sized by
+# the preset before any of them completes. The port's CPU runs of (a) at
+# other rates: none 0, 200 an hour (README's grid) 0, 30 an hour 333, 20
+# an hour 641 of 953 decisions by the models; the faster the roots come,
+# the more of each pool is ready (and sized by its preset) before the
+# pool's first completion. (b) adds node crashes (README's temporal
+# cluster example). The reference's runs of these on a CPU and their
+# spread under 16 1-ulp moves of the MLP's initial weights
+# (tools/port_tolerance.py --cluster 8 --scale 1.0 --arrival-rate 30
+# --samples 16, and with --method sizey_temporal --fail-rate 0.01
+# --fail-seed 7): (a) wastage 73188.06..73337.88 GB.h, 2.042e-3 relative
+# at most, failures 81..88; (b) time-integrated wastage 76832.84..79759.64
+# GB.h, 2.987e-2 at most, failures 142..165. On the engine one moved OOM
+# kill moves the schedule of every later task, so the spread is wider
+# than the serial replay's; the port is held to twice it here, and to the
+# CPU's integer choices in (d)
+CLUSTER_SCALE = 1.0
+CLUSTER_NODES = 8
+CLUSTER_ARRIVALS = 30.0
+CLUSTER_FAILS = {"fail_rate_per_node_h": 0.01, "fail_seed": 7}
+REF_C_WASTAGE_GBH = 73337.8536076568
+REF_C_FAILURES = 88
+REF_C_WASTAGE_RTOL = 4.1e-3
+REF_C_FAILURES_TOL = 14
+REF_CT_TW_GBH = 77446.03849425906
+REF_CT_FAILURES = 157
+REF_CT_TW_RTOL = 5.98e-2
+REF_CT_FAILURES_TOL = 30
+# (c): a journaled peak run at methylseq 0.1 on 4 nodes with node crashes
+# and stragglers (as tests/test_torch_durability.py) and roots an hour
+# apart, so that model-sized waves run from the first tenth of its journal
+# to the last (52 model decisions in 37 predicts on a CPU); killed at 4
+# seeded bytes between its first tenth and its last model-sized wave, so
+# that each resumed run decides with the models again
+DUR_SCALE = 0.1
+DUR_ARRIVALS = 1.0
+DUR_ENGINE = {"n_nodes": 4, "fail_rate_per_node_h": 0.2, "fail_seed": 7,
+              "straggler_rate": 0.1}
+DUR_SNAPSHOT = 8
+DUR_KILLS = 4
+DUR_SEED = 11
+# (d): card vs CPU on the engine at SMALL_SCALE, 4 nodes, 5 root arrivals
+# an hour (the temporal path with crashes at 0.2 a node-hour, seed 7), as
+# tests/test_torch_cluster.py holds the port to the reference there
+PARITY_ENGINE = {"n_nodes": 4, "arrival_rate_per_h": 5.0}
+T_PARITY_FAILS = {"fail_rate_per_node_h": 0.2, "fail_seed": 7}
+ENGINE_INT_FIELDS = ("n_waves", "n_size_calls", "n_node_failures",
+                     "n_resizes", "n_resize_waves", "n_grow_failures",
+                     "n_preemptions")
 
 
 def gpu_line() -> str:
@@ -441,14 +510,19 @@ def check_segment_dp(shapes=None) -> float:
 
 
 # ----------------------------------------------------------- phase 4-6
-def _replay(scale: float, device: str, name: str = "sizey", on_method=None):
+def _replay(scale: float, device: str, name: str = "sizey", on_method=None,
+            engine: dict | None = None):
     """Replay methylseq through ``make_method(name, device=device)``; the
     decisions come back one per segment on the temporal path, each with
     its boundaries ((1.0,) on the peak path). ``on_method`` may wrap more
-    of the method before the replay."""
+    of the method before the replay. With ``engine`` (the trace's
+    ``arrival_rate_per_h`` and ``simulate_cluster``'s options) the replay
+    runs on the cluster engine, and every decision comes from a ready
+    wave's batched predict."""
     import numpy as np
     from repro_torch.baselines import make_method
-    from repro_torch.workflow import generate_workflow, simulate
+    from repro_torch.workflow import (generate_workflow, simulate,
+                                      simulate_cluster)
     method = make_method(name, device=device)
     decisions = []
     if name == "sizey_temporal":
@@ -462,19 +536,28 @@ def _replay(scale: float, device: str, name: str = "sizey", on_method=None):
 
         method.predictor.predict_batch = recording
     elif name != "ks_plus":
-        predict = method.predictor.predict
+        attr = "predict" if engine is None else "predict_batch"
+        predict = getattr(method.predictor, attr)
 
         def recording(*a, **k):
-            d = predict(*a, **k)
-            decisions.append((d, (1.0,)))
-            return d
+            out = predict(*a, **k)
+            decisions.extend((d, (1.0,)) for d in (
+                [out] if engine is None else out))
+            return out
 
-        method.predictor.predict = recording
+        setattr(method.predictor, attr, recording)
     if on_method is not None:
         on_method(method)
-    trace = generate_workflow("methylseq", scale=scale)
     t0 = time.perf_counter()
-    res = simulate(trace, method)
+    if engine is None:
+        trace = generate_workflow("methylseq", scale=scale)
+        res = simulate(trace, method)
+    else:
+        kw = dict(engine)
+        trace = generate_workflow(
+            "methylseq", scale=scale,
+            arrival_rate_per_h=kw.pop("arrival_rate_per_h"))
+        res = simulate_cluster(trace, method, **kw)
     wall = time.perf_counter() - t0
     if len(res.outcomes) != len(trace.tasks):
         _fail("replay lost tasks")
@@ -579,7 +662,7 @@ def main_path() -> dict:
                    REF_FAILURES_TOL, "wastage_gbh")
     _check_sizey_launches("peak", launches, disp)
     return {"launches": launches, "tasks": len(res.outcomes),
-            "wall_s": wall, "shapes": shapes}
+            "wall_s": wall, "shapes": shapes, "disp": disp}
 
 
 def temporal_path() -> dict:
@@ -660,20 +743,41 @@ def ks_plus_path() -> dict:
     return {"launches": launches, "wall_s": wall, "shapes": shapes}
 
 
+def _engine_ints(res, disp) -> tuple:
+    """What must be equal of two engine runs: each task's attempts,
+    failures, interruptions and abort, the engine's event counts and the
+    predictor's dispatches."""
+    return ([(o.task.key, o.attempts, o.failures, o.interruptions,
+              o.aborted) for o in res.outcomes],
+            [getattr(res.cluster, f) for f in ENGINE_INT_FIELDS], disp)
+
+
 def card_vs_cpu(name: str, alloc_rtol: float, w_rtol: float,
-                apart: dict | None = None) -> None:
+                apart: dict | None = None, engine: dict | None = None,
+                label: str = "parity") -> None:
     """Phase 6: the port at SMALL_SCALE on the card and on the CPU, with
     every integer choice equal; ``apart`` maps a pool (task type) to its
-    own allocation tolerance."""
+    own allocation tolerance. With ``engine`` (phase 13 (d)) both run on
+    the cluster engine, and each task's attempts and failures, the
+    engine's waves and events and the predictor's dispatches must be
+    equal too."""
     import numpy as np
     import torch
-    rg, dg, _, _ = _replay(SMALL_SCALE, "cuda", name)
+    from repro_torch.core import predictor as P
+    runs = []
     threads = torch.get_num_threads()
-    torch.set_num_threads(1)   # thousands of tiny ops: one thread is faster
-    try:
-        rc, dc, _, _ = _replay(SMALL_SCALE, "cpu", name)
-    finally:
-        torch.set_num_threads(threads)
+    for dev in (DEV, "cpu"):
+        before = dict(P.DISPATCH_COUNTS)
+        if dev == "cpu":
+            # thousands of tiny ops: one thread is faster
+            torch.set_num_threads(1)
+        try:
+            res, decs, _, _ = _replay(SMALL_SCALE, dev, name, engine=engine)
+        finally:
+            torch.set_num_threads(threads)
+        disp = {k: n - before.get(k, 0) for k, n in P.DISPATCH_COUNTS.items()}
+        runs.append((res, decs, {k: n for k, n in disp.items() if n}))
+    (rg, dg, pg), (rc, dc, pc) = runs
     if len(dg) != len(dc):
         _fail(f"{name}: card and CPU took different numbers of decisions")
     apart = apart or {}
@@ -695,12 +799,22 @@ def card_vs_cpu(name: str, alloc_rtol: float, w_rtol: float,
     allocs = "; ".join(
         f"max alloc rel diff{'' if p is None else ' in ' + p} "
         f"{worst.get(p, 0.0):.3e} (tol {t:g})" for p, t in tols.items())
-    print(f"[parity] {name} methylseq scale={SMALL_SCALE}: {len(dg)} "
-          f"decisions, boundaries equal; integer mismatches {mism} (tol 0); "
-          f"{allocs}; failures card={rg.n_failures} cpu={rc.n_failures}; "
-          f"{w} rel diff {wrel:.3e} (tol {w_rtol:g})")
+    where = "" if engine is None else f" on the engine {engine}"
+    print(f"[{label}] {name} methylseq scale={SMALL_SCALE}{where}: "
+          f"{len(dg)} decisions, boundaries equal; integer mismatches "
+          f"{mism} (tol 0); {allocs}; failures card={rg.n_failures} "
+          f"cpu={rc.n_failures}; {w} rel diff {wrel:.3e} (tol {w_rtol:g})")
     if mism or rg.n_failures != rc.n_failures:
         _fail(f"{name}: card and CPU disagree on integer choices")
+    if engine is not None:
+        same = _engine_ints(rg, pg) == _engine_ints(rc, pc)
+        print(f"[{label}] {name} on the engine: attempts, failures, "
+              f"interruptions and aborts a task, waves {rg.cluster.n_waves}"
+              f", sizing calls, node failures, resizes and dispatches "
+              f"{pg} {'equal' if same else 'DIFFER'} on card and CPU")
+        if not same:
+            _fail(f"{name}: card and CPU disagree on the engine's waves, "
+                  f"events or dispatches")
     if any(worst.get(p, 0.0) > t for p, t in tols.items()) or wrel > w_rtol:
         _fail(f"{name}: card and CPU disagree beyond the stated tolerance")
 
@@ -920,10 +1034,9 @@ def time_k1(shapes) -> dict:
 
 def time_k2(shapes) -> dict:
     """K2 (k = 5) at each (Q, T, d) of ``shapes``, with the same columns as
-    :func:`time_k1` (library: cdist and topk), and the kernel's device time
-    at each number of warps a query (what ``plan_splits`` is set from)."""
+    :func:`time_k1` (library: cdist and topk)."""
     import torch
-    from repro_torch.kernels.knn.ops import SPLITS, knn_predict, plan_splits
+    from repro_torch.kernels.knn.ops import knn_predict, plan_splits
     from repro_torch.kernels.knn.ref import knn_predict_ref
     dev = torch.device("cuda")
     rows = {}
@@ -952,13 +1065,23 @@ def time_k2(shapes) -> dict:
             "library_ms": _time_ms(library)}
         print(_row_line(f"knn_predict (Q,T,d)={shape} k=5, "
                            f"{plan_splits(q, t)} warps a query", r))
+    return rows
+
+
+def time_k2_splits(shapes) -> None:
+    """K2's device time at each (Q, T, d) of ``shapes`` and each number of
+    warps a query (what ``plan_splits`` is set from)."""
+    import torch
+    from repro_torch.kernels.knn.ops import SPLITS, knn_predict
+    for shape in shapes:
+        qs, hist, ys, mask, scale = _k2_inputs(*shape, 11,
+                                               torch.device("cuda"), False)
         dev_s = {s: _device_ms(lambda s=s: knn_predict(
             qs, hist, ys, mask, scale, 5, splits=s), "knn_predict_kernel")
             for s in SPLITS}
         print(f"[time] knn_predict (Q,T,d)={shape} device time by warps a "
               f"query: " + ", ".join(f"{s}: {_fmt_ms(v)}"
                                      for s, v in dev_s.items()))
-    return rows
 
 
 def time_mlp_predict(shapes) -> None:
@@ -1007,6 +1130,255 @@ def replay_totals(label: str, shapes: dict, k1: dict, k2: dict) -> None:
         print(f"[time] {label} replay {name}: {n} launches over "
               f"{len(counts)} shapes, launch-weighted total loop "
               f"{loop:.3f} ms, device {_fmt_ms(dev)}")
+
+
+# ----------------------------------------------------------- phase 13
+def _sim_equal(a, b, allow=()) -> bool:
+    """Two SimResults bitwise equal: every outcome field and every cluster
+    metric but those in ``allow``."""
+    import dataclasses
+    if len(a.outcomes) != len(b.outcomes) or a.method != b.method:
+        return False
+    for x, y in zip(a.outcomes, b.outcomes):
+        if dataclasses.asdict(x) != dataclasses.asdict(y):
+            return False
+    ca, cb = dataclasses.asdict(a.cluster), dataclasses.asdict(b.cluster)
+    return all(ca[k] == cb[k] for k in ca if k not in allow)
+
+
+def _record_sources(method, sources: list, waves=None,
+                    at=lambda: None) -> None:
+    """Wrap ``method``'s batched predict to append each decision's source
+    to ``sources`` and, for each predict with a model decision, its count
+    of tasks and ``at()`` to ``waves``."""
+    predict_batch = method.predictor.predict_batch
+
+    def recording(tasks):
+        out = predict_batch(tasks)
+        sources.extend(d.source for d in out)
+        if waves is not None and any(d.source == "model" for d in out):
+            waves.append((len(tasks), at()))
+        return out
+
+    method.predictor.predict_batch = recording
+
+
+def _cluster_drive(label: str, name: str, scale: float, arrivals, engine,
+                   journal_path=None):
+    """One ``simulate_cluster`` run of methylseq on the card (``name``
+    through ``make_method``, or a journaled Sizey method writing
+    ``journal_path``), with every launch counter zeroed just before and
+    read just after; returns the result, wall, launches, predictor
+    dispatches, boundary fits and kernel shapes, and prints the share of
+    decisions the models took and the model-sized waves by their tasks.
+    A journaled run also returns the journal's length at each model-sized
+    wave (``model_at``)."""
+    import os
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from repro_torch.baselines import SizeyMethod, make_method
+    from repro_torch.core import predictor as P
+    from repro_torch.core.temporal.predictor import BOUNDARY_COUNTS
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.workflow import generate_workflow
+    from repro_torch.workflow.cluster import ClusterEngine
+    from repro_torch.workflow.journal import Journal
+    trace = generate_workflow("methylseq", scale=scale,
+                              arrival_rate_per_h=arrivals)
+    if journal_path is None:
+        method, journal = make_method(name, device=DEV), None
+    else:
+        method = SizeyMethod(persist_path=journal_path, device=DEV)
+        journal = Journal.attach(method, snapshot_every=DUR_SNAPSHOT)
+    sized, waves = [], []
+    _record_sources(method, sized, waves, lambda: (
+        None if journal_path is None else os.path.getsize(journal_path)))
+    before = dict(P.DISPATCH_COUNTS)
+    shapes, restore = _recording_shapes()
+    BOUNDARY_COUNTS.clear()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = ClusterEngine(trace, method, node_cap_gb=trace.machine_cap_gb,
+                            journal=journal, **engine).run()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches = dict(KERNEL_LAUNCHES)
+    disp = {k: P.DISPATCH_COUNTS[k] - before.get(k, 0)
+            for k in ("predict_pool", "observe_pool", "refresh_pool")}
+    fits = dict(BOUNDARY_COUNTS).get("fit", 0)
+    if len(res.outcomes) != len(trace.tasks):
+        _fail(f"{label}: the engine lost tasks")
+    w = res.temporal_wastage_gbh
+    if not (np.isfinite(res.wastage_gbh) and np.isfinite(w) and w > 0):
+        _fail(f"{label}: non-finite or non-positive wastage")
+    c = res.cluster
+    n = len(res.outcomes)
+    print(f"[{label}] {name} methylseq scale={scale} on {c.n_nodes} nodes "
+          f"of {c.node_cap_gb:g} GB ({c.policy}, root arrivals "
+          f"{arrivals}/h): tasks={n} wastage_gbh={res.wastage_gbh!r} "
+          f"temporal_wastage_gbh={w!r} n_failures={res.n_failures} "
+          f"wall_s={wall:.3f} tasks_per_s={n / wall:.3f} "
+          f"makespan_h={c.makespan_h!r} waves={c.n_waves} "
+          f"n_size_calls={c.n_size_calls} resizes={c.n_resizes} "
+          f"resize_waves={c.n_resize_waves} node_failures="
+          f"{c.n_node_failures}")
+    print(f"[{label}] model decisions {sized.count('model')} of "
+          f"{len(sized)} ({sized.count('model') / max(len(sized), 1):.3f});"
+          f" model-sized waves by their tasks: "
+          + ", ".join(f"{q}: {k}" for q, k in sorted(
+              Counter(q for q, _at in waves).items())))
+    print(f"[{label}] dispatches {disp}; boundary fits {fits}; kernel "
+          f"launches {launches}")
+    for kname, counts in shapes.items():
+        if counts:
+            print(f"[{label}] {kname} shapes, most launched first: "
+                  + ", ".join(f"{s}x{c}" for s, c in counts.most_common()))
+    return {"res": res, "wall_s": wall, "launches": launches, "disp": disp,
+            "fits": fits, "shapes": shapes, "trace": trace,
+            "model_at": [at for _q, at in waves]}
+
+
+def _check_waves(label: str, run: dict, serial_predicts: int) -> None:
+    """The dispatch-count bound: at most one predict dispatch per pool per
+    ready wave, and fewer than the serial replay's one per model-sized
+    task."""
+    res, disp = run["res"], run["disp"]
+    pools = len({(t.task_type, t.machine) for t in run["trace"].tasks})
+    bound = res.cluster.n_waves * pools
+    n = disp["predict_pool"]
+    print(f"[{label}] predict dispatches {n} (bound: {res.cluster.n_waves} "
+          f"waves x {pools} pools = {bound}; the serial replay of phase 4: "
+          f"{serial_predicts}, {serial_predicts / max(n, 1):.3f}x as many)")
+    if not 0 < n <= bound or n >= serial_predicts:
+        _fail(f"{label}: {n} predict dispatches break the bound")
+    if res.cluster.n_size_calls != res.cluster.n_waves:
+        _fail(f"{label}: more than one sizing call a wave")
+
+
+def cluster_phase(serial_predicts: int) -> dict:
+    """Phase 13: the cluster engine on the card. (a) the peak path and (b)
+    the temporal path at CLUSTER_SCALE on CLUSTER_NODES nodes, each held
+    to twice the reference's spread; (c) a journaled peak run at DUR_SCALE
+    with node crashes, bitwise its unjournaled twin, killed at DUR_KILLS
+    seeded bytes of its journal before its last model-sized wave,
+    repaired and resumed, each resumed run bitwise the uninterrupted one
+    and deciding with the models again; (d) both paths card vs CPU on the
+    engine."""
+    import bisect
+    import os
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+    from repro_torch.baselines import SizeyMethod
+    from repro_torch.workflow.journal import recover_run
+    t_start = time.perf_counter()
+    engine = {"n_nodes": CLUSTER_NODES, "policy": "backfill"}
+    a = _cluster_drive("cluster a", "sizey", CLUSTER_SCALE, CLUSTER_ARRIVALS,
+                       engine)
+    _within_spread("cluster a", a["res"].wastage_gbh, REF_C_WASTAGE_GBH,
+                   REF_C_WASTAGE_RTOL, a["res"].n_failures, REF_C_FAILURES,
+                   REF_C_FAILURES_TOL, "wastage_gbh")
+    _check_sizey_launches("cluster peak", a["launches"], a["disp"])
+    _check_waves("cluster a", a, serial_predicts)
+    b = _cluster_drive("cluster b", "sizey_temporal", CLUSTER_SCALE,
+                       CLUSTER_ARRIVALS, dict(engine, **CLUSTER_FAILS))
+    _within_spread("cluster b", b["res"].temporal_wastage_gbh,
+                   REF_CT_TW_GBH, REF_CT_TW_RTOL, b["res"].n_failures,
+                   REF_CT_FAILURES, REF_CT_FAILURES_TOL,
+                   "temporal_wastage_gbh")
+    _check_sizey_launches("cluster temporal", b["launches"], b["disp"])
+    _check_waves("cluster b", b, serial_predicts)
+    if b["launches"].get("segment_dp", 0) != b["fits"] or not b["fits"]:
+        _fail(f"segment_dp launched {b['launches'].get('segment_dp', 0)} "
+              f"times on the engine, expected one per boundary fit "
+              f"({b['fits']})")
+    c = b["res"].cluster
+    print(f"[cluster b] segment_dp once per boundary fit ({b['fits']}); "
+          f"{c.n_resizes} RESIZE events in {c.n_resize_waves} waves, "
+          f"{c.n_grow_failures} grow failures")
+    if not c.n_resizes:
+        _fail("the temporal path ran no RESIZE on the engine")
+    # (c) durability on the card
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    shapes = [a["shapes"], b["shapes"]]
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        path = os.path.join(d, "run.jsonl")
+        plain = _cluster_drive("cluster c", "sizey", DUR_SCALE,
+                               DUR_ARRIVALS, DUR_ENGINE)
+        journaled = _cluster_drive("cluster c", "sizey", DUR_SCALE,
+                                   DUR_ARRIVALS, DUR_ENGINE,
+                                   journal_path=path)
+        shapes += [plain["shapes"], journaled["shapes"]]
+        base = journaled["res"]
+        if not _sim_equal(plain["res"], base):
+            _fail("the journaled run differs from the unjournaled one")
+        if not base.cluster.n_node_failures:
+            _fail("the durability run saw no node crash")
+        with open(path, "rb") as f:
+            data = f.read()
+        ends = [i + 1 for i, ch in enumerate(data) if ch == 0x0A]
+        # the kills fall between the journal's first tenth and the length
+        # it had at its last model-sized wave, which each resumed run must
+        # then decide again, live
+        lo, hi = len(ends) // 10, max(journaled["model_at"], default=0)
+        n_lo = bisect.bisect_left(ends, hi)
+        if n_lo <= lo:
+            _fail("no model-sized wave after the journal's first tenth")
+        rng = np.random.default_rng(DUR_SEED)
+        cuts = sorted({int(ends[rng.integers(lo, n_lo)])}
+                      | {int(x) for x in rng.integers(ends[lo], hi,
+                                                      DUR_KILLS - 1)})
+        trace = journaled["trace"]
+        for i, cut in enumerate(cuts):
+            scratch = os.path.join(d, f"cut{i}.jsonl")
+            with open(scratch, "wb") as f:
+                f.write(data[:cut])
+            live = []
+
+            def method_at(p, live=live):
+                m = SizeyMethod(persist_path=p, device=DEV)
+                _record_sources(m, live)
+                return m
+
+            t0 = time.perf_counter()
+            eng = recover_run(scratch, trace, method_at,
+                              snapshot_every=DUR_SNAPSHOT)
+            res = eng.run()
+            ok = (_sim_equal(base, res, ("n_recoveries", "n_replayed_steps"))
+                  and res.cluster.n_recoveries == 1)
+            print(f"[cluster c] killed at byte {cut} of {len(data)} "
+                  f"({'a line end' if cut in ends else 'mid-line'}), "
+                  f"repaired and resumed warm: replayed "
+                  f"{res.cluster.n_replayed_steps} steps in "
+                  f"{time.perf_counter() - t0:.3f} s, then "
+                  f"{live.count('model')} model decisions of {len(live)} "
+                  f"live; SimResult "
+                  f"{'bitwise the uninterrupted run' if ok else 'DIFFERS'}")
+            if not ok:
+                _fail(f"resume after a kill at byte {cut} is not bitwise "
+                      f"the uninterrupted run")
+            if "model" not in live:
+                _fail(f"no model decision after the resume at byte {cut}")
+    print(f"[cluster c] {len(cuts)} kill points resumed bitwise on {DEV} "
+          f"({base.cluster.n_node_failures} node crashes and "
+          f"{base.n_failures} OOM kills in the run)")
+    # (d) card vs CPU on the engine
+    card_vs_cpu("sizey", ALLOC_RTOL, WASTAGE_RTOL, engine=PARITY_ENGINE,
+                label="cluster d")
+    card_vs_cpu("sizey_temporal", T_ALLOC_RTOL, T_TW_RTOL, T_APART,
+                engine=dict(PARITY_ENGINE, **T_PARITY_FAILS),
+                label="cluster d")
+    merged = {k: sum((s[k] for s in shapes), Counter()) for k in shapes[0]}
+    wall = time.perf_counter() - t_start
+    print(f"[cluster] phase 13 wall {wall:.1f} s")
+    return {"a": a, "b": b, "shapes": merged, "wall_s": wall}
 
 
 # ----------------------------------------------------------- phases 8-12
@@ -1767,6 +2139,7 @@ def main() -> int:
               f"{sorted(k3_launched)}")
     k1_times = time_k1(sorted(seen["ensemble_mlp"] | set(K1_TIMED)))
     k2_times = time_k2(sorted(seen["knn_predict"] | set(K2_TIMED)))
+    time_k2_splits(sorted(seen["knn_predict"] | set(K2_TIMED)))
     time_mlp_predict(PREDICT_TIMED)
     for label, run in (("peak", main), ("temporal", temporal)):
         replay_totals(label, run["shapes"], k1_times, k2_times)
@@ -1784,6 +2157,29 @@ def main() -> int:
           f"(M,T,d,h)={k1_row} (the fused predict), knn_predict "
           f"(Q,T,d)={k2_row} (peak path); segment_dp at the temporal path's "
           f"launch-weighted mean")
+    # phase 13: the cluster engine; every K1 and K2 shape it launched that
+    # the lists lack is held to its plain version and timed if not yet,
+    # and every K3 shape checked
+    cluster = cluster_phase(main["disp"]["predict_pool"])
+    c_shapes = cluster["shapes"]
+    k1_new = sorted(s for s in c_shapes["ensemble_mlp"]
+                    if s not in K1_SHAPES and s not in seen["ensemble_mlp"])
+    k2_new = sorted(s for s in c_shapes["knn_predict"]
+                    if s not in K2_SHAPES and s not in seen["knn_predict"])
+    if k1_new or k2_new:
+        more = check_kernels(k1_new, k2_new)
+        errors = {k: max(v, more.get(k, 0.0)) for k, v in errors.items()}
+    k3_new = sorted(set(c_shapes["segment_dp"]) - listed - set(k3_seen))
+    if k3_new:
+        errors["segment_dp"] = max(errors["segment_dp"],
+                                   check_segment_dp(k3_new))
+    k1_times.update(time_k1(sorted(set(c_shapes["ensemble_mlp"])
+                                   - set(k1_times))))
+    k2_times.update(time_k2(sorted(set(c_shapes["knn_predict"])
+                                   - set(k2_times))))
+    for label in ("a", "b"):
+        replay_totals(f"cluster {label}", cluster[label]["shapes"], k1_times,
+                      k2_times)
     kernels = [
         {"name": "ensemble_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/ensemble_mlp/kernel.cu",

@@ -39,7 +39,7 @@ def make_method(name: str, machine_cap_gb: float = 128.0, ttf: float = 1.0,
                            **strat)
     if name in ("sizey_risk", "sizey_risk_temporal"):
         raise NotImplementedError(
-            f"{name}: the risk slice (ROADMAP.md Queue 1 slice 3) is not "
+            f"{name}: the risk slice (ROADMAP.md Queue 1 item 4) is not "
             f"ported yet")
     if name == "sizey_argmax":
         return SizeyMethod(SizeyConfig(strategy="argmax", **kw), ttf=ttf,

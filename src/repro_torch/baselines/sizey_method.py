@@ -16,21 +16,29 @@ aggregate prediction by ``1 - exp(-rate x mean_runtime)``, the chance an
 attempt is interrupted at least once. With no observed crash the fold is
 a no-op.
 
-Not ported yet, each raising ``NotImplementedError`` that names its slice
-(ROADMAP.md, Queue 1): ``risk`` and ``failure_strategy="auto"`` (the risk
-slice), ``quality=True`` (the telemetry part of the same slice), and the
-journal's durability hooks (``export_state`` / ``export_pending`` and
-their inverses, the cluster-engine slice).
+The cluster engine's journal persists the crash counters, the last
+pressure sample and the in-flight decisions through the durability hooks
+(``export_state`` / ``export_pending`` and their inverses), in the
+reference's row layout.
+
+Not ported yet, each raising ``NotImplementedError`` that names the risk
+slice (ROADMAP.md, Queue 1 item 4): ``risk``, ``failure_strategy="auto"``
+and ``quality=True``. The engine's hooks of that slice (``note_clock``,
+``strategy_for``, ``checkpoint_frac_for``) are absent, so the engine skips
+them; ``note_pressure`` only records the sample, which nothing prices yet.
 """
 from __future__ import annotations
 
 import math
+
+import numpy as np
 
 from repro_torch.core.config import SizeyConfig
 from repro_torch.core.predictor import SizeyPredictor, SizingDecision
 from repro_torch.core.provenance import ProvenanceDB
 from repro_torch.core.temporal.predictor import (TemporalDecision,
                                                  TemporalSizeyPredictor)
+from repro_torch.core.temporal.segments import ReservationPlan
 from repro_torch.workflow.accounting import (DEFAULT_CHECKPOINT_FRAC,
                                              FAILURE_STRATEGIES)
 from repro_torch.workflow.trace import TaskInstance
@@ -52,17 +60,17 @@ class SizeyMethod:
                  quality: bool = False, risk=None, device=None):
         if risk:
             raise NotImplementedError(
-                "risk: the risk slice (ROADMAP.md Queue 1 slice 3) is not "
+                "risk: the risk slice (ROADMAP.md Queue 1 item 4) is not "
                 "ported yet")
         if failure_strategy == "auto":
             raise NotImplementedError(
                 "failure_strategy='auto' selects strategies from the risk "
                 "signals: it comes with the risk slice (ROADMAP.md Queue 1 "
-                "slice 3)")
+                "item 4)")
         if quality:
             raise NotImplementedError(
                 "quality=True: prediction-quality telemetry comes with the "
-                "risk and telemetry slice (ROADMAP.md Queue 1 slice 3)")
+                "risk and telemetry slice (ROADMAP.md Queue 1 item 4)")
         if failure_strategy not in FAILURE_STRATEGIES:
             raise ValueError(
                 f"unknown failure strategy {failure_strategy!r} "
@@ -94,6 +102,9 @@ class SizeyMethod:
                 self.predictor.warm_start()   # checkpoint restore
         # decisions of in-flight tasks, keyed by task identity
         self._pending: dict[int, SizingDecision | TemporalDecision] = {}
+        # the engine's last sizing-pressure sample (journaled in the
+        # method state; priced by the risk slice)
+        self._pressure = 0.0
 
     def _crash_aware_alloc(self, decision: SizingDecision) -> float:
         """Fold the observed crash rate into the offset choice (the
@@ -114,6 +125,12 @@ class SizeyMethod:
         ``elapsed_h`` into its run."""
         self._crash_events += 1
         self._exposure_h += elapsed_h
+
+    def note_pressure(self, pressure: float) -> None:
+        """Engine hook (live steps only): the sizing pressure in [0, 1] at
+        the scheduling round, a pure function of engine state. Recorded
+        and journaled; nothing prices it until the risk slice."""
+        self._pressure = float(pressure)
 
     def allocate(self, task: TaskInstance) -> float:
         """Size one task's first attempt: predict -> crash-aware offset
@@ -186,13 +203,102 @@ class SizeyMethod:
         """Task aborted: drop its pending decision."""
         self._pending.pop(id(task), None)
 
-    # The cluster engine's journal persists the crash counters and the
-    # in-flight decisions (a "peak" or "temporal" blob) through these hooks;
-    # they come with the engine and its journal.
-    def _journal_not_ported(self, *_args):
-        raise NotImplementedError(
-            "the durability hooks come with the cluster engine and its "
-            "journal (ROADMAP.md Queue 1 slice 3, item 13)")
+    # ----------------------------------------------------- durability hooks
+    # The cluster engine's journal persists what seeds cannot re-derive:
+    # the crash-aware counters (export_state / restore_state, once per
+    # step) and the in-flight decisions of dispatched-but-unfinished
+    # attempts (export_pending / restore_pending, with each sizing wave and
+    # each snapshot). Every decision array is float32, which survives the
+    # float64 JSON detour exactly.
 
-    export_state = restore_state = _journal_not_ported
-    export_pending = restore_pending = _journal_not_ported
+    def export_state(self) -> dict:
+        """Crash-aware sizing counters and the last pressure sample
+        (JSON-safe), journaled once per engine step."""
+        return {"crash_events": self._crash_events,
+                "exposure_h": self._exposure_h,
+                "runtime_sum_h": self._runtime_sum_h,
+                "n_completed": self._n_completed,
+                "pressure": self._pressure}
+
+    def restore_state(self, state: dict) -> None:
+        """Inverse of :meth:`export_state` (the pressure sample defaults to
+        0.0 for journals written without one)."""
+        self._crash_events = int(state["crash_events"])
+        self._exposure_h = float(state["exposure_h"])
+        self._runtime_sum_h = float(state["runtime_sum_h"])
+        self._n_completed = int(state["n_completed"])
+        self._pressure = float(state.get("pressure", 0.0))
+
+    def export_pending(self, task: TaskInstance) -> dict | None:
+        """In-flight decision for ``task`` as a JSON-safe blob (None when
+        the task has none)."""
+        decision = self._pending.get(id(task))
+        if decision is None:
+            return None
+        if self.temporal:
+            return {"kind": "temporal",
+                    "task_type": decision.task_type,
+                    "machine": decision.machine,
+                    "boundaries": [float(b) for b in decision.boundaries],
+                    "seg_decisions": [_decision_to_json(d)
+                                      for d in decision.seg_decisions],
+                    "plan": [[float(e), float(g)]
+                             for e, g in decision.plan.segments]}
+        return _decision_to_json(decision)
+
+    def restore_pending(self, task: TaskInstance, blob: dict) -> None:
+        """Rebuild the in-flight decision of ``task`` from a journal blob,
+        so the attempt's later retries and completion see the decision it
+        was sized with."""
+        if blob.get("kind") == "temporal":
+            decision = TemporalDecision(
+                task_type=blob["task_type"], machine=blob["machine"],
+                boundaries=tuple(float(b) for b in blob["boundaries"]),
+                seg_decisions=[_decision_from_json(d)
+                               for d in blob["seg_decisions"]],
+                plan=ReservationPlan(tuple(
+                    (float(e), float(g)) for e, g in blob["plan"])))
+        else:
+            decision = _decision_from_json(blob)
+        self._pending[id(task)] = decision
+
+
+def _arr_to_json(arr) -> dict | None:
+    if arr is None:
+        return None
+    arr = np.asarray(arr)
+    return {"dtype": str(arr.dtype), "a": [float(v) for v in arr.ravel()]}
+
+
+def _arr_from_json(d: dict | None):
+    if d is None:
+        return None
+    return np.asarray(d["a"], dtype=np.dtype(d["dtype"]))
+
+
+def _decision_to_json(d: SizingDecision) -> dict:
+    return {"kind": "peak", "task_type": d.task_type, "machine": d.machine,
+            "features": [float(f) for f in d.features], "source": d.source,
+            "allocation_gb": float(d.allocation_gb),
+            "user_preset_gb": float(d.user_preset_gb),
+            "machine_cap_gb": float(d.machine_cap_gb),
+            "model_preds": _arr_to_json(d.model_preds),
+            "raq": _arr_to_json(d.raq),
+            "weights": _arr_to_json(d.weights),
+            "agg_pred_gb": float(d.agg_pred_gb),
+            "offset_gb": float(d.offset_gb),
+            "offset_idx": int(d.offset_idx)}
+
+
+def _decision_from_json(blob: dict) -> SizingDecision:
+    return SizingDecision(
+        task_type=blob["task_type"], machine=blob["machine"],
+        features=tuple(float(f) for f in blob["features"]),
+        source=blob["source"], allocation_gb=blob["allocation_gb"],
+        user_preset_gb=blob["user_preset_gb"],
+        machine_cap_gb=blob["machine_cap_gb"],
+        model_preds=_arr_from_json(blob["model_preds"]),
+        raq=_arr_from_json(blob["raq"]),
+        weights=_arr_from_json(blob["weights"]),
+        agg_pred_gb=blob["agg_pred_gb"], offset_gb=blob["offset_gb"],
+        offset_idx=blob["offset_idx"])

@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import tempfile
 import warnings
 from typing import Iterator
 
@@ -57,6 +58,27 @@ def read_jsonl_lines(path: str) -> tuple[list[str], bool]:
                 f"{e}") from None
     return lines, truncated
 
+
+def atomic_rewrite_jsonl(path: str, lines: list[str]) -> None:
+    """Replace ``path`` with ``lines`` atomically (write-temp + fsync +
+    rename): readers — and a recovery racing a crash — see either the old
+    file or the complete new one, never a torn intermediate."""
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=os.path.basename(path) + ".",
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            for ln in lines:
+                f.write(ln + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
 
 @dataclasses.dataclass
 class TaskRecord:
@@ -308,3 +330,7 @@ class ProvenanceDB:
         if self.persist_path:
             with open(self.persist_path, "a") as f:
                 f.write(json.dumps({"kind": kind, **payload}) + "\n")
+
+    def history_size(self, task_type: str, machine: str) -> int:
+        key = (task_type, machine)
+        return self.pools[key].count if key in self.pools else 0

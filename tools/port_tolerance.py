@@ -26,13 +26,24 @@ on its own and that of every other pool beside it, so that one pool
 whose learning-rate choice flips on rounding noise sets a tolerance for
 itself alone.
 
+``--cluster N`` replays on the event-driven cluster engine instead of the
+serial simulator (``simulate_cluster`` on N homogeneous nodes at the
+trace's machine cap, ``--policy``, with root arrivals at
+``--arrival-rate`` and node crashes at ``--fail-rate`` from
+``--fail-seed``); the decisions are then recorded from the ready waves'
+batched predicts, and the engine's waves and predict dispatches are
+printed too.
+
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/port_tolerance.py \
         [--workflow methylseq] [--scale 0.05] [--method sizey] \
+        [--cluster 8 [--policy backfill] [--arrival-rate 30] \
+        [--fail-rate 0.01 --fail-seed 7]] [--samples 4] \
         [--apart POOL] [--port]
 
 The figures it printed on a CPU are quoted beside the assertions of
-tests/test_torch_slice.py and tests/test_torch_temporal.py (scale 0.05)
-and chip_smoke.py (scales 0.05 and 1.0).
+tests/test_torch_slice.py, tests/test_torch_temporal.py and
+tests/test_torch_cluster.py (scale 0.05) and chip_smoke.py (scales 0.05
+and 1.0, serial and on the cluster engine).
 """
 from __future__ import annotations
 
@@ -43,29 +54,44 @@ import numpy as np
 
 
 def replay(workflow: str, scale: float, method_name: str = "sizey",
-           port: bool = False):
+           port: bool = False, engine: dict | None = None):
     """One replay: its result, its decisions (one per segment on the
-    temporal path) and each decision's boundaries."""
+    temporal path, as ``(task_type, source, allocation_gb, offset_idx,
+    best model)`` tuples), each decision's boundaries and the predict
+    dispatches it ran. ``engine`` holds the cluster engine's options
+    (``n_nodes``, ``policy``, ``arrival_rate_per_h``,
+    ``fail_rate_per_node_h``, ``fail_seed``); None replays serially."""
     if port:
         import torch
 
         from repro_torch.baselines import make_method
-        from repro_torch.workflow import generate_workflow, simulate
+        from repro_torch.core.predictor import DISPATCH_COUNTS
+        from repro_torch.workflow import (generate_workflow, simulate,
+                                          simulate_cluster)
         torch.set_num_threads(1)   # thousands of tiny ops: one thread wins
         method = make_method(method_name, device="cpu")
     else:
         from repro.baselines import make_method
-        from repro.workflow import generate_workflow, simulate
+        from repro.core.predictor import DISPATCH_COUNTS
+        from repro.workflow import (generate_workflow, simulate,
+                                    simulate_cluster)
         method = make_method(method_name)
     decisions, bounds = [], []
-    if method_name == "sizey_temporal":
+
+    def keep(d, b):
+        decisions.append((d.task_type, d.source, float(d.allocation_gb),
+                          int(d.offset_idx), None if d.raq is None
+                          else int(np.argmax(np.asarray(d.raq)))))
+        bounds.append(tuple(b))
+
+    if method_name == "sizey_temporal" or engine is not None:
         predict_batch = method.predictor.predict_batch
 
         def recording(tasks):
             out = predict_batch(tasks)
             for d in out:
-                decisions.extend(d.seg_decisions)
-                bounds.extend([d.boundaries] * len(d.seg_decisions))
+                for s in getattr(d, "seg_decisions", [d]):
+                    keep(s, getattr(d, "boundaries", (1.0,)))
             return out
 
         method.predictor.predict_batch = recording
@@ -74,13 +100,21 @@ def replay(workflow: str, scale: float, method_name: str = "sizey",
 
         def recording(*a, **k):
             d = predict(*a, **k)
-            decisions.append(d)
-            bounds.append((1.0,))
+            keep(d, (1.0,))
             return d
 
         method.predictor.predict = recording
-    res = simulate(generate_workflow(workflow, scale=scale), method)
-    return res, decisions, bounds
+    before = DISPATCH_COUNTS["predict_pool"]
+    if engine is None:
+        res = simulate(generate_workflow(workflow, scale=scale), method)
+    else:
+        kw = dict(engine)
+        trace = generate_workflow(
+            workflow, scale=scale,
+            arrival_rate_per_h=kw.pop("arrival_rate_per_h", None))
+        res = simulate_cluster(trace, method,
+                               node_cap_gb=trace.machine_cap_gb, **kw)
+    return res, decisions, bounds, DISPATCH_COUNTS["predict_pool"] - before
 
 
 def moved_init(init, sample: int, key, d, h):
@@ -114,7 +148,8 @@ def move_label(sample: int) -> str:
     return f"random half +-1 ulp, sample {sample}"
 
 
-def reference_fit_departures(workflow: str, scale: float):
+def reference_fit_departures(workflow: str, scale: float,
+                             engine: dict | None = None):
     """Replay the reference's temporal path recording every boundary fit;
     return the number of fits and of those where its jitted fit departs
     from its numpy oracle."""
@@ -130,12 +165,36 @@ def reference_fit_departures(workflow: str, scale: float):
 
     tp.fit_boundaries = recording
     try:
-        replay(workflow, scale, "sizey_temporal")
+        replay(workflow, scale, "sizey_temporal", engine=engine)
     finally:
         tp.fit_boundaries = fit
     departs = sum(not np.array_equal(fit_cuts(P, k), fit_cuts_ref(P, k))
                   for P, k in fits)
     return len(fits), departs
+
+
+def _moved_replay(sample, workflow, scale, method_name, engine):
+    """One replay of the reference with the MLP init moved (``sample``)."""
+    import repro.core.models.mlp as mlp
+    import repro.core.predictor as predictor
+    init = mlp._init_params
+    mlp._init_params = functools.partial(moved_init, init, sample)
+    for fn in (predictor._fused_observe_all, predictor._fused_predict,
+               predictor._fused_refresh_all):
+        fn.cache_clear()
+    try:
+        res, d1, b1, _n = replay(workflow, scale, method_name,
+                                 engine=engine)
+    finally:
+        mlp._init_params = init
+    return _summary(res), d1, b1
+
+
+def _summary(res):
+    """What the comparison reads of a SimResult."""
+    return {"wastage_gbh": res.wastage_gbh,
+            "temporal_wastage_gbh": res.temporal_wastage_gbh,
+            "n_failures": res.n_failures}
 
 
 def main() -> None:
@@ -155,45 +214,59 @@ def main() -> None:
     ap.add_argument("--port", action="store_true",
                     help="also replay the port on the CPU against the "
                          "reference")
+    ap.add_argument("--cluster", type=int, default=0, metavar="N",
+                    help="replay on the cluster engine with N nodes "
+                         "(0: the serial simulator)")
+    ap.add_argument("--policy", default="backfill",
+                    help="the cluster engine's placement policy")
+    ap.add_argument("--arrival-rate", type=float, default=None,
+                    help="Poisson root arrivals a hour (cluster only)")
+    ap.add_argument("--fail-rate", type=float, default=0.0,
+                    help="node crashes a node-hour (cluster only)")
+    ap.add_argument("--fail-seed", type=int, default=0)
     args = ap.parse_args()
+    engine = None
+    if args.cluster:
+        engine = {"n_nodes": args.cluster, "policy": args.policy,
+                  "arrival_rate_per_h": args.arrival_rate,
+                  "fail_rate_per_node_h": args.fail_rate,
+                  "fail_seed": args.fail_seed}
 
-    import jax.numpy as jnp
-
-    import repro.core.models.mlp as mlp
-    import repro.core.predictor as predictor
-
-    base, d0, b0 = replay(args.workflow, args.scale, args.method)
-    print(f"reference {args.method} {args.workflow} scale={args.scale}: "
-          f"{len(base.outcomes)} tasks, wastage_gbh={base.wastage_gbh!r}, "
+    base, d0, b0, n_predict = replay(args.workflow, args.scale, args.method,
+                                     engine=engine)
+    where = "serial" if engine is None else (
+        f"cluster {engine}, waves={base.cluster.n_waves}, "
+        f"makespan_h={base.cluster.makespan_h!r}")
+    print(f"reference {args.method} {args.workflow} scale={args.scale} "
+          f"({where}): {len(base.outcomes)} tasks, "
+          f"wastage_gbh={base.wastage_gbh!r}, "
           f"temporal_wastage_gbh={base.temporal_wastage_gbh!r}, "
-          f"n_failures={base.n_failures}")
+          f"n_failures={base.n_failures}, predict dispatches {n_predict}, "
+          f"model decisions "
+          f"{sum(d[1] == 'model' for d in d0)} of {len(d0)}", flush=True)
     if args.method == "sizey_temporal":
-        n, departs = reference_fit_departures(args.workflow, args.scale)
+        n, departs = reference_fit_departures(args.workflow, args.scale,
+                                              engine)
         print(f"reference boundary fits: {n}; its jitted fit departs from "
-              f"its numpy oracle on {departs}")
-    init = mlp._init_params
+              f"its numpy oracle on {departs}", flush=True)
+    base = _summary(base)
     worst_alloc = worst_apart = worst_waste = 0.0
     # the temporal path is judged on the time-integrated wastage
     metric = ("temporal_wastage_gbh" if args.method == "sizey_temporal"
               else "wastage_gbh")
-    wastes, fails, moved = [getattr(base, metric)], [base.n_failures], []
+    wastes, fails, moved = [base[metric]], [base["n_failures"]], []
     for sample in range(args.samples):
-        mlp._init_params = functools.partial(moved_init, init, sample)
-        for fn in (predictor._fused_observe_all,
-                   predictor._fused_predict,
-                   predictor._fused_refresh_all):
-            fn.cache_clear()
-        res, d1, b1 = replay(args.workflow, args.scale, args.method)
+        res, d1, b1 = _moved_replay(sample, args.workflow, args.scale,
+                                    args.method, engine)
         alloc, apart, waste, ints = compare(move_label(sample), base, d0,
                                             b0, res, d1, b1, metric,
                                             args.apart)
         worst_alloc = max(worst_alloc, alloc)
         worst_apart = max(worst_apart, apart)
         worst_waste = max(worst_waste, waste)
-        wastes.append(getattr(res, metric))
-        fails.append(res.n_failures)
+        wastes.append(res[metric])
+        fails.append(res["n_failures"])
         moved.append(ints)
-    mlp._init_params = init
     if moved:
         pools = ("" if args.apart is None else
                  f" outside {args.apart} ({args.apart}: {worst_apart:.3e})")
@@ -204,40 +277,37 @@ def main() -> None:
               f"{min(fails)}..{max(fails)}, integer choices moved "
               f"{min(moved)}..{max(moved)}")
     if args.port:
-        res, d1, b1 = replay(args.workflow, args.scale, args.method,
-                             port=True)
-        compare("port on the CPU", base, d0, b0, res, d1, b1, metric,
-                args.apart)
+        res, d1, b1, _n = replay(args.workflow, args.scale, args.method,
+                                 port=True, engine=engine)
+        compare("port on the CPU", base, d0, b0, _summary(res), d1, b1,
+                metric, args.apart)
 
 
 def compare(label: str, base, d0, b0, res, d1, b1, metric: str,
             apart: str | None = None):
     """Print how far a replay moved from the unperturbed reference in
     allocations (those of the pool ``apart`` on their own), the wastage
-    ``metric``, integer choices, boundaries and failures."""
+    ``metric``, integer choices, boundaries and failures. ``base`` and
+    ``res`` are summaries of the two results, ``d0`` and ``d1`` their
+    decisions as :func:`replay` records them."""
     if len(d0) != len(d1):
         # a moved failure changes the retries, and with them the decisions
         print(f"{label}: {len(d1)} decisions against {len(d0)}; compared "
               f"pairwise up to the shorter")
-    rel = [(a.task_type == apart,
-            abs(a.allocation_gb - b.allocation_gb) / a.allocation_gb)
-           for a, b in zip(d0, d1) if a.source == "model"]
+    rel = [(a[0] == apart, abs(a[2] - b[2]) / a[2])
+           for a, b in zip(d0, d1) if a[1] == "model"]
     alloc = max((r for inside, r in rel if not inside), default=0.0)
     alloc_apart = max((r for inside, r in rel if inside), default=0.0)
-    waste = abs(getattr(base, metric) - getattr(res, metric)) \
-        / getattr(base, metric)
-    ints = sum(a.source != b.source or (
-        a.source == "model" and (a.offset_idx != b.offset_idx
-                                 or np.argmax(a.raq) != np.argmax(b.raq)))
-        for a, b in zip(d0, d1))
+    waste = abs(base[metric] - res[metric]) / base[metric]
+    ints = sum(a[1] != b[1] or (a[1] == "model" and a[3:] != b[3:])
+               for a, b in zip(d0, d1))
     moved = sum(x != y for x, y in zip(b0, b1))
     pool = "" if apart is None else \
         f" outside {apart} ({apart}: {alloc_apart:.3e})"
     print(f"{label}: max alloc rel {alloc:.3e}{pool}, wastage rel "
-          f"{waste:.3e} "
-          f"({metric} {getattr(res, metric)!r}), integer "
+          f"{waste:.3e} ({metric} {res[metric]!r}), integer "
           f"choices moved {ints}, boundaries moved {moved}, failures "
-          f"{base.n_failures} -> {res.n_failures}")
+          f"{base['n_failures']} -> {res['n_failures']}", flush=True)
     return alloc, alloc_apart, waste, ints
 
 
