@@ -58,8 +58,9 @@ Phases (any failure exits non-zero, without the final result line):
      difference from its plain version there, in bf16 and from the fp32
      kernel fed the same values (the bf16 one at most twice the fp32).
  13. (run after 7, before 8) the cluster engine: (a) ``SizeyMethod`` and
-     (b) ``sizey_temporal`` on ``simulate_cluster`` (methylseq at scale
-     1.0 on 8 nodes, Poisson root arrivals, (b) with node crashes), the
+     (b) ``sizey_temporal`` on ``simulate_cluster`` (methylseq at scales
+     0.35 and 1.0 on 8 nodes, Poisson root arrivals, (b) with node
+     crashes), the
      counters zeroed before each: wastage and failures within twice the
      reference's spread, K1 and K2 once per predictor dispatch, K3 once
      per boundary fit, predict dispatches at most waves x pools and fewer
@@ -71,6 +72,26 @@ Phases (any failure exits non-zero, without the final result line):
      card and on the CPU, with equal integer choices, waves, events and
      dispatches; every K1, K2 and K3 shape launched that 3-5 did not
      check is checked as in 3, and K1 and K2 are timed at them.
+ 14. (run after 13) the risk-priced path: (a) ``SizeyMethod(risk=True,
+     failure_strategy="auto", quality=True)`` and (b)
+     ``sizey_risk_temporal`` (auto) on phase 13's traffic with node
+     crashes, counters zeroed before each: K1 and K2 once per dispatch, K3
+     once per boundary fit, predict dispatches at most waves x pools, risk
+     rows written and strategies other than retry_same picked, one quality
+     row per task in (a), wastage and failures within twice the
+     reference's spread; the risk rows, strategies, residual-log reads and
+     wall printed; (c) the reference's risk chaos cell journaled under
+     risk and risk_auto, killed at 4 seeded bytes, repaired and resumed,
+     each resumed run bitwise the uninterrupted one with its risk and
+     quality rows; (d) the multi-tenant ``SchedulerService`` with two
+     tenants (methylseq, and the sample scheduler log on its own node
+     table), each result bitwise its engine run outside the service, then
+     a crashed service's journal found and resumed bitwise; (e) each risk
+     method on the card and on the CPU at an input where the reference's
+     own 1-ulp spread moves no integer choice (the chaos cell for
+     sizey_risk), integer choices, strategies and row counts equal; (c)-(e)
+     run in worker processes beside (a) and (b); every K1, K2 and K3 shape
+     launched that no earlier phase checked is checked as in 3.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``. Imports
@@ -187,8 +208,8 @@ K2_TIMED = [(1024, 1024, 1)]
 PREDICT_TIMED = [(1, 1, 1, 32), (1, 128, 1, 32), (1, 4, 2, 32),
                  (1, 512, 2, 32)]
 
-# phase 13, the cluster engine: methylseq at scale 1.0 on 8 homogeneous
-# nodes at the trace's machine cap, the default backfill policy, ttf 1.0,
+# phase 13, the cluster engine: methylseq on 8 homogeneous nodes at the
+# trace's machine cap, the default backfill policy, ttf 1.0,
 # with Poisson root arrivals at 30 an hour, the rate the reference's own
 # cluster benchmark staggers its roots at for this reason
 # (benchmarks/temporal_bench.py, "cluster + overhead"): with every root
@@ -198,24 +219,29 @@ PREDICT_TIMED = [(1, 1, 1, 32), (1, 128, 1, 32), (1, 4, 2, 32),
 # an hour 641 of 953 decisions by the models; the faster the roots come,
 # the more of each pool is ready (and sized by its preset) before the
 # pool's first completion. (b) adds node crashes (README's temporal
-# cluster example). The reference's runs of these on a CPU and their
-# spread under 16 1-ulp moves of the MLP's initial weights
-# (tools/port_tolerance.py --cluster 8 --scale 1.0 --arrival-rate 30
-# --samples 16, and with --method sizey_temporal --fail-rate 0.01
-# --fail-seed 7): (a) wastage 73188.06..73337.88 GB.h, 2.042e-3 relative
-# at most, failures 81..88; (b) time-integrated wastage 76832.84..79759.64
-# GB.h, 2.987e-2 at most, failures 142..165. On the engine one moved OOM
-# kill moves the schedule of every later task, so the spread is wider
-# than the serial replay's; the port is held to twice it here, and to the
-# CPU's integer choices in (d)
+# cluster example). (b) and phase 14 run the whole trace (scale 1.0); (a)
+# runs 0.35 of it (332 tasks), so that the smoke with phase 14 stays well
+# inside its time limit (1,029.0 s with (a) at 1.0 on one host; phase 4
+# already replays the peak path's observes at 1.0). The reference's runs
+# of these on a CPU and their spread under 16 1-ulp moves of the MLP's
+# initial weights (tools/port_tolerance.py --cluster 8 --scale 0.35
+# --arrival-rate 30 --samples 16, and with --scale 1.0 --method
+# sizey_temporal --fail-rate 0.01 --fail-seed 7): (a) wastage
+# 32352.21..32379.61 GB.h, 8.444e-4 relative at most, failures 20..21;
+# (b) time-integrated wastage 76832.84..79759.64 GB.h, 2.987e-2 at most,
+# failures 142..165. On the engine one moved OOM kill moves the schedule
+# of every later task, so the spread is wider than the serial replay's;
+# the port is held to twice it here, and to the CPU's integer choices in
+# (d)
+CLUSTER_A_SCALE = 0.35
 CLUSTER_SCALE = 1.0
 CLUSTER_NODES = 8
 CLUSTER_ARRIVALS = 30.0
 CLUSTER_FAILS = {"fail_rate_per_node_h": 0.01, "fail_seed": 7}
-REF_C_WASTAGE_GBH = 73337.8536076568
-REF_C_FAILURES = 88
-REF_C_WASTAGE_RTOL = 4.1e-3
-REF_C_FAILURES_TOL = 14
+REF_C_WASTAGE_GBH = 32379.55217153149
+REF_C_FAILURES = 21
+REF_C_WASTAGE_RTOL = 1.69e-3
+REF_C_FAILURES_TOL = 2
 REF_CT_TW_GBH = 77446.03849425906
 REF_CT_FAILURES = 157
 REF_CT_TW_RTOL = 5.98e-2
@@ -1164,15 +1190,15 @@ def _record_sources(method, sources: list, waves=None,
 
 
 def _cluster_drive(label: str, name: str, scale: float, arrivals, engine,
-                   journal_path=None):
+                   journal_path=None, method=None):
     """One ``simulate_cluster`` run of methylseq on the card (``name``
-    through ``make_method``, or a journaled Sizey method writing
-    ``journal_path``), with every launch counter zeroed just before and
-    read just after; returns the result, wall, launches, predictor
-    dispatches, boundary fits and kernel shapes, and prints the share of
-    decisions the models took and the model-sized waves by their tasks.
-    A journaled run also returns the journal's length at each model-sized
-    wave (``model_at``)."""
+    through ``make_method``, a journaled Sizey method writing
+    ``journal_path``, or the given ``method``), with every launch counter
+    zeroed just before and read just after; returns the result, wall,
+    launches, predictor dispatches, boundary fits and kernel shapes, and
+    prints the share of decisions the models took and the model-sized
+    waves by their tasks. A journaled run also returns the journal's
+    length at each model-sized wave (``model_at``)."""
     import os
     from collections import Counter
 
@@ -1187,7 +1213,9 @@ def _cluster_drive(label: str, name: str, scale: float, arrivals, engine,
     from repro_torch.workflow.journal import Journal
     trace = generate_workflow("methylseq", scale=scale,
                               arrival_rate_per_h=arrivals)
-    if journal_path is None:
+    if method is not None:
+        journal = None
+    elif journal_path is None:
         method, journal = make_method(name, device=DEV), None
     else:
         method = SizeyMethod(persist_path=journal_path, device=DEV)
@@ -1243,10 +1271,13 @@ def _cluster_drive(label: str, name: str, scale: float, arrivals, engine,
             "model_at": [at for _q, at in waves]}
 
 
-def _check_waves(label: str, run: dict, serial_predicts: int) -> None:
+def _check_waves(label: str, run: dict, serial_predicts: int,
+                 refresh: bool = False) -> None:
     """The dispatch-count bound: at most one predict dispatch per pool per
     ready wave, and fewer than the serial replay's one per model-sized
-    task."""
+    task. One sizing call a wave, and with ``refresh`` (a method that
+    re-sizes crash-interrupted tasks under ``retry_scaled``) those
+    re-sizing calls besides."""
     res, disp = run["res"], run["disp"]
     pools = len({(t.task_type, t.machine) for t in run["trace"].tasks})
     bound = res.cluster.n_waves * pools
@@ -1256,19 +1287,23 @@ def _check_waves(label: str, run: dict, serial_predicts: int) -> None:
           f"{serial_predicts}, {serial_predicts / max(n, 1):.3f}x as many)")
     if not 0 < n <= bound or n >= serial_predicts:
         _fail(f"{label}: {n} predict dispatches break the bound")
-    if res.cluster.n_size_calls != res.cluster.n_waves:
+    extra = res.cluster.n_size_calls - res.cluster.n_waves
+    if refresh:
+        print(f"[{label}] {res.cluster.n_size_calls} sizing calls: one a "
+              f"wave and {extra} re-sizing crash-interrupted tasks")
+    if extra < 0 or (extra and not refresh):
         _fail(f"{label}: more than one sizing call a wave")
 
 
 def cluster_phase(serial_predicts: int) -> dict:
-    """Phase 13: the cluster engine on the card. (a) the peak path and (b)
-    the temporal path at CLUSTER_SCALE on CLUSTER_NODES nodes, each held
-    to twice the reference's spread; (c) a journaled peak run at DUR_SCALE
-    with node crashes, bitwise its unjournaled twin, killed at DUR_KILLS
-    seeded bytes of its journal before its last model-sized wave,
-    repaired and resumed, each resumed run bitwise the uninterrupted one
-    and deciding with the models again; (d) both paths card vs CPU on the
-    engine."""
+    """Phase 13: the cluster engine on the card. (a) the peak path at
+    CLUSTER_A_SCALE and (b) the temporal path at CLUSTER_SCALE on
+    CLUSTER_NODES nodes, each held to twice the reference's spread; (c) a
+    journaled peak run at DUR_SCALE with node crashes, bitwise its
+    unjournaled twin, killed at DUR_KILLS seeded bytes of its journal
+    before its last model-sized wave, repaired and resumed, each resumed
+    run bitwise the uninterrupted one and deciding with the models again;
+    (d) both paths card vs CPU on the engine."""
     import bisect
     import os
     import tempfile
@@ -1279,8 +1314,8 @@ def cluster_phase(serial_predicts: int) -> dict:
     from repro_torch.workflow.journal import recover_run
     t_start = time.perf_counter()
     engine = {"n_nodes": CLUSTER_NODES, "policy": "backfill"}
-    a = _cluster_drive("cluster a", "sizey", CLUSTER_SCALE, CLUSTER_ARRIVALS,
-                       engine)
+    a = _cluster_drive("cluster a", "sizey", CLUSTER_A_SCALE,
+                       CLUSTER_ARRIVALS, engine)
     _within_spread("cluster a", a["res"].wastage_gbh, REF_C_WASTAGE_GBH,
                    REF_C_WASTAGE_RTOL, a["res"].n_failures, REF_C_FAILURES,
                    REF_C_FAILURES_TOL, "wastage_gbh")
@@ -1379,6 +1414,570 @@ def cluster_phase(serial_predicts: int) -> dict:
     wall = time.perf_counter() - t_start
     print(f"[cluster] phase 13 wall {wall:.1f} s")
     return {"a": a, "b": b, "shapes": merged, "wall_s": wall}
+
+
+# ----------------------------------------------------------- phase 14
+# phase 14, the risk-priced path: phase 13's traffic (methylseq at
+# CLUSTER_SCALE on CLUSTER_NODES nodes of the trace's cap, backfill, 30 root
+# arrivals an hour) with node crashes (CLUSTER_FAILS), through
+# SizeyMethod(risk=True, failure_strategy="auto", quality=True) in (a) and
+# make_method("sizey_risk_temporal", failure_strategy="auto") in (b). Risk
+# reprices a decision only once its pool's prequential log holds
+# RiskConfig().min_samples = 5 rows: with every root at t = 0, or at this
+# rate at scales 0.2 and 0.5, no decision reaches a warm log and the path is
+# the paper's offset. The reference's runs of these on a CPU and their
+# spread under 16 1-ulp moves of the MLP's initial weights
+# (tools/port_tolerance.py --cluster 8 --scale 1.0 --arrival-rate 30
+# --fail-rate 0.01 --fail-seed 7 --failure-strategy auto --samples 16,
+# --method sizey_risk and sizey_risk_temporal): (a) wastage
+# 73945.21..75532.94 GB.h, 2.102e-2 relative at most, failures 83..87
+# (three modes: 83, 84 and 87, the port's CPU run in the last), 83 risk
+# rows in every move, strategies retry_same 734..743 and retry_scaled
+# 210..219; (b) time-integrated wastage 80380.25..83742.71 GB.h, 3.650e-2
+# relative at most, failures 109..129, 94 risk rows with one plan
+# collapsed. The port is held to twice that spread
+REF_R_WASTAGE_GBH = 75532.69477768053
+REF_R_FAILURES = 83
+REF_R_WASTAGE_RTOL = 4.21e-2
+REF_R_FAILURES_TOL = 8
+REF_RT_TW_GBH = 80793.79673797476
+REF_RT_FAILURES = 129
+REF_RT_TW_RTOL = 7.3e-2
+REF_RT_FAILURES_TOL = 40
+# (c) and (e): the reference's risk chaos cell (tests/test_risk.py): eager
+# seed 5 at 0.15 on 4 nodes of 64 GB, node crashes at 0.1 a node-hour, seed
+# 5, with min_samples low enough that a small trace's logs warm up
+RISK_CHAOS_TRACE = {"name": "eager", "seed": 5, "scale": 0.15,
+                    "machine_cap_gb": 64.0}
+RISK_CHAOS_ENGINE = {"n_nodes": 4, "fail_rate_per_node_h": 0.1,
+                     "fail_seed": 5}
+RISK_CHAOS_CFG = {"min_samples": 2, "window": 64}
+RISK_KILLS = 4
+RISK_SNAPSHOT = 16
+# (e): card vs CPU, each risk method on an input where the reference's own
+# 16 1-ulp moves of the MLP's initial weights move no integer choice
+# (tools/port_tolerance.py --workflow eager --seed S --machine-cap 64
+# --scale 0.15 --cluster 4 --fail-rate 0.1 --fail-seed 5
+# --risk-min-samples 2 --risk-window 64 --failure-strategy auto --samples
+# 16), held to twice that spread in allocations, the risk rows' included:
+# sizey_risk at the chaos cell (seed 5: allocations 1.242e-3, the rows'
+# 1.258e-3, 8 risk rows in every move); sizey_risk_temporal at seed 4
+# (allocations 9.203e-4, the rows' 1.787e-3, 3 rows, one plan collapsed).
+# At the chaos cell itself the temporal method is not stable: a
+# learning-rate flip in one pool moves 8 segment decisions in most of the
+# reference's moves, and a failure in one, as card and CPU differ there
+R_E_INPUTS = {
+    "sizey_risk": {"trace": RISK_CHAOS_TRACE, "engine": RISK_CHAOS_ENGINE,
+                   "rtol": 2.6e-3},
+    "sizey_risk_temporal": {"trace": dict(RISK_CHAOS_TRACE, seed=4),
+                            "engine": RISK_CHAOS_ENGINE, "rtol": 3.6e-3},
+}
+# (d): the service's two tenants, weights 2 and 1: methylseq at
+# SERVICE_SCALE with phase 13's arrivals, and the sample scheduler log
+# (repro_torch/data/sample_traces) with its arrivals compressed tenfold on
+# its own node table
+SERVICE_SCALE = 0.1
+SERVICE_TENANTS = {"genomics": 2.0, "hpc_log": 1.0}
+SERVICE_COMPRESS = 10.0
+# (a), (b) and (d): the risk layer's configuration, the defaults
+RISK_CFG = {}
+# (c)-(e) are host-bound and touch the card lightly: they run in worker
+# processes beside (a) and (b), each with the settings of this process
+# named here (run one after another, phase 14 would take the smoke to
+# ~1,300 s of its 1,200 s limit)
+RISK_WORKERS = ("risk_durability:risk", "risk_durability:risk_auto",
+                "service_phase", "risk_card_vs_cpu:sizey_risk",
+                "risk_card_vs_cpu:sizey_risk_temporal")
+WORKER_SETTINGS = ("DEV", "CLUSTER_NODES", "CLUSTER_ARRIVALS",
+                   "CLUSTER_FAILS", "RISK_CFG", "RISK_CHAOS_TRACE",
+                   "RISK_CHAOS_ENGINE", "RISK_CHAOS_CFG", "RISK_KILLS",
+                   "RISK_SNAPSHOT", "R_E_INPUTS", "SERVICE_SCALE",
+                   "SERVICE_TENANTS", "SERVICE_COMPRESS")
+
+
+def _risk_rows(db_or_path) -> tuple[list, list]:
+    """The risk and quality rows of a live provenance db or a journal."""
+    from repro_torch.obs.quality import read_quality_rows
+    from repro_torch.obs.risk import read_risk_rows
+    return read_risk_rows(db_or_path), read_quality_rows(db_or_path)
+
+
+def _risk_summary(rows) -> str:
+    """The digest of a run's risk rows (``obs.risk.summarize_risk``)."""
+    from repro_torch.obs.risk import summarize_risk
+    d = summarize_risk(rows)
+    if not d["n"]:
+        return "0 risk rows"
+    return (f"{d['n']} risk rows, tau {d['tau_min']!r}..{d['tau_max']!r}, "
+            f"{d['n_collapsed']} collapsed")
+
+
+def _counting_strategies(method, picks: list) -> None:
+    """Append each of ``method``'s ``strategy_for`` picks to ``picks``."""
+    pick = method.strategy_for
+
+    def counting(task):
+        s = pick(task)
+        picks.append(s)
+        return s
+
+    method.strategy_for = counting
+
+
+def _timed_residual_reads():
+    """Time each read of a pool's residual log (its device-to-host copy and
+    the wait for the device's queue): returns the list of host seconds and
+    an undo."""
+    import repro_torch.core.risk as risk
+    read = risk.pool_residuals
+    times = []
+
+    def timed(pool):
+        t0 = time.perf_counter()
+        out = read(pool)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    risk.pool_residuals = timed
+
+    def restore():
+        risk.pool_residuals = read
+    return times, restore
+
+
+def _risk_drive(label: str, method, serial_predicts: int) -> dict:
+    """One run of phase 13's traffic with crashes through a risk method on
+    the card, counters zeroed just before: K1 and K2 once per dispatch,
+    predict dispatches at most waves x pools, at least one risk row and
+    a strategy other than retry_same. Prints the rows, strategies,
+    residual reads and the wall."""
+    from collections import Counter
+
+    from repro_torch.core.risk import RESIDUAL_READS
+    picks = []
+    _counting_strategies(method, picks)
+    times, restore = _timed_residual_reads()
+    RESIDUAL_READS.clear()
+    try:
+        run = _cluster_drive(label, method.name, CLUSTER_SCALE,
+                             CLUSTER_ARRIVALS,
+                             {"n_nodes": CLUSTER_NODES, "policy": "backfill",
+                              **CLUSTER_FAILS}, method=method)
+    finally:
+        restore()
+    reads = dict(RESIDUAL_READS)
+    rows, quality = _risk_rows(method.predictor.db)
+    strategies = Counter(picks)
+    n = len(run["res"].outcomes)
+    print(f"[{label}] {_risk_summary(rows)}; strategies "
+          f"{dict(sorted(strategies.items()))}; quality rows {len(quality)}")
+    print(f"[{label}] residual reads {reads.get('reads', 0)} ({len(times)} "
+          f"timed, {reads.get('rows', 0)} rows) in {sum(times) * 1e3:.3f} ms "
+          f"of host time")
+    print(f"[{label}] wall {run['wall_s']:.3f} s, {n / run['wall_s']:.3f} "
+          f"tasks/s")
+    _check_sizey_launches(label, run["launches"], run["disp"])
+    _check_waves(label, run, serial_predicts, refresh=True)
+    if not rows:
+        _fail(f"{label}: the risk path repriced nothing")
+    if not set(strategies) - {"retry_same"}:
+        _fail(f"{label}: auto picked no strategy but retry_same")
+    if reads.get("reads", 0) != len(times):
+        _fail(f"{label}: residual reads miscounted")
+    return {**run, "rows": rows, "quality": quality,
+            "strategies": strategies, "reads": reads,
+            "read_s": sum(times)}
+
+
+def _kill_points(path: str, n: int, seed: int) -> list[int]:
+    """``n`` seeded byte offsets of the journal at ``path`` (those of the
+    reference's chaos harness): a third clean line ends, the rest mid-line
+    bytes, always with an early and a nearly-done cut."""
+    import os
+
+    import numpy as np
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    bounds = [i + 1 for i, b in enumerate(data) if b == 0x0A]
+    rng = np.random.default_rng([seed, size])
+    pts = set()
+    lo = max(1, len(bounds) // 10)
+    for i in rng.choice(len(bounds), size=min(max(1, n // 3), len(bounds)),
+                        replace=False):
+        pts.add(bounds[int(i)])
+    while len(pts) < n:
+        pts.add(int(rng.integers(bounds[lo], size)))
+    pts.add(bounds[lo])
+    pts.add(bounds[-2] if len(bounds) > 1 else bounds[-1])
+    return sorted(pts)[:max(n, 2)]
+
+
+def _chaos_factory(auto: bool, device: str = None):
+    """The chaos cell's risk method (with quality rows) for a journal."""
+    from repro_torch.baselines import SizeyMethod
+    from repro_torch.core.risk import RiskConfig
+    strat = {"failure_strategy": "auto"} if auto else {}
+    return lambda path: SizeyMethod(
+        machine_cap_gb=RISK_CHAOS_TRACE["machine_cap_gb"],
+        persist_path=path, risk=RiskConfig(**RISK_CHAOS_CFG), quality=True,
+        device=device or DEV, **strat)
+
+
+def risk_durability(build, variant: str) -> None:
+    """Phase 14 (c): the chaos cell journaled under ``variant`` (risk or
+    risk_auto), killed at RISK_KILLS seeded bytes, repaired and resumed:
+    each resumed run bitwise the uninterrupted one, its risk and quality
+    rows too."""
+    import os
+    import tempfile
+
+    from repro_torch.workflow import generate_workflow
+    from repro_torch.workflow.cluster import ClusterEngine
+    from repro_torch.workflow.journal import Journal, recover_run
+    trace = generate_workflow(**RISK_CHAOS_TRACE)
+    factory = _chaos_factory(variant == "risk_auto")
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        path = os.path.join(d, "run.jsonl")
+        method = factory(path)
+        t0 = time.perf_counter()
+        base = ClusterEngine(
+            trace, method, journal=Journal.attach(
+                method, snapshot_every=RISK_SNAPSHOT),
+            **RISK_CHAOS_ENGINE).run()
+        rows, quality = _risk_rows(path)
+        print(f"[risk c] {variant}: the chaos cell journaled in "
+              f"{time.perf_counter() - t0:.3f} s, {_risk_summary(rows)}, "
+              f"{len(quality)} quality rows, "
+              f"{base.cluster.n_node_failures} node crashes")
+        if not rows or len(quality) != len(trace.tasks):
+            _fail(f"risk c {variant}: no risk row, or not one quality row "
+                  f"per task")
+        with open(path, "rb") as f:
+            data = f.read()
+        for cut in _kill_points(path, RISK_KILLS, seed=5):
+            scratch = os.path.join(d, f"cut{cut}.jsonl")
+            with open(scratch, "wb") as f:
+                f.write(data[:cut])
+            t0 = time.perf_counter()
+            res = recover_run(scratch, trace, factory,
+                              snapshot_every=RISK_SNAPSHOT).run()
+            got = _risk_rows(scratch)
+            ok = (_sim_equal(base, res, ("n_recoveries", "n_replayed_steps"))
+                  and got == (rows, quality))
+            print(f"[risk c] {variant}: killed at byte {cut} of "
+                  f"{len(data)}, resumed in {time.perf_counter() - t0:.3f} "
+                  f"s: SimResult, {len(got[0])} risk rows and "
+                  f"{len(got[1])} quality rows "
+                  f"{'bitwise the uninterrupted run' if ok else 'DIFFER'}")
+            if not ok:
+                _fail(f"risk c {variant}: the resume at byte {cut} is not "
+                      f"bitwise the uninterrupted run")
+
+
+def service_phase(build) -> None:
+    """Phase 14 (d): the multi-tenant service on the card, each workflow's
+    result bitwise its engine run outside the service; then a crashed
+    service's journal found and resumed bitwise."""
+    import asyncio
+    import os
+    import re
+    import tempfile
+
+    from repro_torch.baselines import SizeyMethod, make_method
+    from repro_torch.core.risk import RiskConfig
+    from repro_torch.data import (SAMPLE_TRACES, read_jobs_info,
+                                  read_nodes_info)
+    from repro_torch.serving import SchedulerService
+    from repro_torch.workflow import generate_workflow
+    from repro_torch.workflow.cluster import ClusterEngine
+    from repro_torch.workflow.journal import Journal
+    genomics = generate_workflow("methylseq", scale=SERVICE_SCALE,
+                                 arrival_rate_per_h=CLUSTER_ARRIVALS)
+    g_engine = {"n_nodes": CLUSTER_NODES, "policy": "backfill",
+                "node_cap_gb": genomics.machine_cap_gb, **CLUSTER_FAILS}
+    log = read_jobs_info(SAMPLE_TRACES / "sample_jobs_info.txt",
+                         time_compress=SERVICE_COMPRESS)
+    l_engine = {"node_specs": read_nodes_info(
+        SAMPLE_TRACES / "sample_nodes_info.txt")}
+
+    def genomics_method(path):
+        return SizeyMethod(risk=RiskConfig(**RISK_CFG),
+                           failure_strategy="auto", quality=True,
+                           name="sizey_risk", persist_path=path, device=DEV)
+
+    def log_method():
+        return make_method("sizey_risk", machine_cap_gb=log.machine_cap_gb,
+                           risk=RiskConfig(**RISK_CFG), device=DEV)
+
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        jd = os.path.join(d, "journals")
+
+        async def serve():
+            svc = SchedulerService(max_concurrent=4, journal_dir=jd)
+            for tenant, weight in SERVICE_TENANTS.items():
+                svc.add_tenant(tenant, weight=weight)
+            async with svc:
+                hg = await svc.submit("genomics", genomics,
+                                      method_factory=genomics_method,
+                                      engine_kwargs=g_engine)
+                hl = await svc.submit("hpc_log", log, log_method(),
+                                      engine_kwargs=l_engine)
+                out = await asyncio.gather(hg, hl)
+            return svc, out
+
+        t0 = time.perf_counter()
+        svc, (rg, rl) = asyncio.run(serve())
+        wall = time.perf_counter() - t0
+        stats = svc.stats()
+        print(f"[risk d] service: {len(rg.outcomes)} + {len(rl.outcomes)} "
+              f"tasks of two tenants in {wall:.3f} s; stats {stats}")
+        gauges = [ln for ln in svc.scrape().splitlines()
+                  if re.match(r"scheduler_\w+\{tenant=", ln)]
+        print("[risk d] scrape: " + "; ".join(gauges))
+        [journal] = [os.path.join(jd, f) for f in os.listdir(jd)]
+        outside = os.path.join(d, "outside.jsonl")
+        m = genomics_method(outside)
+        og = ClusterEngine(genomics, m, journal=Journal.attach(
+            m, snapshot_every=svc.snapshot_every), **g_engine).run()
+        ol = ClusterEngine(log, log_method(), **l_engine).run()
+        same = (_sim_equal(og, rg) and _sim_equal(ol, rl)
+                and _risk_rows(outside) == _risk_rows(journal))
+        rows, quality = _risk_rows(journal)
+        print(f"[risk d] genomics: {_risk_summary(rows)}, {len(quality)} "
+              f"quality rows, {rg.n_failures} failures; hpc_log: "
+              f"{len(rl.outcomes)} tasks on {len(l_engine['node_specs'])} "
+              f"nodes, {rl.n_failures} failures; each SimResult (and the "
+              f"journal's rows) {'bitwise' if same else 'DIFFERS from'} "
+              f"the engine run outside the service")
+        if not same:
+            _fail("a workflow's result depends on the service")
+        if len(quality) != len(genomics.tasks) or \
+                stats["genomics"]["n_completed"] != 1 or \
+                stats["hpc_log"]["n_completed"] != 1:
+            _fail("the service lost a workflow or a quality row")
+        # the reference's test_service_crash_scan_and_resume, on the card
+        trace = generate_workflow("eager", seed=4, scale=0.03,
+                                  machine_cap_gb=64.0)
+        cd = os.path.join(d, "crashed")
+        os.makedirs(cd)
+        path = os.path.join(cd, "t-eager-0001.jsonl")
+
+        def peak(p):
+            return SizeyMethod(machine_cap_gb=64.0, persist_path=p,
+                               device=DEV)
+
+        m = peak(path)
+        base = ClusterEngine(trace, m, journal=Journal.attach(
+            m, snapshot_every=8), n_nodes=2).run()
+        with open(path, "rb") as f:
+            blob = f.read()
+        with open(path, "wb") as f:
+            f.write(blob[:len(blob) // 2 + 9])
+        found = SchedulerService.scan_unfinished(cd)
+
+        async def resume():
+            svc = SchedulerService(max_concurrent=2, journal_dir=cd,
+                                   snapshot_every=8)
+            svc.add_tenant("t")
+            async with svc:
+                h = await svc.resume("t", trace, peak, path)
+                return await h
+
+        res = asyncio.run(resume())
+        ok = (found == [path] and _sim_equal(
+            base, res, ("n_recoveries", "n_replayed_steps"))
+            and SchedulerService.scan_unfinished(cd) == [])
+        print(f"[risk d] crash scan found {len(found)} unfinished journal, "
+              f"resumed through the service: "
+              f"{'bitwise the uninterrupted run' if ok else 'DIFFERS'}")
+        if not ok:
+            _fail("the service's crash scan and resume is not bitwise")
+
+
+def risk_card_vs_cpu(name: str) -> None:
+    """Phase 14 (e): the risk method ``name`` at its input of R_E_INPUTS
+    on the card and on the CPU: integer choices, strategies, row counts,
+    seq and collapsed equal; allocations and the rows' floats within the
+    input's tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.baselines import make_method
+    from repro_torch.core.risk import RiskConfig
+    from repro_torch.workflow import generate_workflow
+    from repro_torch.workflow.cluster import ClusterEngine
+    spec = R_E_INPUTS[name]
+    trace = generate_workflow(**spec["trace"])
+    threads = torch.get_num_threads()
+    runs = []
+    for dev in (DEV, "cpu"):
+        if dev == "cpu":
+            torch.set_num_threads(1)
+        try:
+            m = make_method(name, failure_strategy="auto",
+                            machine_cap_gb=trace.machine_cap_gb,
+                            risk=RiskConfig(**RISK_CHAOS_CFG), device=dev)
+            picks, decs = [], []
+            _counting_strategies(m, picks)
+            predict_batch = m.predictor.predict_batch
+
+            def recording(tasks, predict_batch=predict_batch,
+                          decs=decs):
+                out = predict_batch(tasks)
+                for d in out:
+                    for s in getattr(d, "seg_decisions", [d]):
+                        decs.append(s)
+                return out
+
+            m.predictor.predict_batch = recording
+            res = ClusterEngine(trace, m, **spec["engine"]).run()
+        finally:
+            torch.set_num_threads(threads)
+        runs.append((res, picks, decs, _risk_rows(m.predictor.db)[0]))
+    (rg, pg, dg, wg), (rc, pc, dc, wc) = runs
+    ints = ([(o.task.key, o.attempts, o.failures, o.interruptions)
+             for o in rg.outcomes] ==
+            [(o.task.key, o.attempts, o.failures, o.interruptions)
+             for o in rc.outcomes])
+    same_decs = len(dg) == len(dc) and all(
+        a.source == b.source and (a.source != "model" or (
+            a.offset_idx == b.offset_idx
+            and int(np.argmax(a.raq)) == int(np.argmax(b.raq))))
+        for a, b in zip(dg, dc))
+    same_rows = len(wg) == len(wc) and all(
+        (a["seq"], a["collapsed"], a["task_type"]) ==
+        (b["seq"], b["collapsed"], b["task_type"])
+        for a, b in zip(wg, wc))
+    worst = max([abs(a.first_alloc_gb - b.first_alloc_gb)
+                 / b.first_alloc_gb
+                 for a, b in zip(rg.outcomes, rc.outcomes)]
+                + [abs(a[k] - b[k]) / b["alloc_gb"]
+                   for a, b in zip(wg, wc)
+                   for k in ("band_gb", "agg_pred_gb",
+                             "offset_alloc_gb", "alloc_gb")]
+                + [abs(a[k] - b[k]) for a, b in zip(wg, wc)
+                   for k in ("tau", "pressure", "crash_p")],
+                default=0.0)
+    print(f"[risk e] {name} at {spec['trace']} on {spec['engine']}, card "
+          f"vs CPU: "
+          f"{len(dg)} decisions ({sum(d.source == 'model' for d in dg)} "
+          f"by the models), integer choices "
+          f"{'equal' if ints and same_decs else 'DIFFER'}; strategies "
+          f"{'equal' if pg == pc else 'DIFFER'} "
+          f"({dict((s, pg.count(s)) for s in sorted(set(pg)))}); "
+          f"{len(wg)} vs {len(wc)} risk rows, seq and collapsed "
+          f"{'equal' if same_rows else 'DIFFER'}; allocations and row "
+          f"floats {worst:.3e} apart (tol {spec['rtol']:g}); failures "
+          f"{rg.n_failures} and {rc.n_failures}")
+    if not (ints and same_decs and pg == pc and same_rows) or not wg:
+        _fail(f"{name}: card and CPU disagree on integer choices")
+    if worst > spec["rtol"]:
+        _fail(f"{name}: card and CPU allocations beyond the tolerance")
+
+
+def _start_worker(task: str) -> subprocess.Popen:
+    """Run one of phase 14's checks (c)-(e) in a process of its own, with
+    this process's settings of it."""
+    settings = {k: globals()[k] for k in WORKER_SETTINGS}
+    return subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--worker", task,
+         json.dumps(settings)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _worker_main(task: str, settings: str) -> int:
+    """A worker of phase 14: run ``task`` (``check:argument``) with the
+    parent's settings, then print the kernel shapes it launched as the
+    last line (``SHAPES`` and JSON)."""
+    import torch
+    globals().update(json.loads(settings))
+    torch.set_num_threads(1)       # one core each: the host runs several
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    check, _, arg = task.partition(":")
+    shapes, restore = _recording_shapes()
+    try:
+        if check == "risk_durability":
+            risk_durability(build, arg)
+        elif check == "service_phase":
+            service_phase(build)
+        else:
+            risk_card_vs_cpu(arg)
+    finally:
+        restore()
+    print("SHAPES " + json.dumps({k: [[list(sh), n] for sh, n in c.items()]
+                                  for k, c in shapes.items()}))
+    return 0
+
+
+def _join_worker(task: str, proc: subprocess.Popen, shapes: dict,
+                 timeout: float) -> None:
+    """Wait for a worker, print its lines, add the kernel shapes it
+    launched to ``shapes`` and fail if it failed."""
+    out, _ = proc.communicate(timeout=timeout)
+    lines = out.splitlines()
+    for line in lines:
+        if line.startswith("SHAPES "):
+            for k, pairs in json.loads(line[7:]).items():
+                for sh, n in pairs:
+                    shapes[k][tuple(sh)] += n
+        else:
+            print(line)
+    if proc.returncode != 0:
+        _fail(f"phase 14 {task} failed (exit {proc.returncode})")
+
+
+def risk_phase(serial_predicts: int) -> dict:
+    """Phase 14: the risk-priced path on the card. (a) SizeyMethod(risk,
+    auto, quality) and (b) sizey_risk_temporal on phase 13's traffic with
+    crashes, each held to twice the reference's spread; meanwhile, in
+    worker processes (each host-bound, touching the card lightly), (c)
+    the chaos cell killed and resumed bitwise with its risk and quality
+    rows, (d) the multi-tenant service, (e) card vs CPU. Returns the
+    kernel shapes the phase launched."""
+    from repro_torch.baselines import SizeyMethod, make_method
+    from repro_torch.core.risk import RiskConfig
+    t_start = time.perf_counter()
+    shapes, restore = _recording_shapes()
+    workers = {task: _start_worker(task) for task in RISK_WORKERS}
+    try:
+        a = _risk_drive("risk a", SizeyMethod(
+            risk=RiskConfig(**RISK_CFG), failure_strategy="auto",
+            quality=True, name="sizey_risk", device=DEV), serial_predicts)
+        _within_spread("risk a", a["res"].wastage_gbh, REF_R_WASTAGE_GBH,
+                       REF_R_WASTAGE_RTOL, a["res"].n_failures,
+                       REF_R_FAILURES, REF_R_FAILURES_TOL, "wastage_gbh")
+        if len(a["quality"]) != len(a["trace"].tasks):
+            _fail("risk a: not one quality row per task")
+        b = _risk_drive("risk b", make_method(
+            "sizey_risk_temporal", failure_strategy="auto",
+            risk=RiskConfig(**RISK_CFG), device=DEV), serial_predicts)
+        _within_spread("risk b", b["res"].temporal_wastage_gbh,
+                       REF_RT_TW_GBH, REF_RT_TW_RTOL, b["res"].n_failures,
+                       REF_RT_FAILURES, REF_RT_FAILURES_TOL,
+                       "temporal_wastage_gbh")
+        c = b["res"].cluster
+        if b["launches"].get("segment_dp", 0) != b["fits"] or not b["fits"]:
+            _fail(f"risk b: segment_dp launched "
+                  f"{b['launches'].get('segment_dp', 0)} times, expected "
+                  f"one per boundary fit ({b['fits']})")
+        print(f"[risk b] segment_dp once per boundary fit ({b['fits']}); "
+              f"{c.n_resizes} RESIZE events in {c.n_resize_waves} waves")
+        if not c.n_resizes:
+            _fail("the risk-priced temporal path ran no RESIZE")
+        for task, proc in workers.items():
+            _join_worker(task, proc, shapes, timeout=900)
+        print(f"[risk] (c)-(e) in {len(workers)} worker processes, done "
+              f"{time.perf_counter() - t_start:.1f} s into the phase")
+    finally:
+        restore()
+        for proc in workers.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t_start
+    print(f"[risk] phase 14 wall {wall:.1f} s")
+    return {"a": a, "b": b, "shapes": shapes, "wall_s": wall}
 
 
 # ----------------------------------------------------------- phases 8-12
@@ -2091,6 +2690,8 @@ def lm_phases() -> dict:
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--worker"]:
+        return _worker_main(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU",
               file=sys.stderr)
@@ -2180,6 +2781,27 @@ def main() -> int:
     for label in ("a", "b"):
         replay_totals(f"cluster {label}", cluster[label]["shapes"], k1_times,
                       k2_times)
+    # phase 14: the risk-priced path, the service and the chaos cell; every
+    # K1, K2 and K3 shape it launched that no earlier phase checked is held
+    # to its plain version as in phase 3
+    risk = risk_phase(main["disp"]["predict_pool"])
+    r_shapes = risk["shapes"]
+    k1_more = sorted(s for s in r_shapes["ensemble_mlp"]
+                     if s not in K1_SHAPES and s not in seen["ensemble_mlp"]
+                     and s not in c_shapes["ensemble_mlp"])
+    k2_more = sorted(s for s in r_shapes["knn_predict"]
+                     if s not in K2_SHAPES and s not in seen["knn_predict"]
+                     and s not in c_shapes["knn_predict"])
+    k3_more = sorted(set(r_shapes["segment_dp"]) - listed - set(k3_seen)
+                     - set(c_shapes["segment_dp"]))
+    print(f"[risk] shapes launched in phase 14 that no earlier phase "
+          f"checked, checked now: K1 {k1_more}, K2 {k2_more}, K3 {k3_more}")
+    if k1_more or k2_more:
+        more = check_kernels(k1_more, k2_more)
+        errors = {k: max(v, more.get(k, 0.0)) for k, v in errors.items()}
+    if k3_more:
+        errors["segment_dp"] = max(errors["segment_dp"],
+                                   check_segment_dp(k3_more))
     kernels = [
         {"name": "ensemble_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/ensemble_mlp/kernel.cu",

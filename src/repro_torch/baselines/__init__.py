@@ -22,11 +22,12 @@ def make_method(name: str, machine_cap_gb: float = 128.0, ttf: float = 1.0,
     """Factory used by benchmarks: name -> SizingMethod instance.
 
     ``failure_strategy`` (``retry_same`` / ``retry_scaled`` /
-    ``checkpoint``) sets the crash handling the engines apply to the
-    method's attempts. ``device`` goes to the methods that use the card
-    (``sizey``, ``sizey_argmax``, ``sizey_temporal``, ``ks_plus``); the
-    numpy baselines take none. The risk variants (``sizey_risk``,
-    ``sizey_risk_temporal``) come with the risk slice.
+    ``checkpoint``, plus ``auto`` for the risk variants) sets the crash
+    handling the engines apply to the method's attempts. ``device`` goes to
+    the methods that use the card (every ``sizey*`` and ``ks_plus``); the
+    numpy baselines take none. ``sizey_risk`` / ``sizey_risk_temporal`` are
+    the risk-priced variants (a ``risk`` kwarg forwards a
+    :class:`~repro_torch.core.risk.RiskConfig`; defaults otherwise).
     """
     from repro_torch.core import SizeyConfig
 
@@ -37,10 +38,18 @@ def make_method(name: str, machine_cap_gb: float = 128.0, ttf: float = 1.0,
         return SizeyMethod(SizeyConfig(**kw), ttf=ttf,
                            machine_cap_gb=machine_cap_gb, device=device,
                            **strat)
-    if name in ("sizey_risk", "sizey_risk_temporal"):
-        raise NotImplementedError(
-            f"{name}: the risk slice (ROADMAP.md Queue 1 item 4) is not "
-            f"ported yet")
+    if name == "sizey_risk":
+        risk = kw.pop("risk", True)
+        return SizeyMethod(SizeyConfig(**kw), ttf=ttf,
+                           machine_cap_gb=machine_cap_gb, name="sizey_risk",
+                           risk=risk, device=device, **strat)
+    if name == "sizey_risk_temporal":
+        risk = kw.pop("risk", True)
+        k = kw.pop("k_segments", 4)
+        return SizeyMethod(SizeyConfig(**kw), ttf=ttf,
+                           machine_cap_gb=machine_cap_gb,
+                           name="sizey_risk_temporal", temporal_k=k,
+                           risk=risk, device=device, **strat)
     if name == "sizey_argmax":
         return SizeyMethod(SizeyConfig(strategy="argmax", **kw), ttf=ttf,
                            machine_cap_gb=machine_cap_gb, name="sizey_argmax",

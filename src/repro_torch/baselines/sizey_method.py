@@ -16,16 +16,25 @@ aggregate prediction by ``1 - exp(-rate x mean_runtime)``, the chance an
 attempt is interrupted at least once. With no observed crash the fold is
 a no-op.
 
+``risk`` (a :class:`~repro_torch.core.risk.RiskConfig`, or ``True`` for
+the defaults) replaces the retrospective offset with the risk-priced band:
+the allocation becomes ``agg + band(tau)``, where the band is the pool's
+rolling conformal residual quantile widened by the decision's ensemble
+spread, and ``tau`` is priced from the live cluster pressure (fed by the
+engine through ``note_pressure``) and the observed crash exposure. Cold
+pools and preset decisions run the paper path bitwise, so ``risk=None``
+is the method without risk, byte for byte. With risk on,
+``failure_strategy="auto"`` lets the cluster engine ask this method for
+each task's crash handling (``strategy_for``) and checkpoint cadence
+(``checkpoint_frac_for``) per pool, from RAQ x crash exposure.
+``quality=True`` emits one prediction-quality row per completion
+(:mod:`repro_torch.obs.quality`); ``risk`` one row per repriced decision
+(:mod:`repro_torch.obs.risk`). Both ride the provenance stream.
+
 The cluster engine's journal persists the crash counters, the last
 pressure sample and the in-flight decisions through the durability hooks
 (``export_state`` / ``export_pending`` and their inverses), in the
 reference's row layout.
-
-Not ported yet, each raising ``NotImplementedError`` that names the risk
-slice (ROADMAP.md, Queue 1 item 4): ``risk``, ``failure_strategy="auto"``
-and ``quality=True``. The engine's hooks of that slice (``note_clock``,
-``strategy_for``, ``checkpoint_frac_for``) are absent, so the engine skips
-them; ``note_pressure`` only records the sample, which nothing prices yet.
 """
 from __future__ import annotations
 
@@ -36,9 +45,14 @@ import numpy as np
 from repro_torch.core.config import SizeyConfig
 from repro_torch.core.predictor import SizeyPredictor, SizingDecision
 from repro_torch.core.provenance import ProvenanceDB
+from repro_torch.core.risk import RiskConfig, RiskManager, crash_probability
+from repro_torch.core.risk import checkpoint_frac_for as _auto_checkpoint_frac
+from repro_torch.core.risk import select_strategy as _auto_strategy
 from repro_torch.core.temporal.predictor import (TemporalDecision,
                                                  TemporalSizeyPredictor)
 from repro_torch.core.temporal.segments import ReservationPlan
+from repro_torch.obs.quality import QUALITY_KIND
+from repro_torch.obs.risk import RISK_KIND
 from repro_torch.workflow.accounting import (DEFAULT_CHECKPOINT_FRAC,
                                              FAILURE_STRATEGIES)
 from repro_torch.workflow.trace import TaskInstance
@@ -57,24 +71,22 @@ class SizeyMethod:
                  persist_path: str | None = None,
                  failure_strategy: str = "retry_same",
                  checkpoint_frac: float = DEFAULT_CHECKPOINT_FRAC,
-                 quality: bool = False, risk=None, device=None):
+                 quality: bool = False,
+                 risk: RiskConfig | bool | None = None, device=None):
         if risk:
-            raise NotImplementedError(
-                "risk: the risk slice (ROADMAP.md Queue 1 item 4) is not "
-                "ported yet")
+            self.risk = RiskManager(risk if isinstance(risk, RiskConfig)
+                                    else None)
+        else:
+            self.risk = None
         if failure_strategy == "auto":
-            raise NotImplementedError(
-                "failure_strategy='auto' selects strategies from the risk "
-                "signals: it comes with the risk slice (ROADMAP.md Queue 1 "
-                "item 4)")
-        if quality:
-            raise NotImplementedError(
-                "quality=True: prediction-quality telemetry comes with the "
-                "risk and telemetry slice (ROADMAP.md Queue 1 item 4)")
-        if failure_strategy not in FAILURE_STRATEGIES:
+            if self.risk is None:
+                raise ValueError("failure_strategy='auto' selects per-pool "
+                                 "strategies from the risk signals: it "
+                                 "requires risk=...")
+        elif failure_strategy not in FAILURE_STRATEGIES:
             raise ValueError(
                 f"unknown failure strategy {failure_strategy!r} "
-                f"(have {FAILURE_STRATEGIES})")
+                f"(have {FAILURE_STRATEGIES} + 'auto')")
         self.failure_strategy = failure_strategy
         self.checkpoint_frac = checkpoint_frac
         # crash-aware sizing state: interruptions observed vs attempt-hours
@@ -102,9 +114,19 @@ class SizeyMethod:
                 self.predictor.warm_start()   # checkpoint restore
         # decisions of in-flight tasks, keyed by task identity
         self._pending: dict[int, SizingDecision | TemporalDecision] = {}
-        # the engine's last sizing-pressure sample (journaled in the
-        # method state; priced by the risk slice)
+        # prediction-quality telemetry: one aux row per completion, every
+        # field a pure function of journal-restorable predictor state read
+        # after the observe, so a warm resume regenerates post-kill rows
+        # bitwise
+        self.quality = quality
+        self._clock_h = 0.0
+        self._quality_seq = len(self.predictor.db.aux.get(QUALITY_KIND, ()))
+        # the engine's last sizing-pressure sample (serial runs never call
+        # note_pressure: it stays 0.0 and risk prices generously) and the
+        # risk-row counter, which like _quality_seq continues from the
+        # warm-start prefix
         self._pressure = 0.0
+        self._risk_seq = len(self.predictor.db.aux.get(RISK_KIND, ()))
 
     def _crash_aware_alloc(self, decision: SizingDecision) -> float:
         """Fold the observed crash rate into the offset choice (the
@@ -128,20 +150,121 @@ class SizeyMethod:
 
     def note_pressure(self, pressure: float) -> None:
         """Engine hook (live steps only): the sizing pressure in [0, 1] at
-        the scheduling round, a pure function of engine state. Recorded
-        and journaled; nothing prices it until the risk slice."""
+        the scheduling round, a pure function of engine state, so a
+        repair-re-executed step samples the identical value. Journaled in
+        the method state; the risk layer prices it."""
         self._pressure = float(pressure)
 
+    def note_clock(self, t_h: float) -> None:
+        """Engine hook: virtual-clock hours at the completion wave about to
+        be observed (stamps the quality and risk rows; serial runs never
+        call it, so their rows carry t_h = 0)."""
+        self._clock_h = float(t_h)
+
+    def _crash_p(self) -> float:
+        """Observed crashes-per-attempt probability (0.0 crash-free)."""
+        return crash_probability(self._crash_events, self._exposure_h,
+                                 self._runtime_sum_h, self._n_completed)
+
+    def _emit_risk_row(self, d: SizingDecision, tau: float, band: float,
+                       crash_p: float, base_alloc: float, alloc: float,
+                       collapsed: bool = False) -> None:
+        """One ``kind="risk"`` aux row per repriced decision, emitted at
+        sizing time, which journal replay never re-enters: a repair-
+        re-executed wave regenerates its rows bitwise."""
+        self.predictor.db.add_aux(RISK_KIND, {
+            "seq": self._risk_seq, "t_h": float(self._clock_h),
+            "task_type": d.task_type, "machine": d.machine,
+            "tau": float(tau), "band_gb": float(band),
+            "pressure": float(self._pressure), "crash_p": float(crash_p),
+            "agg_pred_gb": float(d.agg_pred_gb),
+            "offset_alloc_gb": float(base_alloc),
+            "alloc_gb": float(alloc), "collapsed": int(collapsed)})
+        self._risk_seq += 1
+
+    def _risk_alloc(self, decision: SizingDecision,
+                    base_alloc: float) -> float:
+        """Risk-priced allocation of one flat decision: ``agg + band(tau)``
+        clamped to [min_alloc_gb, the task's cap]. Preset decisions and
+        cold pools (residual log below ``min_samples``) return
+        ``base_alloc`` untouched, bitwise the paper path."""
+        d = decision
+        if d.source != "model" or d.model_preds is None:
+            return base_alloc
+        key = (d.task_type, d.machine)
+        pool = self.predictor.db.pools.get(key)
+        crash_p = self._crash_p()
+        tau = self.risk.quantile(self._pressure, crash_p)
+        band = self.risk.band(key, pool, tau, d.model_preds)
+        if band is None:
+            return base_alloc
+        cfg = self.predictor.cfg
+        alloc = min(max(float(d.agg_pred_gb) + band, cfg.min_alloc_gb),
+                    float(d.machine_cap_gb))
+        self._emit_risk_row(d, tau, band, crash_p, base_alloc, alloc)
+        return alloc
+
+    def _risk_plan(self, decision: TemporalDecision) -> None:
+        """Reprice a temporal decision in place: each segment gets
+        ``seg_agg + band``, and a plan whose segment values differ by less
+        than ``k_collapse_frac`` of the band runs flat (per-pool k = 1).
+        ``seg_decisions`` stay as they were (observe credits the segment
+        models); the rebuilt plan rides ``export_pending``."""
+        peak = decision.peak_decision
+        if peak.source != "model" or peak.model_preds is None:
+            return
+        key = (decision.task_type, decision.machine)
+        pool = self.predictor.db.pools.get(key)
+        crash_p = self._crash_p()
+        tau = self.risk.quantile(self._pressure, crash_p)
+        band = self.risk.band(key, pool, tau, peak.model_preds)
+        if band is None:
+            return
+        cfg = self.predictor.cfg
+        cap = float(peak.machine_cap_gb)
+        base_alloc = decision.allocation_gb
+        vals = [min(max(float(sd.agg_pred_gb) + band, cfg.min_alloc_gb), cap)
+                for sd in decision.seg_decisions]
+        collapsed = self.risk.collapse_temporal(vals, band)
+        if collapsed:
+            vals = [max(vals)] * len(vals)
+        decision.plan = ReservationPlan(tuple(
+            (float(end), float(v))
+            for (end, _gb), v in zip(decision.plan.segments, vals)))
+        self._emit_risk_row(peak, tau, band, crash_p, base_alloc,
+                            decision.plan.peak_gb, collapsed)
+
+    def strategy_for(self, task: TaskInstance) -> str:
+        """Engine hook (``failure_strategy="auto"``, live sized waves only):
+        this task's crash handling from crash exposure x the best RAQ of
+        its decision. The engine journals the choice per sized task."""
+        d = self._pending[id(task)]
+        if self.temporal:
+            d = d.peak_decision
+        raq = None
+        if d.raq is not None and len(d.raq):
+            raq = float(np.max(np.asarray(d.raq)))
+        return _auto_strategy(self.risk.cfg, self._crash_p(), raq)
+
+    def checkpoint_frac_for(self, task: TaskInstance) -> float:
+        """Engine hook (``failure_strategy="auto"``): the checkpoint
+        cadence, shorter the crashier the cluster looks. Journaled with
+        ``strategy_for``'s choice."""
+        return _auto_checkpoint_frac(self.risk.cfg, self._crash_p())
+
     def allocate(self, task: TaskInstance) -> float:
-        """Size one task's first attempt: predict -> crash-aware offset
-        (a temporal method: the peak of the task's plan)."""
+        """Size one task's first attempt: predict -> crash-aware offset ->
+        risk reprice (a temporal method: the peak of the task's plan)."""
         if self.temporal:
             return self.allocate_batch([task])[0]
         decision = self.predictor.predict(
             task.task_type, task.machine, task.features, task.user_preset_gb,
             machine_cap_gb=task.machine_cap_gb)
         self._pending[id(task)] = decision
-        return self._crash_aware_alloc(decision)
+        alloc = self._crash_aware_alloc(decision)
+        if self.risk is not None:
+            alloc = self._risk_alloc(decision, alloc)
+        return alloc
 
     def allocate_batch(self, tasks: list[TaskInstance]) -> list[float]:
         """Decide a burst of submissions with one dispatch per pool."""
@@ -151,8 +274,15 @@ class SizeyMethod:
         if self.temporal:
             # a plan is a whole-runtime schedule: the crash-aware offset
             # fold applies to flat (peak) decisions only
+            if self.risk is not None:
+                for d in decisions:
+                    self._risk_plan(d)
             return [d.allocation_gb for d in decisions]
-        return [self._crash_aware_alloc(d) for d in decisions]
+        allocs = [self._crash_aware_alloc(d) for d in decisions]
+        if self.risk is not None:
+            allocs = [self._risk_alloc(d, a)
+                      for d, a in zip(decisions, allocs)]
+        return allocs
 
     def plan_for(self, task: TaskInstance):
         """Reservation plan for the allocation just returned (None for the
@@ -183,21 +313,63 @@ class SizeyMethod:
         else:
             self.predictor.observe(decision, task.actual_peak_gb,
                                    task.runtime_h, attempts, task.workflow)
+        if self.quality:
+            self._record_quality([(decision, task, first_alloc_gb)])
 
     def complete_batch(self, items) -> None:
         """Observe a wave of simultaneous completions, one observe dispatch
         per pool (``items``: (task, first_alloc_gb, attempts) tuples)."""
         for task, _first, _attempts in items:
             self._note_completion(task)
+        completions = [(self._pending.pop(id(task)), task, first, attempts)
+                       for task, first, attempts in items]
         if self.temporal:
             self.predictor.observe_batch(
-                [(self._pending.pop(id(task)), task, attempts)
-                 for task, _first, attempts in items])
+                [(d, task, attempts)
+                 for d, task, _first, attempts in completions])
         else:
             self.predictor.observe_batch(
-                [(self._pending.pop(id(task)), task.actual_peak_gb,
-                  task.runtime_h, attempts, task.workflow)
-                 for task, _first, attempts in items])
+                [(d, task.actual_peak_gb, task.runtime_h, attempts,
+                  task.workflow)
+                 for d, task, _first, attempts in completions])
+        if self.quality:
+            self._record_quality([(d, task, first)
+                                  for d, task, first, _ in completions])
+
+    def _record_quality(self, triples) -> None:
+        """One ``kind="quality"`` aux row per completed task, in completion
+        order, after the observe: fit_serial and next_fit_at then read the
+        same live and after a warm resume (warm_start rebuilds both)."""
+        inner = self.predictor.predictor if self.temporal else self.predictor
+        db = self.predictor.db
+        models = inner.models
+        for decision, task, first_gb in triples:
+            d = decision.peak_decision if self.temporal else decision
+            key = (d.task_type, d.machine)
+            pool = db.pools.get(key)
+            peak = float(task.actual_peak_gb)
+            err = float(first_gb) - peak
+            if d.raq is not None and len(d.raq):
+                raq_arr = np.asarray(d.raq)
+                idx = int(np.argmax(raq_arr))
+                raq = float(raq_arr[idx])
+                model = models[idx] if idx < len(models) else str(idx)
+                offset, agg = float(d.offset_gb), float(d.agg_pred_gb)
+            else:
+                raq = model = offset = agg = None
+            db.add_aux(QUALITY_KIND, {
+                "seq": self._quality_seq, "t_h": float(self._clock_h),
+                "task_type": d.task_type, "machine": d.machine,
+                "raq": raq, "model": model, "offset_gb": offset,
+                "agg_pred_gb": agg, "source": d.source,
+                "alloc_gb": float(first_gb), "peak_gb": peak,
+                "under": int(float(first_gb) < peak), "err_gb": err,
+                "err_frac": err / peak if peak > 0 else 0.0,
+                "n_obs": pool.count if pool is not None else 0,
+                "fit_serial": int(inner._fit_serial.get(key, 0)),
+                "next_fit_at": int(inner._next_fit_at.get(key, 0)),
+            })
+            self._quality_seq += 1
 
     def abandon(self, task: TaskInstance) -> None:
         """Task aborted: drop its pending decision."""

@@ -4,8 +4,8 @@ The reference's model states are NamedTuples of arrays, its provenance
 pools hold arrays as attributes and its LM parameters are nested dicts of
 arrays; fetched to the host (``jax.device_get``, ``np.asarray``) they are
 numpy. These functions turn such numpy states into the port's tensors on a
-device and back, field by field in the reference's order, so both packages
-can compute from the same state:
+device (CUDA unless the caller asks for another) and back, field by field
+in the reference's order, so both packages can compute from the same state:
 
     t_state = state_to_torch("mlp", jax.device_get(j_state), "cuda")
     j_state = repro.core.models.mlp.MLPState(*state_to_numpy("mlp", t_state))
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.models import MODEL_MODULES
+from repro_torch.utils.misc import resolve_device
 
 _STATE_CLASSES = {
     "linear": MODEL_MODULES["linear"].LinearState,
@@ -49,9 +50,11 @@ def _to_numpy(a, integer: bool):
     return out.astype(np.int32 if integer else np.float32)
 
 
-def state_to_torch(model: str, arrays, device="cpu"):
+def state_to_torch(model: str, arrays, device=None):
     """A reference model state (any sequence of numpy arrays in field
-    order, NamedTuples included) -> the port's state on ``device``."""
+    order, NamedTuples included) -> the port's state on ``device`` (CUDA
+    unless asked otherwise)."""
+    device = resolve_device(device)
     cls = _STATE_CLASSES[model]
     return cls(*(_to_torch(a, device, (model, f) in _INT_FIELDS)
                  for f, a in zip(cls._fields, arrays)))
@@ -100,11 +103,12 @@ def _leaf_to_torch(a, device, dtype):
     return t.to(device)
 
 
-def lm_params_to_torch(np_tree, device="cpu", dtype=None) -> dict:
+def lm_params_to_torch(np_tree, device=None, dtype=None) -> dict:
     """The reference's LM parameter pytree (nested dicts of numpy arrays,
     per-layer stacks on a leading axis) -> the port's dict of tensors on
-    ``device``, in each array's own type, or in ``dtype`` for the floating
-    ones."""
+    ``device`` (CUDA unless asked otherwise), in each array's own type, or
+    in ``dtype`` for the floating ones."""
+    device = resolve_device(device)
     return {k: lm_params_to_torch(v, device, dtype) if isinstance(v, dict)
             else _leaf_to_torch(v, device, dtype) for k, v in np_tree.items()}
 

@@ -901,14 +901,13 @@ class ClusterEngine:
         self.has_complete_batch = hasattr(method, "complete_batch")
         self.has_note = hasattr(method, "note_interruption")
         self.has_abandon = hasattr(method, "abandon")
-        # quality telemetry (the reference's repro.obs.quality; the
-        # port's comes with the risk slice): stamp the method with the
-        # virtual clock before each live completion wave so its quality
-        # rows carry engine time. Replay never calls it — replayed
+        # quality telemetry (repro_torch.obs.quality): stamp the method
+        # with the virtual clock before each live completion wave so its
+        # quality rows carry engine time. Replay never calls it — replayed
         # completions were observed before the crash and their rows sit in
         # the warm-start prefix.
         self.has_note_clock = hasattr(method, "note_clock")
-        # risk pricing (repro.core.risk, likewise): feed the method the live
+        # risk pricing (repro_torch.core.risk): feed the method the live
         # sizing pressure at each scheduling round. Pressure is a pure function
         # of engine state, so a repair-re-executed round samples the
         # identical value; replay skips the call (journaled allocations

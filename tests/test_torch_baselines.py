@@ -81,16 +81,21 @@ def test_ks_plus_fits_its_pools_and_equals_the_reference(strategy):
 
 
 def test_make_method_names_and_devices(monkeypatch):
-    for name in ALL_BASELINES + ("sizey", "sizey_argmax", "sizey_temporal"):
+    sizey = ("sizey", "sizey_argmax", "sizey_temporal", "sizey_risk",
+             "sizey_risk_temporal")
+    for name in ALL_BASELINES + sizey:
         m = make_method(name, device="cpu")
         assert m.name == name
     assert make_method("sizey_temporal", device="cpu",
                        k_segments=3).predictor.k == 3
+    assert make_method("sizey_risk_temporal", device="cpu",
+                       k_segments=3).predictor.k == 3
     assert make_method("witt_lr", failure_strategy="checkpoint"
                        ).failure_strategy == "checkpoint"
-    for name in ("sizey_risk", "sizey_risk_temporal"):
-        with pytest.raises(NotImplementedError, match="risk slice"):
-            make_method(name, device="cpu")
+    assert make_method("sizey_risk", device="cpu", failure_strategy="auto"
+                       ).failure_strategy == "auto"
+    with pytest.raises(ValueError):
+        make_method("sizey", device="cpu", failure_strategy="auto")
     with pytest.raises(ValueError):
         make_method("nope")
     with pytest.raises(ValueError):
@@ -98,7 +103,7 @@ def test_make_method_names_and_devices(monkeypatch):
     # the methods that use the card raise without one unless asked for the
     # CPU; the numpy baselines take no device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for name in ("sizey", "sizey_argmax", "sizey_temporal", "ks_plus"):
+    for name in sizey + ("ks_plus",):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_method(name)
     for name in ("witt_wastage", "witt_lr", "witt_percentile", "tovar_ppm",

@@ -474,6 +474,7 @@ def test_chip_smoke_cluster_phase_runs_on_the_cpu(monkeypatch):
     from repro_torch.kernels import KERNEL_LAUNCHES
 
     monkeypatch.setattr(m, "DEV", "cpu")
+    monkeypatch.setattr(m, "CLUSTER_A_SCALE", 0.05)
     monkeypatch.setattr(m, "CLUSTER_SCALE", 0.05)
     monkeypatch.setattr(m, "DUR_SCALE", 0.05)
     monkeypatch.setattr(m, "CLUSTER_ARRIVALS", 5.0)

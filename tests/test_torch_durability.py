@@ -11,15 +11,13 @@
     within the allocation tolerance.
 
 The kill/resume helpers are those of ``tests/chaos.py``, on the port's
-journal: a journal is append-only, so a kill leaves a byte prefix of the
-completed run's file, and truncating that file at a byte offset is the
-crash.
+journal (``tests/torch_chaos.py``): a journal is append-only, so a kill
+leaves a byte prefix of the completed run's file, and truncating that file
+at a byte offset is the crash.
 """
-import dataclasses
 import json
 import os
 
-import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -37,6 +35,8 @@ from repro_torch.workflow.cluster import (_RESIZE, ClusterEngine,  # noqa: E402
 from repro_torch.workflow.journal import Journal, recover_run  # noqa: E402
 from repro_torch.workflow.trace import (TaskInstance,  # noqa: E402
                                        WorkflowTrace)
+from torch_chaos import (assert_results_equal, kill_and_resume,  # noqa: E402
+                         kill_at, kill_points, rows_match, run_journaled)
 
 CAP = 64.0
 SCALE = 0.04
@@ -47,78 +47,6 @@ SCALE = 0.04
 # differ by at most 6.8e-7 (peak) and 1.020e-1 (temporal, a model
 # prediction in that pool)
 ROW_RTOL = {"peak": 1e-2, "temporal": 3.3e-1}
-
-# ------------------------------------------------------------ the harness
-# metric fields a warm resume may change: recovery bookkeeping only
-RECOVERY_FIELDS = ("n_recoveries", "n_replayed_steps")
-OUTCOME_FIELDS = ("first_alloc_gb", "final_alloc_gb", "attempts",
-                  "failures", "wastage_gbh", "runtime_h", "aborted",
-                  "interruptions", "tw_gbh", "grow_failures", "oom_gbh",
-                  "interruption_gbh", "submit_h", "start_h", "finish_h")
-
-
-def assert_results_equal(expected, got, *, allow=RECOVERY_FIELDS):
-    """Bitwise SimResult equivalence: outcome by outcome in completion
-    order, and every cluster metric but the ``allow``-listed ones."""
-    assert (got.workflow, got.method) == (expected.workflow, expected.method)
-    assert len(got.outcomes) == len(expected.outcomes)
-    for a, b in zip(expected.outcomes, got.outcomes):
-        assert a.task.key == b.task.key, (a.task.key, b.task.key)
-        for f in OUTCOME_FIELDS:
-            assert getattr(a, f) == getattr(b, f), (a.task.key, f)
-    ca = dataclasses.asdict(expected.cluster)
-    cb = dataclasses.asdict(got.cluster)
-    for k, va in ca.items():
-        if k not in allow:
-            assert cb[k] == va, f"cluster metric {k}: {cb[k]!r} != {va!r}"
-
-
-def run_journaled(trace, method_factory, path, *, snapshot_every=16,
-                  **engine_kwargs):
-    """One complete journaled run; the file at ``path`` then holds every
-    byte a crash could have truncated to."""
-    method = method_factory(path)
-    journal = Journal.attach(method, snapshot_every=snapshot_every)
-    return ClusterEngine(trace, method, journal=journal,
-                         **engine_kwargs).run()
-
-
-def kill_points(path, n, seed=0):
-    """``n`` seeded byte offsets: a third clean line ends, the rest
-    mid-line bytes, always with an early and a nearly-done cut."""
-    size = os.path.getsize(path)
-    with open(path, "rb") as f:
-        data = f.read()
-    bounds = [i + 1 for i, b in enumerate(data) if b == 0x0A]
-    rng = np.random.default_rng([seed, size])
-    pts = set()
-    lo = max(1, len(bounds) // 10)
-    for i in rng.choice(len(bounds), size=min(max(1, n // 3), len(bounds)),
-                        replace=False):
-        pts.add(bounds[int(i)])
-    while len(pts) < n:
-        pts.add(int(rng.integers(bounds[lo], size)))
-    pts.add(bounds[lo])
-    pts.add(bounds[-2] if len(bounds) > 1 else bounds[-1])
-    return sorted(pts)[:max(n, 2)]
-
-
-def kill_at(path, cut, out_path):
-    """The first ``cut`` bytes of ``path``: what a kill at that write
-    leaves on disk."""
-    with open(path, "rb") as f:
-        data = f.read(cut)
-    with open(out_path, "wb") as f:
-        f.write(data)
-    return out_path
-
-
-def kill_and_resume(path, cut, trace, method_factory, *, scratch,
-                    resume="warm", snapshot_every=16):
-    kill_at(path, cut, scratch)
-    eng = recover_run(scratch, trace, method_factory, resume=resume,
-                      snapshot_every=snapshot_every)
-    return eng.run(), eng
 
 
 # ------------------------------------------------------------ the runs
@@ -326,7 +254,8 @@ def test_resumed_plan_schedules_only_remaining_boundaries():
 
 def test_method_state_and_pending_round_trip_through_json():
     """The hooks' blobs survive JSON bitwise, arrays as float32, on both
-    paths, and ``note_pressure`` rides the method state."""
+    paths, ``note_pressure`` rides the method state, and ``note_clock``
+    leaves it alone."""
     trace = generate_workflow("methylseq", scale=0.05)
     for temporal in (None, 4):
         m = SizeyMethod(temporal_k=temporal, device="cpu")
@@ -345,8 +274,10 @@ def test_method_state_and_pending_round_trip_through_json():
             assert m2._pending[id(t)] == m._pending[id(t)]
             assert m2.export_pending(t) == m.export_pending(t)
         assert m.export_pending(trace.tasks[5]) is None
-    for hook in ("note_clock", "strategy_for", "checkpoint_frac_for"):
-        assert not hasattr(m, hook)
+        # the engine's clock stamps telemetry rows only: no journaled
+        # state moves with it
+        m.note_clock(2.5)
+        assert m.export_state() == m2.export_state()
 
 
 # ----------------------------------------------- atomic provenance writes
@@ -448,24 +379,6 @@ def test_numpy_baseline_journal_is_the_references_byte_for_byte(tmp_path):
     assert '"rec": "step"' in out["port"][1] and '"snap"' in out["port"][1]
 
 
-def _rows_match(a, b, where, rtol):
-    """Kinds, keys, strings, integers and the nesting equal; floats within
-    ``rtol``."""
-    if isinstance(a, dict):
-        assert isinstance(b, dict) and sorted(a) == sorted(b), where
-        for k in a:
-            _rows_match(a[k], b[k], f"{where}.{k}", rtol)
-    elif isinstance(a, list):
-        assert isinstance(b, list) and len(a) == len(b), where
-        for i, (x, y) in enumerate(zip(a, b)):
-            _rows_match(x, y, f"{where}[{i}]", rtol)
-    elif isinstance(a, float) and not isinstance(a, bool):
-        assert isinstance(b, float), where
-        assert b == pytest.approx(a, rel=rtol, abs=1e-9), where
-    else:
-        assert type(a) is type(b) and a == b, where
-
-
 @pytest.mark.parametrize("temporal", [None, 4], ids=["peak", "temporal"])
 def test_sizey_journal_rows_match_the_reference(tmp_path, temporal):
     pytest.importorskip("jax")
@@ -484,7 +397,7 @@ def test_sizey_journal_rows_match_the_reference(tmp_path, temporal):
     assert [r.get("kind") for r in rows["port"]] == kinds
     assert {"wal", "snap", None, "log"} <= set(kinds)   # None: a task row
     for i, (a, b) in enumerate(zip(rows["ref"], rows["port"])):
-        _rows_match(a, b, f"row {i} ({a.get('kind')})",
+        rows_match(a, b, f"row {i} ({a.get('kind')})",
                     ROW_RTOL["temporal" if temporal else "peak"])
     steps = [r for r in rows["port"] if r.get("rec") == "step"]
     assert [r["step"] for r in steps] == list(range(len(steps)))

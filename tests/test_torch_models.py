@@ -125,7 +125,7 @@ def test_forest_two_features_picks_the_same_splits():
 def test_update_from_a_carried_across_state(model):
     xs, ys, mask = _buffers(FUNCS["quadratic"], n=40, seed=9)
     js = _jax_fit(model, xs, ys, mask, SEED)
-    ts = convert.state_to_torch(model, js)
+    ts = convert.state_to_torch(model, js, "cpu")
     # one more observation arrives in slot 40
     xs[40, 0], ys[40], mask[40] = 3.3, FUNCS["quadratic"](3.3), 1.0
     j_up = jax.device_get(_jit("update", model)(js, xs, ys, mask, 40, 5))
@@ -141,7 +141,7 @@ def test_update_from_a_carried_across_state(model):
 def test_predict_from_a_carried_across_state(model):
     xs, ys, mask = _buffers(FUNCS["step"], n=70, seed=2)
     js = _jax_fit(model, xs, ys, mask, 11)
-    ts = convert.state_to_torch(model, js)
+    ts = convert.state_to_torch(model, js, "cpu")
     xq = np.random.default_rng(1).uniform(0, 9, (64, 1)).astype(np.float32)
     # the same state: only the forward's arithmetic may differ (the MLP's
     # 32-term sum and tanh; the ridge's 2-term dot)

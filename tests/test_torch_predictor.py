@@ -203,7 +203,7 @@ def test_state_carried_across_decides_like_the_reference():
         if key not in jp.states:
             continue
         tp.states[key] = tuple(
-            convert.state_to_torch(m, jax.device_get(s))
+            convert.state_to_torch(m, jax.device_get(s), "cpu")
             for m, s in zip(tp.models, jp.states[key]))
         tp._cache[key] = tuple(torch.tensor(np.asarray(c))
                                for c in jp._cache[key])

@@ -123,7 +123,10 @@ def test_the_port_imports_neither_jax_nor_the_reference():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
         " 'repro_torch.')]\n"
         "assert {'repro_torch.workflow.cluster',\n"
-        "        'repro_torch.workflow.journal'} <= set(mods)\n"
+        "        'repro_torch.workflow.journal', 'repro_torch.core.risk',\n"
+        "        'repro_torch.core.risk.bands', 'repro_torch.obs.quality',\n"
+        "        'repro_torch.obs.risk', 'repro_torch.data.ingest',\n"
+        "        'repro_torch.serving.scheduler_service'} <= set(mods)\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
@@ -133,33 +136,55 @@ def test_the_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 27
+    assert int(out.stdout.strip()) >= 35
 
 
 def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch import convert
+    from repro_torch.baselines import make_method
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lin = (np.eye(2, dtype=np.float32), np.ones((2,), np.float32),
+           np.zeros((2,), np.float32))
+    params = {"blk": {"w": np.ones((2, 3), np.float32)}}
     for make in (ProvenanceDB, SizeyPredictor, SizeyMethod,
-                 lambda: SizeyMethod(device="cuda")):
+                 lambda: SizeyMethod(device="cuda"),
+                 lambda: SizeyMethod(risk=True, quality=True),
+                 lambda: make_method("sizey_risk"),
+                 lambda: make_method("sizey_risk_temporal"),
+                 lambda: convert.state_to_torch("linear", lin),
+                 lambda: convert.lm_params_to_torch(params)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert SizeyMethod(device="cpu").predictor.device.type == "cpu"
     assert ProvenanceDB(device="cpu").device.type == "cpu"
+    assert make_method("sizey_risk_temporal",
+                       device="cpu").predictor.device.type == "cpu"
+    assert all(t.device.type == "cpu"
+               for t in convert.state_to_torch("linear", lin, "cpu"))
+    assert convert.lm_params_to_torch(
+        params, "cpu")["blk"]["w"].device.type == "cpu"
 
 
 def test_options_of_later_slices_say_so():
-    for kw in ({"risk": True}, {"failure_strategy": "auto"},
+    # the risk slice's options construct, and with them come the engine's
+    # hooks of that slice; the legacy per-model loop still names its slice
+    with pytest.raises(NotImplementedError, match="slice"):
+        SizeyPredictor(fused=False, device="cpu")
+    for kw in ({"risk": True}, {"risk": True, "failure_strategy": "auto"},
                {"quality": True}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            SizeyMethod(device="cpu", **kw)
-    # the journal's hooks came with the cluster engine, for either path;
-    # the risk slice's engine hooks are absent, so the engine skips them
+        m = SizeyMethod(device="cpu", **kw)
+        assert m.quality == kw.get("quality", False)
+        assert (m.risk is not None) == bool(kw.get("risk"))
+    with pytest.raises(ValueError, match="requires risk"):
+        SizeyMethod(device="cpu", failure_strategy="auto")
+    # the journal's hooks came with the cluster engine, for either path
     for m in (SizeyMethod(device="cpu"),
               SizeyMethod(device="cpu", temporal_k=4)):
         task = generate_workflow("methylseq", scale=0.05).tasks[0]
         assert m.export_pending(task) is None
         assert m.export_state()["pressure"] == 0.0
         for hook in ("note_clock", "strategy_for", "checkpoint_frac_for"):
-            assert not hasattr(m, hook)
+            assert callable(getattr(m, hook))
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

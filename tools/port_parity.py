@@ -2,8 +2,9 @@
 reference, method by method, on every workflow.
 
 Replays the six workflows at one scale through the methods of
-``benchmarks/run.py`` (``METHODS``) plus ``sizey_temporal`` and
-``ks_plus``, once through the reference (``repro``) and once through the
+``benchmarks/run.py`` (``METHODS``) plus ``sizey_temporal``, ``ks_plus``
+and the risk-priced ``sizey_risk`` and ``sizey_risk_temporal``, once
+through the reference (``repro``) and once through the
 port (``repro_torch``) on the CPU, and prints per (workflow, method) both
 packages' wastage (``wastage_gbh``; ``temporal_wastage_gbh`` too where
 they differ) and failures, and the deltas. The numpy baselines and KS+
@@ -17,12 +18,14 @@ see tools/port_tolerance.py).
 methods must also agree in every ``cluster`` metric. ``--ttf`` sets the
 time-to-failure fraction of both packages' methods and engines, and
 ``--device`` the device of the port's methods that use one (the
-reference runs on the CPU).
+reference runs on the CPU). ``--failure-strategy`` sets every method's
+crash handling; ``auto`` (picked per task from the risk signals) applies
+to the risk methods only, the others keep their default.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/port_parity.py \
         [--scale 0.05] [--workflows methylseq,...] [--ttf 1.0] \
         [--cluster 8 [--policy backfill] [--arrival-rate 30]] \
-        [--device cpu]
+        [--failure-strategy auto] [--device cpu]
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 # the bitwise boundary fit
 EXACT = ("witt_wastage", "witt_lr", "tovar_ppm", "witt_percentile",
          "workflow_presets", "ks_plus")
-ON_DEVICE = ("sizey", "sizey_temporal", "ks_plus")
+RISK = ("sizey_risk", "sizey_risk_temporal")
+ON_DEVICE = ("sizey", "sizey_temporal", "ks_plus") + RISK
 
 
 def main() -> int:
@@ -54,6 +58,9 @@ def main() -> int:
                     help="the cluster engine's placement policy")
     ap.add_argument("--arrival-rate", type=float, default=None,
                     help="Poisson root arrivals a hour (cluster only)")
+    ap.add_argument("--failure-strategy", default=None,
+                    help="every method's crash handling (auto: the risk "
+                         "methods only)")
     ap.add_argument("--device", default="cpu",
                     help="device of the port's methods that use one")
     args = ap.parse_args()
@@ -71,7 +78,7 @@ def main() -> int:
     torch.set_num_threads(1)   # thousands of tiny ops: one thread wins
     workflows = (args.workflows.split(",") if args.workflows
                  else sorted(WORKFLOWS))
-    methods = tuple(METHODS) + ("sizey_temporal", "ks_plus")
+    methods = tuple(METHODS) + ("sizey_temporal", "ks_plus") + RISK
     gen_kw = ({"arrival_rate_per_h": args.arrival_rate} if args.cluster
               else {})
 
@@ -87,19 +94,22 @@ def main() -> int:
     where = ("serial" if not args.cluster else
              f"cluster of {args.cluster} nodes, {args.policy}, arrivals "
              f"{args.arrival_rate}/h")
-    print(f"scale {args.scale}, ttf {args.ttf}, {where}, port on "
-          f"{args.device}")
-    print(f"{'workflow':<10} {'method':<17} {'ref GBh':>14} {'port GBh':>14} "
+    print(f"scale {args.scale}, ttf {args.ttf}, {where}, failure strategy "
+          f"{args.failure_strategy or 'default'}, port on {args.device}")
+    print(f"{'workflow':<10} {'method':<20} {'ref GBh':>14} {'port GBh':>14} "
           f"{'rel delta':>10} {'ref tw GBh':>14} {'port tw GBh':>14} "
           f"{'tw delta':>10} {'fail ref/port':>14}")
     bad = []
     for wf in workflows:
         for name in methods:
+            fs = args.failure_strategy
+            strat = ({} if fs is None or (fs == "auto" and name not in RISK)
+                     else {"failure_strategy": fs})
             rj = run(j_generate, j_simulate, j_simulate_cluster,
-                     j_make(name, ttf=args.ttf), wf)
+                     j_make(name, ttf=args.ttf, **strat), wf)
             kw = {"device": args.device} if name in ON_DEVICE else {}
             rt = run(generate_workflow, simulate, simulate_cluster,
-                     make_method(name, ttf=args.ttf, **kw), wf)
+                     make_method(name, ttf=args.ttf, **strat, **kw), wf)
             dw = (rt.wastage_gbh - rj.wastage_gbh) / rj.wastage_gbh
             dtw = (rt.temporal_wastage_gbh - rj.temporal_wastage_gbh) \
                 / rj.temporal_wastage_gbh
@@ -112,7 +122,7 @@ def main() -> int:
                          == dataclasses.asdict(rj.cluster)))
             if name in EXACT and not same:
                 bad.append((wf, name))
-            print(f"{wf:<10} {name:<17} {rj.wastage_gbh:14.6f} "
+            print(f"{wf:<10} {name:<20} {rj.wastage_gbh:14.6f} "
                   f"{rt.wastage_gbh:14.6f} {dw:10.3e} "
                   f"{rj.temporal_wastage_gbh:14.6f} "
                   f"{rt.temporal_wastage_gbh:14.6f} {dtw:10.3e} "

@@ -1,7 +1,8 @@
 """Where the port's Sizey replay spends its time on the GPU.
 
     python3 tools/port_profile.py [--scale 0.1] [--window 40:45] \
-        [--method sizey|sizey_temporal] \
+        [--method sizey|sizey_temporal|sizey_risk|sizey_risk_temporal] \
+        [--failure-strategy auto] \
         [--cluster 8 [--arrival-rate 30] [--fail-rate 0.01 --fail-seed 7]]
 
 Replays ``methylseq`` through ``make_method(method, device="cuda")``,
@@ -41,7 +42,11 @@ def main() -> None:
     ap.add_argument("--window", default="40:45",
                     help="completed-task range traced by the profiler")
     ap.add_argument("--method", default="sizey",
-                    choices=("sizey", "sizey_temporal"))
+                    choices=("sizey", "sizey_temporal", "sizey_risk",
+                             "sizey_risk_temporal"))
+    ap.add_argument("--failure-strategy", default=None,
+                    help="the method's crash handling (auto: picked per "
+                         "task from the risk signals, risk methods only)")
     ap.add_argument("--cluster", type=int, default=0, metavar="N",
                     help="replay on the cluster engine with N nodes")
     ap.add_argument("--arrival-rate", type=float, default=None,
@@ -70,7 +75,9 @@ def main() -> None:
                                                   if args.cluster else None))
 
     def replay(traced: bool):
-        method = make_method(args.method, device="cuda")
+        method = make_method(args.method, device="cuda", **(
+            {} if args.failure_strategy is None
+            else {"failure_strategy": args.failure_strategy}))
         walls = {"predict": 0.0, "observe": 0.0}
         state = {"done": 0, "prof": None, "t0": 0.0, "wall": 0.0,
                  "lo": None, "hi": None}

@@ -26,6 +26,11 @@ on its own and that of every other pool beside it, so that one pool
 whose learning-rate choice flips on rounding noise sets a tolerance for
 itself alone.
 
+``--method sizey_risk`` and ``--method sizey_risk_temporal`` replay the
+risk-priced paths (with ``--failure-strategy auto``, the per-task crash
+handling the risk signals pick); each replay then also prints its risk
+rows (count, tau range, collapsed plans) and the strategies it chose.
+
 ``--cluster N`` replays on the event-driven cluster engine instead of the
 serial simulator (``simulate_cluster`` on N homogeneous nodes at the
 trace's machine cap, ``--policy``, with root arrivals at
@@ -36,6 +41,8 @@ printed too.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/port_tolerance.py \
         [--workflow methylseq] [--scale 0.05] [--method sizey] \
+        [--failure-strategy auto] [--risk-min-samples 2 --risk-window 64] \
+        [--seed 0] [--machine-cap 64] \
         [--cluster 8 [--policy backfill] [--arrival-rate 30] \
         [--fail-rate 0.01 --fail-seed 7]] [--samples 4] \
         [--apart POOL] [--port]
@@ -43,7 +50,7 @@ printed too.
 The figures it printed on a CPU are quoted beside the assertions of
 tests/test_torch_slice.py, tests/test_torch_temporal.py and
 tests/test_torch_cluster.py (scale 0.05) and chip_smoke.py (scales 0.05
-and 1.0, serial and on the cluster engine).
+and 1.0, serial and on the cluster engine, with and without risk).
 """
 from __future__ import annotations
 
@@ -54,13 +61,27 @@ import numpy as np
 
 
 def replay(workflow: str, scale: float, method_name: str = "sizey",
-           port: bool = False, engine: dict | None = None):
+           port: bool = False, engine: dict | None = None,
+           failure_strategy: str | None = None,
+           trace_kw: dict | None = None, risk_kw: dict | None = None):
     """One replay: its result, its decisions (one per segment on the
     temporal path, as ``(task_type, source, allocation_gb, offset_idx,
     best model)`` tuples), each decision's boundaries and the predict
     dispatches it ran. ``engine`` holds the cluster engine's options
     (``n_nodes``, ``policy``, ``arrival_rate_per_h``,
-    ``fail_rate_per_node_h``, ``fail_seed``); None replays serially."""
+    ``fail_rate_per_node_h``, ``fail_seed``); None replays serially.
+    ``trace_kw`` goes to ``generate_workflow`` (``seed``,
+    ``machine_cap_gb``), ``risk_kw`` to a risk method's ``RiskConfig``.
+    A risk-priced method's risk rows and chosen
+    strategies are printed, and its risk rows ride the result
+    (``res.risk_rows``)."""
+    strat = ({} if failure_strategy is None
+             else {"failure_strategy": failure_strategy})
+    pkg = "repro_torch" if port else "repro"
+    if risk_kw:
+        import importlib
+        strat["risk"] = importlib.import_module(
+            f"{pkg}.core.risk").RiskConfig(**risk_kw)
     if port:
         import torch
 
@@ -69,13 +90,14 @@ def replay(workflow: str, scale: float, method_name: str = "sizey",
         from repro_torch.workflow import (generate_workflow, simulate,
                                           simulate_cluster)
         torch.set_num_threads(1)   # thousands of tiny ops: one thread wins
-        method = make_method(method_name, device="cpu")
+        method = make_method(method_name, device="cpu", **strat)
     else:
         from repro.baselines import make_method
         from repro.core.predictor import DISPATCH_COUNTS
         from repro.workflow import (generate_workflow, simulate,
                                     simulate_cluster)
-        method = make_method(method_name)
+        method = make_method(method_name, **strat)
+    strategies = _count_strategies(method)
     decisions, bounds = [], []
 
     def keep(d, b):
@@ -84,7 +106,7 @@ def replay(workflow: str, scale: float, method_name: str = "sizey",
                           else int(np.argmax(np.asarray(d.raq)))))
         bounds.append(tuple(b))
 
-    if method_name == "sizey_temporal" or engine is not None:
+    if method.temporal or engine is not None:
         predict_batch = method.predictor.predict_batch
 
         def recording(tasks):
@@ -106,15 +128,52 @@ def replay(workflow: str, scale: float, method_name: str = "sizey",
         method.predictor.predict = recording
     before = DISPATCH_COUNTS["predict_pool"]
     if engine is None:
-        res = simulate(generate_workflow(workflow, scale=scale), method)
+        res = simulate(generate_workflow(workflow, scale=scale,
+                                         **(trace_kw or {})), method)
     else:
         kw = dict(engine)
         trace = generate_workflow(
             workflow, scale=scale,
-            arrival_rate_per_h=kw.pop("arrival_rate_per_h", None))
+            arrival_rate_per_h=kw.pop("arrival_rate_per_h", None),
+            **(trace_kw or {}))
         res = simulate_cluster(trace, method,
                                node_cap_gb=trace.machine_cap_gb, **kw)
+    res.risk_rows = method.predictor.db.aux.get("risk", [])
+    if method.risk is not None:
+        print(f"  {'port' if port else 'reference'} {method_name}: "
+              f"{risk_summary(method)}; strategies {dict(strategies)}",
+              flush=True)
     return res, decisions, bounds, DISPATCH_COUNTS["predict_pool"] - before
+
+
+def _count_strategies(method):
+    """Count the crash handling ``strategy_for`` picks (an empty count
+    unless the method picks per task)."""
+    from collections import Counter
+    counts = Counter()
+    if getattr(method, "failure_strategy", None) == "auto":
+        pick = method.strategy_for
+
+        def counting(task):
+            s = pick(task)
+            counts[s] += 1
+            return s
+
+        method.strategy_for = counting
+    return counts
+
+
+def risk_summary(method) -> str:
+    """A risk-priced method's rows: count, tau range, collapsed plans (the
+    package's own ``obs.risk.summarize_risk``)."""
+    import importlib
+    pkg = type(method).__module__.split(".")[0]
+    d = importlib.import_module(f"{pkg}.obs.risk").summarize_risk(
+        method.predictor.db.aux.get("risk", []))
+    if not d["n"]:
+        return "0 risk rows"
+    return (f"{d['n']} risk rows, tau {d['tau_min']!r}..{d['tau_max']!r}, "
+            f"{d['n_collapsed']} collapsed")
 
 
 def moved_init(init, sample: int, key, d, h):
@@ -149,7 +208,11 @@ def move_label(sample: int) -> str:
 
 
 def reference_fit_departures(workflow: str, scale: float,
-                             engine: dict | None = None):
+                             engine: dict | None = None,
+                             method_name: str = "sizey_temporal",
+                             failure_strategy: str | None = None,
+                             trace_kw: dict | None = None,
+                             risk_kw: dict | None = None):
     """Replay the reference's temporal path recording every boundary fit;
     return the number of fits and of those where its jitted fit departs
     from its numpy oracle."""
@@ -165,7 +228,9 @@ def reference_fit_departures(workflow: str, scale: float,
 
     tp.fit_boundaries = recording
     try:
-        replay(workflow, scale, "sizey_temporal", engine=engine)
+        replay(workflow, scale, method_name, engine=engine,
+               failure_strategy=failure_strategy, trace_kw=trace_kw,
+               risk_kw=risk_kw)
     finally:
         tp.fit_boundaries = fit
     departs = sum(not np.array_equal(fit_cuts(P, k), fit_cuts_ref(P, k))
@@ -173,7 +238,8 @@ def reference_fit_departures(workflow: str, scale: float,
     return len(fits), departs
 
 
-def _moved_replay(sample, workflow, scale, method_name, engine):
+def _moved_replay(sample, workflow, scale, method_name, engine,
+                  failure_strategy=None, trace_kw=None, risk_kw=None):
     """One replay of the reference with the MLP init moved (``sample``)."""
     import repro.core.models.mlp as mlp
     import repro.core.predictor as predictor
@@ -184,7 +250,9 @@ def _moved_replay(sample, workflow, scale, method_name, engine):
         fn.cache_clear()
     try:
         res, d1, b1, _n = replay(workflow, scale, method_name,
-                                 engine=engine)
+                                 engine=engine,
+                                 failure_strategy=failure_strategy,
+                                 trace_kw=trace_kw, risk_kw=risk_kw)
     finally:
         mlp._init_params = init
     return _summary(res), d1, b1
@@ -194,15 +262,28 @@ def _summary(res):
     """What the comparison reads of a SimResult."""
     return {"wastage_gbh": res.wastage_gbh,
             "temporal_wastage_gbh": res.temporal_wastage_gbh,
-            "n_failures": res.n_failures}
+            "n_failures": res.n_failures, "risk_rows": res.risk_rows}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workflow", default="methylseq")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the workflow generator's seed")
+    ap.add_argument("--machine-cap", type=float, default=None,
+                    help="the workflow's machine cap in GB (default: the "
+                         "generator's)")
     ap.add_argument("--scale", type=float, default=0.05)
     ap.add_argument("--method", default="sizey",
-                    choices=("sizey", "sizey_temporal"))
+                    choices=("sizey", "sizey_temporal", "sizey_risk",
+                             "sizey_risk_temporal"))
+    ap.add_argument("--risk-min-samples", type=int, default=None,
+                    help="a risk method's RiskConfig.min_samples")
+    ap.add_argument("--risk-window", type=int, default=None,
+                    help="a risk method's RiskConfig.window")
+    ap.add_argument("--failure-strategy", default=None,
+                    help="the method's crash handling (auto: picked per "
+                         "task from the risk signals, risk methods only)")
     ap.add_argument("--samples", type=int, default=4,
                     help="number of 1-ulp moves of the MLP init (the first "
                          "four move all of W1 or W2 up or down; the rest "
@@ -232,8 +313,16 @@ def main() -> None:
                   "fail_rate_per_node_h": args.fail_rate,
                   "fail_seed": args.fail_seed}
 
+    fs = args.failure_strategy
+    tkw = {"seed": args.seed}
+    if args.machine_cap is not None:
+        tkw["machine_cap_gb"] = args.machine_cap
+    rkw = {k: v for k, v in (("min_samples", args.risk_min_samples),
+                             ("window", args.risk_window)) if v is not None}
+    temporal = args.method in ("sizey_temporal", "sizey_risk_temporal")
     base, d0, b0, n_predict = replay(args.workflow, args.scale, args.method,
-                                     engine=engine)
+                                     engine=engine, failure_strategy=fs,
+                                     trace_kw=tkw, risk_kw=rkw)
     where = "serial" if engine is None else (
         f"cluster {engine}, waves={base.cluster.n_waves}, "
         f"makespan_h={base.cluster.makespan_h!r}")
@@ -244,20 +333,20 @@ def main() -> None:
           f"n_failures={base.n_failures}, predict dispatches {n_predict}, "
           f"model decisions "
           f"{sum(d[1] == 'model' for d in d0)} of {len(d0)}", flush=True)
-    if args.method == "sizey_temporal":
+    if temporal:
         n, departs = reference_fit_departures(args.workflow, args.scale,
-                                              engine)
+                                              engine, args.method, fs, tkw,
+                                              rkw)
         print(f"reference boundary fits: {n}; its jitted fit departs from "
               f"its numpy oracle on {departs}", flush=True)
     base = _summary(base)
     worst_alloc = worst_apart = worst_waste = 0.0
     # the temporal path is judged on the time-integrated wastage
-    metric = ("temporal_wastage_gbh" if args.method == "sizey_temporal"
-              else "wastage_gbh")
+    metric = "temporal_wastage_gbh" if temporal else "wastage_gbh"
     wastes, fails, moved = [base[metric]], [base["n_failures"]], []
     for sample in range(args.samples):
         res, d1, b1 = _moved_replay(sample, args.workflow, args.scale,
-                                    args.method, engine)
+                                    args.method, engine, fs, tkw, rkw)
         alloc, apart, waste, ints = compare(move_label(sample), base, d0,
                                             b0, res, d1, b1, metric,
                                             args.apart)
@@ -278,7 +367,9 @@ def main() -> None:
               f"{min(moved)}..{max(moved)}")
     if args.port:
         res, d1, b1, _n = replay(args.workflow, args.scale, args.method,
-                                 port=True, engine=engine)
+                                 port=True, engine=engine,
+                                 failure_strategy=fs, trace_kw=tkw,
+                                 risk_kw=rkw)
         compare("port on the CPU", base, d0, b0, _summary(res), d1, b1,
                 metric, args.apart)
 
@@ -304,10 +395,15 @@ def compare(label: str, base, d0, b0, res, d1, b1, metric: str,
     moved = sum(x != y for x, y in zip(b0, b1))
     pool = "" if apart is None else \
         f" outside {apart} ({apart}: {alloc_apart:.3e})"
+    ra, rb = base["risk_rows"], res["risk_rows"]
+    rows = max((abs(a["alloc_gb"] - b["alloc_gb"]) / a["alloc_gb"]
+                for a, b in zip(ra, rb)), default=0.0)
+    risk = "" if not ra else (f", risk rows {len(ra)} -> {len(rb)}, their "
+                              f"alloc_gb rel {rows:.3e}")
     print(f"{label}: max alloc rel {alloc:.3e}{pool}, wastage rel "
           f"{waste:.3e} ({metric} {res[metric]!r}), integer "
           f"choices moved {ints}, boundaries moved {moved}, failures "
-          f"{base['n_failures']} -> {res['n_failures']}", flush=True)
+          f"{base['n_failures']} -> {res['n_failures']}{risk}", flush=True)
     return alloc, alloc_apart, waste, ints
 
 
