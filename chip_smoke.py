@@ -2688,6 +2688,664 @@ def lm_phases() -> dict:
             for name, line in src.items()]
 
 
+# ----------------------------------------------------------- phase 15
+# Training on the card (after 14 and the LM phases): K4's backward against
+# the plain backward; the OOM ladder and a killed run's restart at
+# e2e-100m; granite-3-2b at full width and depth through launch.train
+# --sizey, sized by the models that (c)'s jobs trained; card vs CPU at the
+# reduced configs; phi3.5-moe and internvl2-26b at full width cut in depth.
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_FULL_STEPS = 6
+TRAIN_FULL_ARGV = ["--arch", TRAIN_ARCH, "--scale", "full", "--steps",
+                   str(TRAIN_FULL_STEPS), "--batch", "8", "--seq", "256",
+                   "--sizey"]
+# (c): two e2e-100m jobs through launch.train --sizey with a sizer whose
+# preset (0.5 GB) is below their footprint (1.32 GiB): the first is killed
+# by SimulatedOOM and climbs the ladder (max observed, then doubling), the
+# second retries at the first's footprint; both are observed, so the
+# granite-3-2b/train pool has the 2 jobs of history (min_history) that
+# size (b) with the models
+LADDER_PRESET_GB = 0.5
+LADDER_ARGV = ["--arch", TRAIN_ARCH, "--scale", "e2e-100m", "--steps", "2",
+               "--batch", "8", "--seq", "256", "--sizey"]
+RESTART_STEPS, RESTART_EVERY, RESTART_KILL = 6, 3, 4
+# K4's backward at the reference's attention test shapes (K4_SHAPES) and at
+# groups of 6 and 8 query heads a KV head, each fp32 and bf16, causal and
+# not, all keys and kv_len = S - 37; then at every shape (b)-(e) launched.
+# Tolerance: the largest |kernel - plain| over the largest |plain| of each
+# gradient. fp32 2e-5 (summation order: at most ~1e-6 on a CPU rehearsal of
+# the kernels); bf16 3e-2 (the gradients are rounded to bf16, 3.9e-3, and
+# the kernel's forward rounds P at its running maximum and the plain
+# version at the row's: ~7e-3 on the CPU rehearsal)
+K4_BWD_SHAPES = K4_SHAPES + [(1, 256, 12, 2, 64), (1, 256, 8, 1, 128)]
+K4_BWD_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# (d): the reduced configs in fp32, 3 steps on the card and on the CPU from
+# the same parameters: losses and gradient norms within 1e-3 relative
+# (AdamW's first update g / (|g| + eps) turns the 1e-7 differences of tiny
+# gradients into visible ones, 1.3e-2 x lr in a weight between the
+# packages on a CPU, tests/test_torch_train.py), 1e-2 with int8 gradients
+# (an element that rounds to another int8 step flips its update)
+CVC_TRAIN_ARCHS = ("granite-3-2b", "phi3.5-moe-42b-a6.6b")
+CVC_TRAIN_RTOL = {False: 1e-3, True: 1e-2}
+MOE_ARCH, MOE_TRAIN_LAYERS, MOE_SERVE_LAYERS = "phi3.5-moe-42b-a6.6b", 2, 16
+MOE_TRAIN_BATCH, MOE_SERVE_NEW = 2, 16
+MOE_SERVE_LENS = (256, 512)
+VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_TEXT = "internvl2-26b", 2, 2, 256
+TRAIN_KERNELS = ("flash_attention", "flash_attention_lse",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+
+
+def _grad_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def check_k4_backward(shapes, label="bwd") -> float:
+    """K4's backward (through the autograd Function, as training calls it)
+    against the plain backward on the card: fp32 and bf16, causal and not,
+    kv_len = S and S - 37; a repeat on the same inputs bitwise equal; the
+    training forward's output bitwise the serving kernel's; and the
+    serving call (no gradient) launching the original kernel, not the LSE
+    variant. Returns the largest absolute difference."""
+    import torch
+    from repro_torch.kernels import KERNEL_LAUNCHES
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_backward_plain
+    dev = torch.device(DEV)
+    worst = 0.0
+    for i, shape in enumerate(shapes):
+        b, s, h, hkv, d = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = lm_kernel_inputs("flash_attention", shape, dtype,
+                                       100 + i, dev)
+            dout = _gen_inputs(200 + i, dev)(b, s, h, d, dtype=dtype)
+            tol = K4_BWD_TOL[str(dtype)[6:]]
+            for causal in (True, False):
+                for kv_len in sorted({s, max(1, s - 37)}):
+                    before = {n: KERNEL_LAUNCHES[n] for n in TRAIN_KERNELS}
+                    runs = []
+                    for _ in range(2):
+                        leaves = [t.clone().requires_grad_()
+                                  for t in (q, k, v)]
+                        out = flash_attention(*leaves, causal=causal,
+                                              kv_len=kv_len)
+                        runs.append((out.detach(), *torch.autograd.grad(
+                            out, leaves, dout)))
+                    with torch.no_grad():
+                        served = flash_attention(q, k, v, causal=causal,
+                                                 kv_len=kv_len)
+                    want = flash_attention_backward_plain(
+                        q, k, v, dout, causal=causal, kv_len=kv_len)
+                    torch.cuda.synchronize()
+                    moved = {n: KERNEL_LAUNCHES[n] - before[n]
+                             for n in TRAIN_KERNELS}
+                    what = (f"(B,S,H,Hkv,D)={shape} {str(dtype)[6:]} "
+                            f"causal={causal} kv_len={kv_len}")
+                    if moved != {"flash_attention": 1,
+                                 "flash_attention_lse": 2,
+                                 "flash_attention_bwd_dq": 2,
+                                 "flash_attention_bwd_dkdv": 2}:
+                        _fail(f"K4 backward {what}: launches {moved}")
+                    if not all(torch.equal(x, y)
+                               for x, y in zip(runs[0], runs[1])):
+                        _fail(f"K4 backward {what}: a repeat differs")
+                    if not torch.equal(runs[0][0], served):
+                        _fail(f"K4 {what}: the training forward's output "
+                              f"is not the serving kernel's")
+                    errs = [_grad_err(g, w) for g, w in zip(runs[0][1:],
+                                                            want)]
+                    if any(g.dtype != dtype for g in runs[0][1:]):
+                        _fail(f"K4 backward {what}: gradients not in "
+                              f"{dtype}")
+                    worst = max(worst, *(float((g.float() - w.float())
+                                               .abs().max())
+                                         for g, w in zip(runs[0][1:], want)))
+                    ok = max(errs) <= tol
+                    print(f"[{label}] flash_attention_bwd {what}: dq dk dv "
+                          f"{errs[0]:.2e} {errs[1]:.2e} {errs[2]:.2e} of "
+                          f"the largest (tol {tol:g}), repeat bitwise "
+                          f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        _fail(f"K4 backward disagrees with the plain "
+                              f"backward at {what}")
+    return worst
+
+
+class _LaunchWatch:
+    """Counts K1/K2/K4 launches and train steps inside a ``with`` block:
+    zeroes every counter on entry, wraps ``make_train_step`` in the loop
+    so each step is counted and each trainer's first parameters are kept
+    (a few values), and records K4's shapes."""
+
+    def __enter__(self):
+        from repro_torch.kernels import reset_launch_counts
+        from repro_torch.train import loop
+        self.loop, self.real = loop, loop.make_train_step
+        self.steps, self.first = 0, []
+        watch = self
+
+        def counted(*a, **kw):
+            fn = watch.real(*a, **kw)
+            seen = []
+
+            def step(params, opt_state, batch):
+                if not seen:
+                    seen.append(1)
+                    watch.first.append(_param_probe(params).clone())
+                watch.steps += 1
+                return fn(params, opt_state, batch)
+            return step
+        loop.make_train_step = counted
+        self.shapes, _, self.restore = _lm_shape_recorder()
+        reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import KERNEL_LAUNCHES
+        self.loop.make_train_step = self.real
+        self.restore()
+        self.launches = dict(KERNEL_LAUNCHES)
+        return False
+
+
+def _param_probe(params):
+    """A few parameter values from the first layer's query projection,
+    the first expert's gate and the final norm: enough to see them move."""
+    import torch
+    blocks = params["blocks"]
+    parts = [blocks["attn"]["wq"][0, 0, :64].float(),
+             params["ln_f"][:64].float()]
+    if "moe" in blocks:
+        parts.append(blocks["moe"]["we_gate"][0, 0, 0, :64].float())
+    return torch.cat(parts)
+
+
+def _check_train_launches(label, watch, n_layers, remat_factor):
+    """K4's training forward once per attention layer per step
+    (remat_factor times: 2 under remat "block"), each backward kernel
+    once; the serving forward never."""
+    steps = watch.steps
+    got = {n: watch.launches.get(n, 0) for n in TRAIN_KERNELS}
+    want = {"flash_attention": 0,
+            "flash_attention_lse": remat_factor * n_layers * steps,
+            "flash_attention_bwd_dq": n_layers * steps,
+            "flash_attention_bwd_dkdv": n_layers * steps}
+    print(f"[train {label}] {steps} steps x {n_layers} attention layers: "
+          f"launches {got}")
+    if got != want or not steps:
+        _fail(f"train {label}: K4 launches {got}, expected {want}")
+
+
+def _recording_sizer(sizer, calls: list):
+    """Record every sizing call (and its result) on ``sizer``."""
+    size, retry, observe = (sizer.size_job, sizer.retry_allocation,
+                            sizer.observe_job)
+
+    def size_job(arch, cfg, shape, mesh, chips):
+        job = size(arch, cfg, shape, mesh, chips)
+        calls.append(("size", (arch, cfg, shape, mesh, chips),
+                      job.sizing.allocation_gb, job.sizing.source))
+        return job
+
+    def retry_allocation(job, attempt, last):
+        alloc = retry(job, attempt, last)
+        calls.append(("retry", attempt, alloc))
+        return alloc
+
+    def observe_job(job, peak_gb, runtime_h=1.0, attempts=1):
+        calls.append(("observe", peak_gb, attempts))
+        return observe(job, peak_gb, runtime_h, attempts)
+    sizer.size_job, sizer.retry_allocation = size_job, retry_allocation
+    sizer.observe_job = observe_job
+    return sizer
+
+
+def _replay_sizer_on_cpu(calls) -> None:
+    """The card sizer's calls replayed on a CPU sizer, the ladder from the
+    CPU's own allocations: preset and ladder allocations equal, model
+    allocations within ALLOC_RTOL (phase 6's card-vs-CPU tolerance)."""
+    from repro_torch.launch.sizing import SizeyJobSizer
+    cpu = SizeyJobSizer(hbm_cap_gb=1024.0, preset_gb=LADDER_PRESET_GB,
+                        device="cpu")
+    job = last = None
+    worst = 0.0
+    for call in calls:
+        if call[0] == "size":
+            job = cpu.size_job(*call[1])
+            last, want, source = job.sizing.allocation_gb, call[2], call[3]
+            if job.sizing.source != source:
+                _fail(f"sizer on the CPU: source {job.sizing.source}, card "
+                      f"{source}")
+        elif call[0] == "retry":
+            last, want = cpu.retry_allocation(job, call[1], last), call[2]
+        else:
+            cpu.observe_job(job, call[1], attempts=call[2])
+            continue
+        exact = job.sizing.source != "model"
+        rel = abs(last - want) / max(abs(want), 1e-12)
+        worst = max(worst, rel)
+        if (exact and last != want) or rel > ALLOC_RTOL:
+            _fail(f"sizer {call[0]}: CPU {last!r} GB, card {want!r} GB")
+    print(f"[train c] the sizer's {len(calls)} calls replayed on the CPU: "
+          f"allocations equal (preset and ladder), model allocations "
+          f"{worst:.3e} apart at most (tol {ALLOC_RTOL:g})")
+
+
+def train_ladder_and_restart(sizer, tmp) -> None:
+    """(c) the OOM ladder through launch.train --sizey and a killed run's
+    restart from its checkpoint, at e2e-100m on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    t0 = time.perf_counter()
+    calls = sizer._calls
+    for job in range(2):
+        n0 = len(calls)
+        trainer = launch.main(LADDER_ARGV + ["--device", DEV], sizer=sizer)
+        retries = [c for c in calls[n0:] if c[0] == "retry"]
+        allocs = [c[2] for c in calls[n0:] if c[0] != "observe"]
+        print(f"[train c] ladder job {job}: {len(retries)} OOM kills, "
+              f"allocations {allocs} GB, footprint "
+              f"{trainer.footprint_gb()!r} GB")
+        if not retries:
+            _fail(f"ladder job {job}: the preset did not OOM-kill it")
+        del trainer
+    cfg = launch.scaled_config(get_config(TRAIN_ARCH), LADDER_ARGV[3])
+    kw = dict(steps=RESTART_STEPS, global_batch=8, seq_len=256,
+              ckpt_every=RESTART_EVERY, log_every=0)
+    full = Trainer(cfg, TrainerConfig(**kw), device=DEV).train()
+
+    class Kill(Exception):
+        pass
+
+    def kill(trainer, row):
+        if row["step"] == RESTART_KILL:
+            raise Kill()
+    d = str(tmp / "restart")
+    killed = Trainer(cfg, TrainerConfig(ckpt_dir=d, **kw), hooks=[kill],
+                     device=DEV)
+    try:
+        killed.train()
+        _fail("the kill hook did not stop the run")
+    except Kill:
+        pass
+    if killed._pending_ckpt is not None:
+        killed._pending_ckpt.join()
+    del killed
+    again = Trainer(cfg, TrainerConfig(ckpt_dir=d, **kw), device=DEV)
+    if again.start_step != RESTART_EVERY or ckpt.latest_step(d) != \
+            RESTART_EVERY:
+        _fail(f"restart restored step {again.start_step}, expected "
+              f"{RESTART_EVERY}")
+    rest = again.train()
+    del again
+    pairs = list(zip(rest, full[RESTART_EVERY:]))
+    same = all(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+               for a, b in pairs)
+    spread = max(max(abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                     abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"])
+                 for a, b in pairs)
+    print(f"[train c] killed after step {RESTART_KILL}, restored step "
+          f"{RESTART_EVERY}: steps {[a['step'] for a, _ in pairs]} losses "
+          f"{[a['loss'] for a, _ in pairs]} and grad norms "
+          f"{'bitwise' if same else f'NOT bitwise ({spread:.3e} apart)'} "
+          f"the uninterrupted run's")
+    if not same:
+        _fail("the restart is not bitwise the uninterrupted run")
+    torch.cuda.empty_cache()
+    print(f"[train c] wall {time.perf_counter() - t0:.1f} s")
+
+
+def train_full_width(sizer) -> dict:
+    """(b) granite-3-2b at full width and depth through launch.train
+    --sizey, counters zeroed just before."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    n0 = len(sizer._calls)
+    t0 = time.perf_counter()
+    with _LaunchWatch() as watch:
+        trainer = launch.main(TRAIN_FULL_ARGV, sizer=sizer)
+        torch.cuda.synchronize()
+        moved = float((_param_probe(trainer.params)
+                       - watch.first[-1]).abs().max())
+    wall = time.perf_counter() - t0
+    _check_train_launches("b", watch, cfg.n_attn_layers(),
+                          2 if cfg.remat in ("block", "dots") else 1)
+    sized = [c for c in sizer._calls[n0:] if c[0] == "size"]
+    if sized[0][3] != "model":
+        _fail(f"train b: sized by {sized[0][3]}, not by the models")
+    k12 = (watch.launches.get("ensemble_mlp", 0),
+           watch.launches.get("knn_predict", 0))
+    if not all(k12):
+        _fail(f"train b: the sizer launched K1, K2 {k12} times")
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    if not all(np.isfinite(losses)) or not moved > 0:
+        _fail(f"train b: losses {losses}, parameters moved {moved}")
+    walls = sorted(r["step_s"] for r in hist[1:])
+    step_s = walls[len(walls) // 2]
+    tokens = 8 * 256
+    retries = sum(c[0] == "retry" for c in sizer._calls[n0:])
+    print(f"[train b] {cfg.name}: {cfg.param_count():,} parameters, "
+          f"{len(hist)} steps (+{watch.steps - len(hist)} killed by the "
+          f"ladder, {retries} retries), losses {[round(x, 4) for x in losses]}; "
+          f"step wall median {step_s:.3f} s ({tokens / step_s:.1f} tokens/s), "
+          f"first {hist[0]['step_s']:.3f} s; Sizey allocation "
+          f"{trainer.tc.memory_budget_gb:.2f} GB (first {sized[0][2]:.2f} GB "
+          f"from the models), footprint {trainer.footprint_gb():.2f} GB, card "
+          f"peak {torch.cuda.max_memory_allocated() / 1024**3:.2f} GB; "
+          f"K1 {k12[0]}, K2 {k12[1]} launches; wall {wall:.1f} s")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": watch.launches, "shapes": watch.shapes,
+            "steps": watch.steps, "step_s": step_s}
+
+
+def train_card_vs_cpu() -> None:
+    """(d) the reduced granite-3-2b and phi3.5-moe in fp32, 3 steps on the
+    card and on the CPU from the same parameters, with and without int8
+    gradients; and the int8 gradients of step 0 on both devices from the
+    same gradients, bitwise."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import compression, step as step_mod
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.utils.misc import tree_flatten_with_path, tree_map
+    for arch in CVC_TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        base = build_model(cfg).init(LM_SEED, device="cpu")
+        for compress in (False, True):
+            hist, final = {}, {}
+            for dev in ("cpu", DEV, "again"):
+                on = DEV if dev == "again" else dev
+                params = tree_map(lambda t: t.clone().to(on), base)
+                tc = TrainerConfig(steps=3, global_batch=2, seq_len=64,
+                                   log_every=0, compress_grads=compress)
+                tr = Trainer(cfg, tc, device=on, params=params)
+                hist[dev] = tr.train()
+                final[dev] = tree_flatten_with_path(tr.params)[1]
+            # the card's run repeated: bitwise (the MoE's capacity scatter
+            # and the embedding's backward add in no order that matters)
+            def metrics(rows):
+                return [(r["loss"], r["grad_norm"]) for r in rows]
+            if metrics(hist["again"]) != metrics(hist[DEV]) or not all(
+                    torch.equal(a, b) for a, b in zip(final[DEV],
+                                                      final["again"])):
+                _fail(f"train d: {arch} on the card is not bitwise run to "
+                      f"run (compress={compress})")
+            rel = max(max(abs(a[m] - b[m]) / abs(b[m])
+                          for m in ("loss", "grad_norm"))
+                      for a, b in zip(hist[DEV], hist["cpu"]))
+            tol = CVC_TRAIN_RTOL[compress]
+            print(f"[train d] {arch} reduced, compress={compress}: losses "
+                  f"card {[r['loss'] for r in hist[DEV]]} cpu "
+                  f"{[r['loss'] for r in hist['cpu']]}; losses and grad "
+                  f"norms {rel:.3e} apart (tol {tol:g}); a second card run "
+                  f"bitwise, parameters included")
+            if rel > tol:
+                _fail(f"train d: {arch} card and CPU {rel:.3e} apart")
+        tokens = torch.from_numpy(SyntheticTokenPipeline(
+            cfg.vocab, 64, 2, name=cfg.name).batch_at(0))
+        loss = build_model(cfg).loss
+        _, g_cpu = step_mod._value_and_grad(loss, base, {"tokens": tokens})
+        card = tree_map(lambda t: t.to(DEV), base)
+        _, g_card = step_mod._value_and_grad(loss, card,
+                                             {"tokens": tokens.to(DEV)})
+        key = prng.prng_key(LM_SEED)
+        q_cpu, s_cpu = compression.quantize_int8(g_cpu, key)
+        q_same, s_same = compression.quantize_int8(
+            tree_map(lambda t: t.to(DEV), g_cpu), key)
+        q_own, _ = compression.quantize_int8(g_card, key)
+        flat = [tree_flatten_with_path(t)[1]
+                for t in (q_cpu, q_same, q_own, s_cpu, s_same)]
+        same = all(torch.equal(a, b.cpu()) for a, b in zip(flat[0], flat[1])) \
+            and all(torch.equal(a, b.cpu()) for a, b in zip(flat[3], flat[4]))
+        moved = sum(int((a != b.cpu()).sum()) for a, b in zip(flat[0],
+                                                               flat[2]))
+        n = sum(a.numel() for a in flat[0])
+        print(f"[train d] {arch} step-0 int8 gradients: the CPU's gradients "
+              f"quantized on the card {'bitwise' if same else 'NOT bitwise'} "
+              f"the CPU's; each device's own gradients: {moved} of {n} int8 "
+              f"values one step apart")
+        if not same:
+            _fail(f"train d: {arch} int8 gradients differ on the card")
+
+
+def train_moe_vlm() -> dict:
+    """(e) phi3.5-moe at full width, a train step cut to MOE_TRAIN_LAYERS
+    layers and a serve cut to MOE_SERVE_LAYERS in bf16; internvl2-26b at
+    full width cut to VLM_LAYERS, one train step with its patches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SizeyConfig
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch.sizing import KVCacheSizer
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+    dev = torch.device(DEV)
+    shapes = {}
+    # phi3.5-moe, one train step
+    cfg = get_config(MOE_ARCH).with_layers(MOE_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with _LaunchWatch() as watch:
+        tr = Trainer(cfg, TrainerConfig(steps=1, global_batch=MOE_TRAIN_BATCH,
+                                        seq_len=256, log_every=1), device=dev)
+        fp = tr.footprint_gb()
+        hist = tr.train()
+        moved = float((_param_probe(tr.params) - watch.first[-1]).abs().max())
+        del tr
+    _check_train_launches("e moe", watch, MOE_TRAIN_LAYERS, 2)
+    if not np.isfinite(hist[0]["loss"]) or not moved > 0:
+        _fail(f"train e: phi3.5-moe loss {hist[0]['loss']}, moved {moved}")
+    print(f"[train e] {cfg.name} at full width, {MOE_TRAIN_LAYERS} of 32 "
+          f"layers ({cfg.param_count():,} parameters, footprint {fp:.2f} "
+          f"GB): loss {hist[0]['loss']:.4f}, step {hist[0]['step_s']:.3f} s, "
+          f"card peak {torch.cuda.max_memory_allocated() / 1024**3:.2f} GB, "
+          f"{time.perf_counter() - t0:.1f} s")
+    shapes["moe"] = watch.shapes
+    torch.cuda.empty_cache()
+    # phi3.5-moe, a serve in bf16
+    cfg = dataclasses.replace(get_config(MOE_ARCH).with_layers(
+        MOE_SERVE_LAYERS), param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with _LaunchWatch() as watch:
+        model = build_model(cfg)
+        params = model.init(LM_SEED, device=dev)
+        engine = ServeEngine(model, params, max_batch=4, max_seq=1024,
+                             temperature=SERVE_TEMPERATURE,
+                             sizer=KVCacheSizer(SizeyConfig(min_history=2),
+                                                device=dev),
+                             seed=LM_SEED, device=dev)
+        del params
+        finite = []
+        prefill, decode = model.prefill, model.decode_step
+
+        def checked(fn):
+            def run(*a, **kw):
+                logits, cache = fn(*a, **kw)
+                finite.append(torch.isfinite(logits).all())
+                return logits, cache
+            return run
+        engine.model = dataclasses.replace(model, prefill=checked(prefill),
+                                           decode_step=checked(decode))
+        rng = np.random.default_rng(LM_SEED)
+        reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)).astype(
+            np.int32), max_new_tokens=MOE_SERVE_NEW)
+            for i, n in enumerate(rng.integers(*MOE_SERVE_LENS, 4))]
+        comps = engine.serve(reqs)
+        torch.cuda.synchronize()
+        del engine, model
+    n_tok = sum(len(c.tokens) for c in comps)
+    k4, k5 = (watch.launches.get("flash_attention", 0),
+              watch.launches.get("flash_decode", 0))
+    if not all(bool(f) for f in finite) or n_tok != 4 * MOE_SERVE_NEW \
+            or k4 != MOE_SERVE_LAYERS or \
+            k5 != MOE_SERVE_LAYERS * (MOE_SERVE_NEW - 1):
+        _fail(f"train e: phi3.5-moe serve: finite {all(map(bool, finite))}, "
+              f"{n_tok} tokens, K4 {k4}, K5 {k5}")
+    print(f"[train e] {cfg.name} served in bf16 at full width, "
+          f"{MOE_SERVE_LAYERS} of 32 layers ({cfg.param_count():,} "
+          f"parameters): 4 requests, {n_tok} tokens in "
+          f"{time.perf_counter() - t0:.1f} s with the init; K4 {k4}, K5 "
+          f"{k5} launches (G = 4); card peak "
+          f"{torch.cuda.max_memory_allocated() / 1024**3:.2f} GB")
+    shapes["moe serve"] = watch.shapes
+    torch.cuda.empty_cache()
+    # internvl2-26b, one train step with its 256 patch embeddings
+    cfg = get_config(VLM_ARCH).with_layers(VLM_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with _LaunchWatch() as watch:
+        model = build_model(cfg)
+        params = model.init(LM_SEED, device=dev)
+        opt = make_optimizer("adamw")
+        state = opt.init(params)
+        tokens = SyntheticTokenPipeline(cfg.vocab, VLM_TEXT, VLM_BATCH,
+                                        name=cfg.name).batch_at(0)
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "patch_embeds": _gen_inputs(LM_SEED, dev)(
+                     VLM_BATCH, cfg.n_patches, cfg.d_model)}
+        probe = _param_probe(params).clone()
+        step = make_train_step(cfg, opt)
+        watch.steps = 1
+        metrics, params, state = step(params, state, batch)
+        loss = float(metrics["loss"])
+        moved = float((_param_probe(params) - probe).abs().max())
+        del params, state
+    _check_train_launches("e vlm", watch, VLM_LAYERS, 2)
+    if not np.isfinite(loss) or not moved > 0:
+        _fail(f"train e: internvl2 loss {loss}, moved {moved}")
+    print(f"[train e] {cfg.name} at full width, {VLM_LAYERS} of 48 layers: "
+          f"one step over {cfg.n_patches} patches + {VLM_TEXT} tokens, loss "
+          f"{loss:.4f}, grad norm {float(metrics['grad_norm']):.4f}, "
+          f"{time.perf_counter() - t0:.1f} s with the init; card peak "
+          f"{torch.cuda.max_memory_allocated() / 1024**3:.2f} GB")
+    shapes["vlm"] = watch.shapes
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def _k4_bwd_bound(b, s, h, hkv, d, itemsize):
+    # q, k, v, o, dO and lse read once, dq, dk and dv written once; 2.5
+    # times the forward's products over the causal pairs, at the bf16
+    # tensor rate
+    pairs = s * (s + 1) // 2
+    nbytes = itemsize * (3 * b * s * h * d + 2 * b * s * hkv * d) \
+        + 4 * b * h * s + itemsize * (b * s * h * d + 2 * b * s * hkv * d)
+    return _bound_at(nbytes, 10 * b * h * pairs * d, BF16_FLOPS_PER_S)
+
+
+def time_k4_backward(shape) -> dict:
+    """K4's backward (its two launches) at a training shape in bf16, causal,
+    beside the plain backward and scaled_dot_product_attention's backward
+    (forward + backward under autograd, less the forward)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_backward_plain
+    dev = torch.device(DEV)
+    b, s, h, hkv, d = shape
+    bf16 = torch.bfloat16
+    q, k, v = lm_kernel_inputs("flash_attention", shape, bf16, 11, dev)
+    dout = _gen_inputs(12, dev)(b, s, h, d, dtype=bf16)
+    scale = d ** -0.5
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    out = ops._launch_forward(q, k, v, True, scale, s, lse)
+    ms = _time_ms(lambda: ops._launch_backward(q, k, v, out, dout, lse, True,
+                                               scale, s), 20, 5)
+    plain = _time_ms(lambda: flash_attention_backward_plain(q, k, v, dout),
+                     5, 2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+    gqa = {"enable_gqa": True} if h != hkv else {}
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              **gqa)
+    both = _time_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dt),
+                    20, 5)
+    fwd_ms = _time_ms(fwd, 20, 5)
+    bound, by = _k4_bwd_bound(*shape, 2)
+    flops = 10 * b * h * (s * (s + 1) // 2) * d
+    print(f"[time] flash_attention_bwd (B,S,H,Hkv,D)={shape} bf16 causal: "
+          f"{ms:.5f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain:.5f} ms, scaled_dot_product_attention backward "
+          f"{both - fwd_ms:.5f} ms ({both:.5f} - {fwd_ms:.5f}), bound "
+          f"{bound:.5f} ms ({by})")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": both - fwd_ms}
+
+
+def train_phase() -> dict:
+    """Phase 15: training on the card. Returns K4's backward JSON row."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch.launch.sizing import SizeyJobSizer
+    t_start = time.perf_counter()
+    # the serve phase's engine sits in a reference cycle (its wrapped
+    # sampler) with zamba2-7b's weights: free it before the 42 GB of (b)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] {torch.cuda.memory_allocated() / 1024**3:.2f} GB "
+          f"allocated on the card at the start of phase 15")
+    err = check_k4_backward(K4_BWD_SHAPES)
+    tmp = REPO / "build" / "phase15"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    sizer = SizeyJobSizer(hbm_cap_gb=1024.0, preset_gb=LADDER_PRESET_GB,
+                          device=DEV)
+    sizer._calls = []
+    _recording_sizer(sizer, sizer._calls)
+    try:
+        train_ladder_and_restart(sizer, tmp)
+        full = train_full_width(sizer)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _replay_sizer_on_cpu(sizer._calls)
+    del sizer
+    train_card_vs_cpu()
+    more = train_moe_vlm()
+    launched = set(full["shapes"]["flash_attention"])
+    for s in more.values():
+        launched |= set(s["flash_attention"])
+    print(f"[train] K4 shapes launched in (b)-(e): {sorted(launched)}")
+    err = max(err, check_k4_backward(sorted(launched - set(K4_BWD_SHAPES)),
+                                     label="bwd launched"))
+    k4s = max(full["shapes"]["flash_attention"].items(),
+              key=lambda kv: (kv[1], kv[0]))[0]
+    row = time_k4_backward(k4s)
+    for s in sorted(launched - {k4s}):
+        time_k4_backward(s)
+    wall = time.perf_counter() - t_start
+    print(f"[train] phase 15 wall {wall:.1f} s")
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/kernel.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
+            "launches": full["launches"].get("flash_attention_bwd_dq", 0),
+            "max_abs_err": err, **row}
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--worker"]:
@@ -2706,6 +3364,11 @@ def main() -> int:
     print(f"[gpu] {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.perf_counter()
     build_kernels()
+    if sys.argv[1:2] == ["--train-only"]:
+        # phases 1, 2 and 15 alone, for work on the training slice
+        print(json.dumps({"kernels": [train_phase()]}))
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
     errors = check_kernels()
     errors["segment_dp"] = max(check_segment_dp(),
                                check_segment_dp(K3_EDGES))
@@ -2820,6 +3483,8 @@ def main() -> int:
          "max_abs_err": errors["segment_dp"], **k3},
     ]
     kernels += lm_phases()
+    # phase 15: training on the card, K4's backward
+    kernels.append(train_phase())
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,7 @@ in the reference's order, so both packages can compute from the same state:
     t_state = state_to_torch("mlp", jax.device_get(j_state), "cuda")
     j_state = repro.core.models.mlp.MLPState(*state_to_numpy("mlp", t_state))
     t_params = lm_params_to_torch(jax.device_get(j_params), "cuda")
+    t_opt = opt_state_to_torch(jax.device_get(j_opt_state), "cuda")
 
 Nothing here imports JAX or ``repro``.
 """
@@ -124,3 +125,18 @@ def lm_params_to_numpy(tree) -> dict:
         return t.numpy()
     return {k: lm_params_to_numpy(v) if isinstance(v, dict) else leaf(v)
             for k, v in tree.items()}
+
+
+def opt_state_to_torch(np_state, device=None) -> dict:
+    """The reference's optimizer state (numpy) -> the port's tensors on
+    ``device``, leaf for leaf in each array's own type: AdamW's fp32
+    ``m`` and ``v`` trees and int32 ``step``, or Adafactor's ``vr`` and
+    ``vc`` factor trees and ``step`` (train/optimizer.py keeps the
+    reference's trees)."""
+    return lm_params_to_torch(np_state, device)
+
+
+def opt_state_to_numpy(state) -> dict:
+    """The port's optimizer state -> nested dicts of numpy arrays in the
+    reference's layout (``step`` a 0-d int32 array)."""
+    return lm_params_to_numpy(state)

@@ -13,6 +13,7 @@ What is reproduced (JAX's default configuration: threefry2x32 with
   * ``prng_key(seed)``  -- the raw key ``[seed >> 32, seed & 0xFFFFFFFF]``;
   * ``split(key, n)``   -- the fold-like split: the i-th key is the hash of
     the 64-bit counter i split into two 32-bit words;
+  * ``fold_in(key, d)`` -- the hash of the counter words (0, d);
   * ``random_bits``     -- the hash of the flat row-major counter, the two
     output words XOR-ed;
   * ``uniform``         -- mantissa fill of ``[1, 2)`` minus one, scaled;
@@ -84,6 +85,14 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     hi, lo = _counters(num)
     b1, b2 = threefry2x32(key[0], key[1], hi, lo)
     return np.stack([b1, b2], axis=-1)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` for a 32-bit integer ``data``:
+    the hash of the counter words (0, data) under ``key``."""
+    b1, b2 = threefry2x32(key[0], key[1], np.zeros(1, _U32),
+                          np.asarray([int(data) & 0xFFFFFFFF], _U32))
+    return np.concatenate([b1, b2])
 
 
 def random_bits(key: np.ndarray, shape) -> np.ndarray:

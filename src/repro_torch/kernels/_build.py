@@ -65,6 +65,17 @@ SIGNATURES = {
         # q, k and v tensor maps, out, B, S, H, Hkv, D, scale, causal,
         # kv_len, stream
         "flash_attention_bf16": (_P,) * 4 + (_I,) * 5 + (_F, _I, _I, _P),
+        # the same, and lse (B, H, S) fp32 after out
+        "flash_attention_lse_f32": (_P,) * 5 + (_I,) * 5 + (_F, _I, _I, _P),
+        "flash_attention_lse_bf16": (_P,) * 5 + (_I,) * 5 + (_F, _I, _I, _P),
+        # dtype, q, k, v, o, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+        # causal, kv_len, stream
+        "flash_attention_bwd_dq": (_I,) + (_P,) * 8 + (_I,) * 5
+        + (_F, _I, _I, _P),
+        # dtype, q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D, scale,
+        # causal, kv_len, stream
+        "flash_attention_bwd_dkdv": (_I,) + (_P,) * 8 + (_I,) * 5
+        + (_F, _I, _I, _P),
         # map_out, ptr, dims[4], byte strides[3], box[4]
         "flash_attention_tensor_map": (_P,) * 5,
     },

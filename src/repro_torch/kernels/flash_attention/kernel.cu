@@ -81,9 +81,16 @@ constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);
 }
 // p rounded to T and back: the TPU kernel's p.astype(v.dtype) before P.V
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -95,6 +102,15 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
   f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z);
   f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float* f,
+                                       __nv_bfloat16) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
 // Stage rows r0..r0+63 of a (S x D) slab (row stride ld elements) in shared
@@ -135,12 +151,14 @@ __device__ __forceinline__ void stage(const T* __restrict__ src, size_t ld,
   }
 }
 
-template <typename T>
+// kLse: also write each row's log-sum-exp of its scaled scores, m + log(l),
+// to lse (B, H, S) fp32, for the backward
+template <typename T, bool kLse>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int S,
-                       int H, int Hkv, int D, float scale, int causal,
-                       int kv_len) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int S, int H, int Hkv, int D,
+                       float scale, int causal, int kv_len) {
   extern __shared__ float4 smem4[];
   float* sQt = reinterpret_cast<float*>(smem4);  // [D][kTS]   Q^T
   float* sKV = sQt + D * kTS;                     // [D][kTS] K^T, then [kBK][D + 1] V
@@ -251,6 +269,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       if (j < nd) ob[row * row_q + tx + 16 * j] = from_f<T>(acc[i][j] * inv_l);
+    if constexpr (kLse) {
+      if (tx == 0)
+        lse[(static_cast<size_t>(b) * H + h) * S + row] =
+            m[i] + logf(fmaxf(l[i], 1e-30f));
+    }
   }
 }
 
@@ -455,14 +478,16 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // kNk = D / 16 k-steps of Q.K^T; kChunks = 64-column boxes spanning D;
-// P.V runs over kN0 columns of the first box and kN1 of the second
-template <int kNk, int kChunks = (kNk + 3) / 4,
+// P.V runs over kN0 columns of the first box and kN1 of the second; kLse as
+// in the fp32 kernel (m is kept unscaled here: lse = (m c + log2 l) ln 2)
+template <int kNk, bool kLse, int kChunks = (kNk + 3) / 4,
           int kN0 = (kNk < 4 ? kNk : 4) * 16, int kN1 = 16 * kNk - kN0>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             __nv_bfloat16* __restrict__ out, int S, int H,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int S, int H,
                              int Hkv, int D, float scale_log2, int causal,
                              int kv_len) {
   using Plan = WgmmaPlan<kChunks>;
@@ -687,6 +712,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int j = 0; j < kN1 / 8; ++j)
         *reinterpret_cast<unsigned*>(orow + 64 + 8 * j) = pack_bf16(
             o1[4 * j + 2 * hr] * inv_l, o1[4 * j + 2 * hr + 1] * inv_l);
+      if constexpr (kLse) {
+        if (t4 == 0)
+          lse[(static_cast<size_t>(b) * H + h) * S + row] =
+              (m[hr] * scale_log2 + log2f(fmaxf(l[hr], 1e-30f))) *
+              0.6931471805599453f;
+      }
     }
   }
 }
@@ -706,23 +737,413 @@ cudaError_t opt_in_smem(const void* kernel, int* done, int bytes) {
   return err;
 }
 
-template <int kNk>
+template <int kNk, bool kLse>
 int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
-                 const CUtensorMap& tv, void* out, int B, int S, int H,
-                 int Hkv, int D, float scale, int causal, int kv_len,
+                 const CUtensorMap& tv, void* out, void* lse, int B, int S,
+                 int H, int Hkv, int D, float scale, int causal, int kv_len,
                  cudaStream_t stream) {
   static int opted[kMaxDevices];
   const int smem = WgmmaPlan<(kNk + 3) / 4>::kSmem;
   cudaError_t err = opt_in_smem(
-      reinterpret_cast<const void*>(flash_attention_wgmma_kernel<kNk>),
+      reinterpret_cast<const void*>(flash_attention_wgmma_kernel<kNk, kLse>),
       opted, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kTile - 1) / kTile, H, B);
-  flash_attention_wgmma_kernel<kNk><<<grid, kWgmmaThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, H, Hkv, D,
-      scale * 1.4426950408889634f, causal, kv_len);
+  flash_attention_wgmma_kernel<kNk, kLse>
+      <<<grid, kWgmmaThreads, smem, stream>>>(
+          tq, tk, tv, static_cast<__nv_bfloat16*>(out),
+          static_cast<float*>(lse), S, H, Hkv, D,
+          scale * 1.4426950408889634f, causal, kv_len);
   return static_cast<int>(cudaGetLastError());
 }
+
+template <bool kLse>
+int launch_bf16(const void* q_map, const void* k_map, const void* v_map,
+                void* out, void* lse, int B, int S, int H, int Hkv, int D,
+                float scale, int causal, int kv_len, cudaStream_t stream) {
+  if (D % 16 != 0 || D < 16 || D > kMaxD || H % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  alignas(64) CUtensorMap tq, tk, tv;
+  std::memcpy(&tq, q_map, sizeof(tq));
+  std::memcpy(&tk, k_map, sizeof(tk));
+  std::memcpy(&tv, v_map, sizeof(tv));
+  using Launch = int (*)(const CUtensorMap&, const CUtensorMap&,
+                        const CUtensorMap&, void*, void*, int, int, int, int,
+                        int, float, int, int, cudaStream_t);
+  static const Launch by_nk[8] = {
+      launch_wgmma<1, kLse>, launch_wgmma<2, kLse>, launch_wgmma<3, kLse>,
+      launch_wgmma<4, kLse>, launch_wgmma<5, kLse>, launch_wgmma<6, kLse>,
+      launch_wgmma<7, kLse>, launch_wgmma<8, kLse>};
+  return by_nk[D / 16 - 1](tq, tk, tv, out, lse, B, S, H, Hkv, D, scale,
+                           causal, kv_len, stream);
+}
+
+template <bool kLse>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               void* lse, int B, int S, int H, int Hkv, int D, float scale,
+               int causal, int kv_len, cudaStream_t stream) {
+  if (D % 16 != 0 || D > kMaxD || H % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int opted[kMaxDevices];
+  const int smem = static_cast<int>(
+      sizeof(float) * (2 * static_cast<size_t>(D) * kTS +
+                       static_cast<size_t>(kBK) * kTS));
+  cudaError_t err = opt_in_smem(
+      reinterpret_cast<const void*>(flash_attention_kernel<float, kLse>),
+      opted, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  flash_attention_kernel<float, kLse><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), S, H, Hkv, D, scale, causal, kv_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- backward
+// The gradient of attention, for training: dQ, dK and dV from dO, the
+// forward's output O and each row's log-sum-exp (lse), without the (S, S)
+// probabilities in device memory. It is the autograd of the plain version
+// (ref.py) on the same inputs:
+//   p  = exp(s * scale - lse), 0 where masked (keys >= kv_len; causal r < c);
+//   dV = round(p)^T dO, with p rounded to v's type where the plain version
+//        rounds it before P.V;
+//   Delta = rowsum(dO * O);  dS = p * (dO V^T - Delta);
+//   dQ = dS K * scale;  dK = dS^T Q * scale.
+// Two kernels, no atomics, so two runs are bitwise equal. The first runs a
+// block per (64-row query tile, head, sequence): it computes Delta for its
+// rows (written to device memory for the second) and dQ over the key tiles
+// up to the diagonal. The second runs a block per (64-key tile, KV head,
+// sequence): it walks the G query heads of its group and, for each, the
+// query tiles from the diagonal on, accumulating dK and dV in fp32. Both
+// recompute the scores and p. Keys past kv_len get zero dK and dV.
+// Math in fp32 FMA on CUDA cores for both types (bf16 is widened on load),
+// 256 threads as 16 x 16, each thread a 4 x 4 block of a score tile and a
+// 4 x (D / 16) block of an output: the same tiling as the fp32 forward.
+// What bounds it on an H100: 2.5 times the forward's products (Q.K^T and
+// dO.V^T recomputed, dV, dK and dQ); at granite's training shape (B = 8,
+// S = 256, H = 32, Hkv = 8, D = 64) the bf16 tensor rate bounds it, and
+// this design runs at the fp32 CUDA-core rate, so it is slow against that
+// bound (PERF.md gives its time).
+constexpr int kBwdRows = 64;   // query rows or keys per tile
+
+// Stage lse and Delta of rows q0 .. q0 + 63 of head h into shared memory.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           size_t base, int q0, int S,
+                                           float* sLse, float* sDelta) {
+  const int t = threadIdx.x;
+  if (t < kBwdRows) {
+    const int row = q0 + t;
+    sLse[t] = row < S ? lse[base + row] : 0.0f;
+    sDelta[t] = row < S ? delta[base + row] : 0.0f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ o,
+                        const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        float* __restrict__ delta, T* __restrict__ dq, int S,
+                        int H, int Hkv, int D, float scale, int causal,
+                        int kv_len) {
+  extern __shared__ float4 smem4[];
+  float* sQt = reinterpret_cast<float*>(smem4);   // [D][kTS] Q^T
+  float* sDOt = sQt + D * kTS;                     // [D][kTS] dO^T
+  float* sKt = sDOt + D * kTS;                     // [D][kTS] K^T (O^T first)
+  float* sVt = sKt + D * kTS;                      // [D][kTS] V^T
+  float* sDSt = sVt + D * kTS;                     // [kBK][kTS] dS^T
+  float* sLse = sDSt + kBK * kTS;                  // [64]
+  float* sDelta = sLse + kBwdRows;                 // [64]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * kBwdRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const size_t row_q = static_cast<size_t>(H) * D;
+  const size_t row_kv = static_cast<size_t>(Hkv) * D;
+  const size_t qoff = static_cast<size_t>(b) * S * row_q +
+                      static_cast<size_t>(h) * D;
+  const size_t kvoff = static_cast<size_t>(b) * S * row_kv +
+                       static_cast<size_t>(kvh) * D;
+  const size_t base = (static_cast<size_t>(b) * H + h) * S;
+
+  stage<T, true>(q + qoff, row_q, q0, S, D, sQt);
+  stage<T, true>(dout + qoff, row_q, q0, S, D, sDOt);
+  stage<T, true>(o + qoff, row_q, q0, S, D, sKt);
+  __syncthreads();
+  if (tid < kBwdRows) {
+    // Delta of row q0 + tid, summed over D in order
+    float dsum = 0.0f;
+    for (int c = 0; c < D; ++c)
+      dsum = fmaf(sDOt[c * kTS + tid], sKt[c * kTS + tid], dsum);
+    const int row = q0 + tid;
+    sDelta[tid] = dsum;
+    sLse[tid] = row < S ? lse[base + row] : 0.0f;
+    if (row < S) delta[base + row] = dsum;
+  }
+  __syncthreads();
+
+  float lr[4], dr[4], acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lr[i] = sLse[ty * 4 + i];
+    dr[i] = sDelta[ty * 4 + i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  const int nd = D / 16;
+  const int limit = min(kv_len, S);
+  const int kv_end = causal ? min(limit, q0 + kBwdRows) : limit;
+
+  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+    __syncthreads();   // the last tile's dS.K is done with sKt and sDSt
+    stage<T, true>(k + kvoff, row_kv, k0, S, D, sKt);
+    stage<T, true>(v + kvoff, row_kv, k0, S, D, sVt);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      const float4 a = *reinterpret_cast<const float4*>(&sQt[d * kTS + ty * 4]);
+      const float4 bk = *reinterpret_cast<const float4*>(&sKt[d * kTS + tx * 4]);
+      const float4 g = *reinterpret_cast<const float4*>(&sDOt[d * kTS + ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&sVt[d * kTS + tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float kv4[4] = {bk.x, bk.y, bk.z, bk.w};
+      const float gv[4] = {g.x, g.y, g.z, g.w};
+      const float vv4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(av[i], kv4[j], s[i][j]);
+          dp[i][j] = fmaf(gv[i], vv4[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx * 4 + j;
+        const bool live = row < S && col < limit && (!causal || row >= col);
+        const float p = live ? expf(s[i][j] * scale - lr[i]) : 0.0f;
+        sDSt[(tx * 4 + j) * kTS + ty * 4 + i] = p * (dp[i][j] - dr[i]);
+      }
+    }
+    __syncthreads();   // sDSt is complete
+    const int kn = min(kBK, kv_end - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+      const float4 d4 = *reinterpret_cast<const float4*>(&sDSt[kk * kTS + ty * 4]);
+      const float dsv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < nd) {
+          const float kvv = sKt[(tx + 16 * j) * kTS + kk];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kvv, acc[i][j]);
+        }
+      }
+    }
+  }
+
+  T* dqb = dq + qoff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < nd) dqb[row * row_q + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int S,
+                          int H, int Hkv, int D, float scale, int causal,
+                          int kv_len) {
+  extern __shared__ float4 smem4[];
+  float* sKt = reinterpret_cast<float*>(smem4);   // [D][kTS] K^T
+  float* sVt = sKt + D * kTS;                      // [D][kTS] V^T
+  float* sQt = sVt + D * kTS;                      // [D][kTS] Q^T
+  float* sDOt = sQt + D * kTS;                     // [D][kTS] dO^T
+  float* sP = sDOt + D * kTS;                      // [kBQ][kTS] P, by row
+  float* sDS = sP + kBQ * kTS;                     // [kBQ][kTS] dS, by row
+  float* sLse = sDS + kBQ * kTS;                   // [64]
+  float* sDelta = sLse + kBwdRows;                 // [64]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int k0 = blockIdx.x * kBwdRows;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv;
+  const size_t row_q = static_cast<size_t>(H) * D;
+  const size_t row_kv = static_cast<size_t>(Hkv) * D;
+  const size_t kvoff = static_cast<size_t>(b) * S * row_kv +
+                       static_cast<size_t>(kvh) * D;
+  const int nd = D / 16;
+  const int limit = min(kv_len, S);
+
+  float ak[4][8], av[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ak[i][j] = av[i][j] = 0.0f;
+
+  if (k0 < limit) {
+    stage<T, true>(k + kvoff, row_kv, k0, S, D, sKt);
+    stage<T, true>(v + kvoff, row_kv, k0, S, D, sVt);
+    for (int g = 0; g < G; ++g) {
+      const int h = kvh * G + g;
+      const size_t qoff = static_cast<size_t>(b) * S * row_q +
+                          static_cast<size_t>(h) * D;
+      const size_t base = (static_cast<size_t>(b) * H + h) * S;
+      for (int q0 = causal ? k0 : 0; q0 < S; q0 += kBwdRows) {
+        __syncthreads();   // the last tile's products are done with sQt,
+                           // sDOt, sP, sDS and the row stats
+        stage<T, true>(q + qoff, row_q, q0, S, D, sQt);
+        stage<T, true>(dout + qoff, row_q, q0, S, D, sDOt);
+        stage_rows(lse, delta, base, q0, S, sLse, sDelta);
+        __syncthreads();
+
+        // transposed scores: key ty * 4 + i, query row tx * 4 + j
+        float s[4][4], dp[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+        for (int d = 0; d < D; ++d) {
+          const float4 a = *reinterpret_cast<const float4*>(&sKt[d * kTS + ty * 4]);
+          const float4 bq = *reinterpret_cast<const float4*>(&sQt[d * kTS + tx * 4]);
+          const float4 w = *reinterpret_cast<const float4*>(&sVt[d * kTS + ty * 4]);
+          const float4 g4 = *reinterpret_cast<const float4*>(&sDOt[d * kTS + tx * 4]);
+          const float kv4[4] = {a.x, a.y, a.z, a.w};
+          const float qv[4] = {bq.x, bq.y, bq.z, bq.w};
+          const float vv4[4] = {w.x, w.y, w.z, w.w};
+          const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              s[i][j] = fmaf(kv4[i], qv[j], s[i][j]);
+              dp[i][j] = fmaf(vv4[i], gv[j], dp[i][j]);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = k0 + ty * 4 + i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = tx * 4 + j, row = q0 + r;
+            const bool live = row < S && key < limit && (!causal || row >= key);
+            const float p = live ? expf(s[i][j] * scale - sLse[r]) : 0.0f;
+            sP[r * kTS + ty * 4 + i] = round_to<T>(p);
+            sDS[r * kTS + ty * 4 + i] = p * (dp[i][j] - sDelta[r]);
+          }
+        }
+        __syncthreads();   // sP and sDS are complete
+        const int rn = min(kBwdRows, S - q0);
+        for (int r = 0; r < rn; ++r) {
+          const float4 p4 = *reinterpret_cast<const float4*>(&sP[r * kTS + ty * 4]);
+          const float4 d4 = *reinterpret_cast<const float4*>(&sDS[r * kTS + ty * 4]);
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+          const float dsv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (j < nd) {
+              const float gg = sDOt[(tx + 16 * j) * kTS + r];
+              const float qq = sQt[(tx + 16 * j) * kTS + r];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                av[i][j] = fmaf(pv[i], gg, av[i][j]);
+                ak[i][j] = fmaf(dsv[i], qq, ak[i][j]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+  T* dkb = dk + kvoff;
+  T* dvb = dv + kvoff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty * 4 + i;
+    if (key >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < nd) {
+        dkb[key * row_kv + tx + 16 * j] = from_f<T>(ak[i][j] * scale);
+        dvb[key * row_kv + tx + 16 * j] = from_f<T>(av[i][j]);
+      }
+  }
+}
+
+size_t bwd_dq_smem(int D) {
+  return sizeof(float) * (4 * static_cast<size_t>(D) * kTS +
+                          static_cast<size_t>(kBK) * kTS + 2 * kBwdRows);
+}
+size_t bwd_dkdv_smem(int D) {
+  return sizeof(float) * (4 * static_cast<size_t>(D) * kTS +
+                          2 * static_cast<size_t>(kBQ) * kTS + 2 * kBwdRows);
+}
+
+template <typename T>
+int launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const void* lse, void* delta, void* dq,
+                  int B, int S, int H, int Hkv, int D, float scale,
+                  int causal, int kv_len, cudaStream_t stream) {
+  static int opted[kMaxDevices];
+  const int smem = static_cast<int>(bwd_dq_smem(D));
+  cudaError_t err = opt_in_smem(
+      reinterpret_cast<const void*>(attention_bwd_dq_kernel<T>), opted, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kBwdRows - 1) / kBwdRows, H, B);
+  attention_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<T*>(dq), S, H, Hkv, D, scale,
+      causal, kv_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_dkdv(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int B, int S, int H, int Hkv, int D,
+                    float scale, int causal, int kv_len,
+                    cudaStream_t stream) {
+  static int opted[kMaxDevices];
+  const int smem = static_cast<int>(bwd_dkdv_smem(D));
+  cudaError_t err = opt_in_smem(
+      reinterpret_cast<const void*>(attention_bwd_dkdv_kernel<T>), opted,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kBwdRows - 1) / kBwdRows, Hkv, B);
+  attention_bwd_dkdv_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, D, scale, causal,
+      kv_len);
+  return static_cast<int>(cudaGetLastError());
+}
+// ---- end backward
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -781,20 +1202,8 @@ extern "C" int flash_attention_bf16(const void* q_map, const void* k_map,
                                     int H, int Hkv, int D, float scale,
                                     int causal, int kv_len,
                                     cudaStream_t stream) {
-  if (D % 16 != 0 || D < 16 || D > kMaxD || H % Hkv != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  alignas(64) CUtensorMap tq, tk, tv;
-  std::memcpy(&tq, q_map, sizeof(tq));
-  std::memcpy(&tk, k_map, sizeof(tk));
-  std::memcpy(&tv, v_map, sizeof(tv));
-  using Launch = int (*)(const CUtensorMap&, const CUtensorMap&,
-                        const CUtensorMap&, void*, int, int, int, int, int,
-                        float, int, int, cudaStream_t);
-  static const Launch by_nk[8] = {
-      launch_wgmma<1>, launch_wgmma<2>, launch_wgmma<3>, launch_wgmma<4>,
-      launch_wgmma<5>, launch_wgmma<6>, launch_wgmma<7>, launch_wgmma<8>};
-  return by_nk[D / 16 - 1](tq, tk, tv, out, B, S, H, Hkv, D, scale, causal,
-                           kv_len, stream);
+  return launch_bf16<false>(q_map, k_map, v_map, out, nullptr, B, S, H, Hkv,
+                            D, scale, causal, kv_len, stream);
 }
 
 // fp32: q (B, S, H, D), k and v (B, S, Hkv, D), out (B, S, H, D), all
@@ -804,22 +1213,68 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int H, int Hkv, int D, float scale,
                                    int causal, int kv_len,
                                    cudaStream_t stream) {
-  if (D % 16 != 0 || D > kMaxD || H % Hkv != 0)
+  return launch_f32<false>(q, k, v, out, nullptr, B, S, H, Hkv, D, scale,
+                           causal, kv_len, stream);
+}
+
+// The forward of training: as flash_attention_bf16 and flash_attention_f32,
+// and also each row's log-sum-exp of its scaled scores to lse (B, H, S) fp32.
+extern "C" int flash_attention_lse_bf16(const void* q_map, const void* k_map,
+                                        const void* v_map, void* out,
+                                        void* lse, int B, int S, int H,
+                                        int Hkv, int D, float scale,
+                                        int causal, int kv_len,
+                                        cudaStream_t stream) {
+  return launch_bf16<true>(q_map, k_map, v_map, out, lse, B, S, H, Hkv, D,
+                           scale, causal, kv_len, stream);
+}
+
+extern "C" int flash_attention_lse_f32(const void* q, const void* k,
+                                       const void* v, void* out, void* lse,
+                                       int B, int S, int H, int Hkv, int D,
+                                       float scale, int causal, int kv_len,
+                                       cudaStream_t stream) {
+  return launch_f32<true>(q, k, v, out, lse, B, S, H, Hkv, D, scale, causal,
+                          kv_len, stream);
+}
+
+// The backward (dtype 0: fp32, 1: bf16). q, o, dout, dq (B, S, H, D); k, v,
+// dk, dv (B, S, Hkv, D), all contiguous in one type and 16-byte aligned; lse
+// and delta (B, H, S) fp32. D % 16 == 0, D <= 128. bwd_dq writes Delta to
+// delta and dq; bwd_dkdv, launched after it on the same stream, reads delta
+// and writes dk and dv.
+extern "C" int flash_attention_bwd_dq(int dtype, const void* q, const void* k,
+                                      const void* v, const void* o,
+                                      const void* dout, const void* lse,
+                                      void* delta, void* dq, int B, int S,
+                                      int H, int Hkv, int D, float scale,
+                                      int causal, int kv_len,
+                                      cudaStream_t stream) {
+  if (D % 16 != 0 || D > kMaxD || H % Hkv != 0 || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int opted[kMaxDevices];
-  const int smem = static_cast<int>(
-      sizeof(float) * (2 * static_cast<size_t>(D) * kTS +
-                       static_cast<size_t>(kBK) * kTS));
-  cudaError_t err = opt_in_smem(
-      reinterpret_cast<const void*>(flash_attention_kernel<float>), opted,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<float><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, Hkv, D,
-      scale, causal, kv_len);
-  return static_cast<int>(cudaGetLastError());
+  return dtype == 0
+             ? launch_bwd_dq<float>(q, k, v, o, dout, lse, delta, dq, B, S, H,
+                                    Hkv, D, scale, causal, kv_len, stream)
+             : launch_bwd_dq<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq,
+                                            B, S, H, Hkv, D, scale, causal,
+                                            kv_len, stream);
+}
+
+extern "C" int flash_attention_bwd_dkdv(int dtype, const void* q,
+                                        const void* k, const void* v,
+                                        const void* dout, const void* lse,
+                                        const void* delta, void* dk, void* dv,
+                                        int B, int S, int H, int Hkv, int D,
+                                        float scale, int causal, int kv_len,
+                                        cudaStream_t stream) {
+  if (D % 16 != 0 || D > kMaxD || H % Hkv != 0 || dtype < 0 || dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 0
+             ? launch_bwd_dkdv<float>(q, k, v, dout, lse, delta, dk, dv, B, S,
+                                      H, Hkv, D, scale, causal, kv_len, stream)
+             : launch_bwd_dkdv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk,
+                                              dv, B, S, H, Hkv, D, scale,
+                                              causal, kv_len, stream);
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -11,6 +11,16 @@ its inputs through TMA: each tensor is described to the card as 4-D,
 head over 128 positions (``tensor_map_plan``); the
 descriptors are cached by pointer, shape and strides, so a repeated call
 encodes none.
+
+Training: when grad mode is on and q, k or v requires a gradient, the call
+goes through ``FlashAttention`` (a ``torch.autograd.Function``). On the
+card its forward launches K4's variant that also writes each row's
+log-sum-exp, and its backward the two backward kernels of ``kernel.cu``
+(dQ with Delta = rowsum(dO * O), then dK and dV); without a gradient the
+launch is the serving one, unchanged. On the CPU the plain version's own
+autograd runs. ``KERNEL_LAUNCHES`` counts the four launches apart:
+``flash_attention`` (no gradient), ``flash_attention_lse``,
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkdv``.
 """
 from __future__ import annotations
 
@@ -113,11 +123,92 @@ def _tensor_map(lib, t: torch.Tensor, rows: int) -> int:
     return ctypes.addressof(buf)
 
 
+def _launch_forward(q, k, v, causal, scale, kv_len, lse=None):
+    """K4 on the card: out, and with ``lse`` (B, H, S) fp32 also each
+    row's log-sum-exp (the training variant)."""
+    b, s, h, d = q.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _build.load(NAME)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (b, s, h, k.shape[2], d, scale, int(causal), kv_len, stream)
+    with torch.cuda.device(q.device):
+        if q.dtype == torch.bfloat16:
+            maps = (_tensor_map(lib, q, TILE), _tensor_map(lib, k, KEYS),
+                    _tensor_map(lib, v, KEYS))
+            if lse is None:
+                err = lib.flash_attention_bf16(*maps, out.data_ptr(), *args)
+            else:
+                err = lib.flash_attention_lse_bf16(
+                    *maps, out.data_ptr(), lse.data_ptr(), *args)
+        else:
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+            if lse is None:
+                err = lib.flash_attention_f32(*ptrs, *args)
+            else:
+                err = lib.flash_attention_lse_f32(*ptrs, lse.data_ptr(),
+                                                  *args)
+    name = NAME if lse is None else f"{NAME}_lse"
+    _build.check(lib, err, name)
+    KERNEL_LAUNCHES[name] += 1
+    return out
+
+
+def _launch_backward(q, k, v, o, dout, lse, causal, scale, kv_len):
+    """K4's backward on the card: (dq, dk, dv) in the inputs' type."""
+    b, s, h, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = _build.load(NAME)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    dtype = 0 if q.dtype == torch.float32 else 1
+    args = (b, s, h, k.shape[2], d, scale, int(causal), kv_len, stream)
+    qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dq(
+            dtype, *qkv, o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), *args)
+        _build.check(lib, err, f"{NAME}_bwd_dq")
+        KERNEL_LAUNCHES[f"{NAME}_bwd_dq"] += 1
+        err = lib.flash_attention_bwd_dkdv(
+            dtype, *qkv, dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *args)
+    _build.check(lib, err, f"{NAME}_bwd_dkdv")
+    KERNEL_LAUNCHES[f"{NAME}_bwd_dkdv"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 with its hand-written backward, on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kv_len):
+        b, s, h, _ = q.shape
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        out = _launch_forward(q, k, v, causal, scale, kv_len, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        if dout.data_ptr() % 16:
+            dout = dout.clone()
+        dq, dk, dv = _launch_backward(q, k, v, out, dout, lse, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None, kv_len: int | None = None):
     """q (B, S, H, D); k, v (B, S, Hkv, D) -> (B, S, H, D) in q's type:
     softmax(q k^T * scale) v over the keys < ``kv_len`` (all by default),
-    causal unless asked otherwise; ``scale`` defaults to D ** -0.5."""
+    causal unless asked otherwise; ``scale`` defaults to D ** -0.5.
+    Differentiable in q, k and v (see the module's docstring)."""
     b, s, h, d = q.shape
     kv_len = s if kv_len is None else int(kv_len)
     _check(q, k, v, kv_len)
@@ -126,21 +217,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      kv_len=kv_len)
     _check_cuda(q, k, v)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib = _build.load(NAME)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        if q.dtype == torch.bfloat16:
-            err = lib.flash_attention_bf16(
-                _tensor_map(lib, q, TILE), _tensor_map(lib, k, KEYS),
-                _tensor_map(lib, v, KEYS), out.data_ptr(),
-                b, s, h, k.shape[2], d, scale, int(causal), kv_len, stream)
-        else:
-            err = lib.flash_attention_f32(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                s, h, k.shape[2], d, scale, int(causal), kv_len, stream)
-    _build.check(lib, err, NAME)
-    KERNEL_LAUNCHES[NAME] += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale, kv_len)
+    return _launch_forward(q, k, v, causal, scale, kv_len)
+

@@ -38,3 +38,17 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     l = p.sum(-1, keepdim=True)
     o = (p.to(v.dtype).float() @ vv.float()) / l.clamp_min(1e-30)
     return o.to(q.dtype).permute(0, 2, 1, 3)
+
+
+def flash_attention_backward_plain(q, k, v, dout, *, causal: bool = True,
+                                   scale: float | None = None,
+                                   kv_len: int | None = None):
+    """The plain backward, (dq, dk, dv): ``torch.autograd.grad`` of
+    ``flash_attention_plain`` on the same inputs, on any device. The
+    tests and ``chip_smoke.py`` hold K4's backward to it; nothing on the
+    training path calls it."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_plain(*leaves, causal=causal, scale=scale,
+                                    kv_len=kv_len)
+        return torch.autograd.grad(out, leaves, dout)

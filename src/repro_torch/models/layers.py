@@ -25,7 +25,13 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def dense_init(gen: torch.Generator, shape, dtype, std: float = INIT_STD):
-    """Normal(0, std) weights drawn in fp32 from ``gen`` on its device."""
+    """Normal(0, std) weights drawn from ``gen`` on its device: in fp32,
+    or in bf16 itself for bf16 weights, so that a model held in bf16 at
+    full width never holds an fp32 copy of a stacked leaf (13.4 GB more
+    for one of phi3.5-moe's 16-layer expert stacks)."""
+    if dtype == torch.bfloat16:
+        w = torch.empty(shape, dtype=dtype, device=gen.device)
+        return w.normal_(0.0, std, generator=gen)
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     return w.normal_(0.0, 1.0, generator=gen).mul_(std).to(dtype)
 

@@ -1,22 +1,33 @@
-"""Model assembly for the families dense, audio, ssm and hybrid: parameter
-init, forward, loss, prefill and single-token decode.
+"""Model assembly for all 6 families (dense / moe / ssm / hybrid / vlm /
+audio): parameter init, forward, loss, prefill and single-token decode.
 
 The reference (``repro/models/model.py``) scans over stacked per-layer
 parameters; here the stacks are the same tensors (a leading layer axis on
 every leaf of ``blocks`` and ``mamba``) and the scans are Python loops over
-that axis. The hybrid (zamba2) stack walks groups of (attn_every - 1)
-Mamba2 layers, each group followed by the one shared attention+MLP block,
-whose weights are reused at every application.
+that axis. Each stacked leaf is split into per-layer views once per call
+(``torch.unbind``), so a backward pass writes one gradient per stacked
+leaf. The hybrid (zamba2) stack walks groups of (attn_every - 1) Mamba2
+layers, each group followed by the one shared attention+MLP block, whose
+weights are reused at every application. ``moe`` swaps each block's MLP
+for ``models.moe``'s routed experts and adds their load-balance loss;
+``vlm`` prepends the batch's ``patch_embeds`` to the token embeddings and
+takes its loss on the text positions only.
 
-Kernels: full attention goes to K4 (``kernels.flash_attention``), decode
-attention to K5 (``kernels.flash_decode``) and the Mamba2 prefill scan to
-K6 (``kernels.ssd_scan``), each the CUDA kernel on the card and its plain
-version on the CPU. ``cfg.remat`` and ``cfg.decode_carry_cache`` are
-accepted and change no number in eager PyTorch: there is no backward pass
-here to rematerialise, and the decode cache is updated in place.
+Kernels: full attention goes to K4 (``kernels.flash_attention``, with its
+hand-written backward when a gradient is asked for), decode attention to
+K5 (``kernels.flash_decode``) and the Mamba2 prefill scan to K6
+(``kernels.ssd_scan``), each the CUDA kernel on the card and its plain
+version on the CPU. K6 has no backward kernel yet: on the card the
+``ssm`` and ``hybrid`` families serve but do not train (``train.step``
+says so).
 
-The families ``moe`` and ``vlm`` are not ported yet (ROADMAP Queue 1,
-item 17) and raise ``NotImplementedError``.
+``cfg.remat``: with a gradient asked for, ``"block"`` (the default) and
+``"dots"`` recompute each block in the backward
+(``torch.utils.checkpoint``, non-reentrant), ``"none"`` keeps every
+activation; the numbers are the same. ``"dots"`` is ``"block"`` here:
+the reference's ``"dots"`` keeps the matmul outputs, which changes memory
+only (ROADMAP queue 3). ``cfg.decode_carry_cache`` changes no number: the
+decode cache is updated in place.
 """
 from __future__ import annotations
 
@@ -25,63 +36,81 @@ import functools
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (cross_entropy, dtype_of, embed_tokens,
                                        embedding_params, logits_fn, mlp,
                                        mlp_params, rmsnorm)
 from repro_torch.utils.misc import resolve_device
 
-ATTN_FAMILIES = ("dense", "audio")
-PORTED_FAMILIES = ("dense", "audio", "ssm", "hybrid")
+ATTN_FAMILIES = ("dense", "vlm", "audio", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # weights that the reference casts to the compute type at every use
 COMPUTE_CAST = frozenset({
     "embed", "lm_head", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate",
-    "w_up", "w_down", "in_proj", "conv_w", "conv_b", "out_proj"})
+    "w_up", "w_down", "in_proj", "conv_w", "conv_b", "out_proj", "we_gate",
+    "we_up", "we_out"})
+AUX_WEIGHT = 0.01
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (moe.py and the vlm "
-            f"front end come with ROADMAP Queue 1, item 17)")
+        raise ValueError(f"unknown family {cfg.family}")
 
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _layers(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked parameter tree, as views (one
+    ``unbind`` per leaf, so autograd gathers a leaf's layer gradients into
+    one tensor)."""
+    per = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+           for k, v in tree.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
 # ----------------------------------------------------------------- blocks
-def _attn_mlp_block_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
+def _attn_mlp_block_params(gen, cfg: ModelConfig, dtype, n: tuple = (),
+                           use_moe: bool = False):
     dev = gen.device
-    return {
+    p = {
         "ln1": torch.ones((*n, cfg.d_model), dtype=dtype, device=dev),
         "attn": attn.attention_params(gen, cfg, dtype, n),
         "ln2": torch.ones((*n, cfg.d_model), dtype=dtype, device=dev),
-        "mlp": mlp_params(gen, cfg, dtype, n),
     }
+    if use_moe:
+        p["moe"] = moe_mod.moe_params(gen, cfg, dtype, n)
+    else:
+        p["mlp"] = mlp_params(gen, cfg, dtype, n)
+    return p
 
 
-def _attn_mlp_block(params, x, cfg: ModelConfig, positions):
-    """Pre-norm transformer block. Returns (x, (k, v))."""
+def _attn_mlp_block(params, x, cfg: ModelConfig, positions, use_moe: bool):
+    """Pre-norm transformer block. Returns (x, (k, v), aux)."""
     h = rmsnorm(x, params["ln1"])
     a, kv = attn.attention_block(params["attn"], h, cfg, positions)
     x = x + a
     h = rmsnorm(x, params["ln2"])
-    return x + mlp(params["mlp"], h, dtype_of(cfg.compute_dtype)), kv
+    if use_moe:
+        m, aux = moe_mod.moe_block(params["moe"], h, cfg)
+    else:
+        m, aux = mlp(params["mlp"], h, dtype_of(cfg.compute_dtype)), 0.0
+    return x + m, kv, aux
 
 
-def _attn_mlp_decode(params, x, cfg, k_cache, v_cache, pos):
+def _attn_mlp_decode(params, x, cfg, k_cache, v_cache, pos, use_moe: bool):
     h = rmsnorm(x, params["ln1"])
     a, _, _ = attn.decode_attention_block(params["attn"], h, cfg, k_cache,
                                           v_cache, pos)
     x = x + a
     h = rmsnorm(x, params["ln2"])
-    return x + mlp(params["mlp"], h, dtype_of(cfg.compute_dtype))
+    if use_moe:
+        m, _ = moe_mod.moe_block(params["moe"], h, cfg)
+    else:
+        m = mlp(params["mlp"], h, dtype_of(cfg.compute_dtype))
+    return x + m
 
 
 def _ssm_block_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
@@ -123,14 +152,23 @@ def _layer_order(cfg: ModelConfig):
     return order
 
 
-def _attn_params(params, cfg: ModelConfig, i: int):
-    if cfg.family == "hybrid":
-        return params["shared"]
-    return _layer(params["blocks"], i)
+def _stack(params, cfg: ModelConfig):
+    """Per-layer views of the stacked blocks: (attention layers, SSM
+    layers), indexed as ``_layer_order`` indexes them."""
+    if cfg.family in ATTN_FAMILIES:
+        return _layers(params["blocks"], cfg.n_layers), []
+    if cfg.family == "ssm":
+        return [], _layers(params["blocks"], cfg.n_layers)
+    return ([params["shared"]] * cfg.n_attn_layers(),
+            _layers(params["mamba"], cfg.n_ssm_layers()))
 
 
-def _ssm_params(params, cfg: ModelConfig, i: int):
-    return _layer(params["mamba" if cfg.family == "hybrid" else "blocks"], i)
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` recomputed in the backward under ``cfg.remat`` "block" or
+    "dots" when a gradient is being taken; as it is otherwise."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
 # ------------------------------------------------------------------- init
@@ -147,8 +185,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     params: dict[str, Any] = embedding_params(gen, cfg, dtype)
     params["ln_f"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
     if cfg.family in ATTN_FAMILIES:
-        params["blocks"] = _attn_mlp_block_params(gen, cfg, dtype,
-                                                  (cfg.n_layers,))
+        params["blocks"] = _attn_mlp_block_params(
+            gen, cfg, dtype, (cfg.n_layers,), use_moe=cfg.family == "moe")
     elif cfg.family == "ssm":
         params["blocks"] = _ssm_block_params(gen, cfg, dtype,
                                              (cfg.n_layers,))
@@ -178,8 +216,12 @@ def cast_weights(params: dict, cfg: ModelConfig) -> dict:
 
 # ---------------------------------------------------------------- forward
 def _inputs_to_h(params, batch, cfg: ModelConfig):
-    return embed_tokens(params, batch["tokens"].long(),
-                        dtype_of(cfg.compute_dtype))
+    """Embed tokens (+ prepend stub-frontend patch embeddings for VLM)."""
+    cd = dtype_of(cfg.compute_dtype)
+    h = embed_tokens(params, batch["tokens"].long(), cd)
+    if cfg.family == "vlm":
+        h = torch.cat([batch["patch_embeds"].to(cd), h], dim=1)
+    return h
 
 
 def _positions(h):
@@ -192,25 +234,41 @@ def forward(params, batch, cfg: ModelConfig):
     _check_family(cfg)
     h = _inputs_to_h(params, batch, cfg)
     positions = _positions(h)
+    use_moe = cfg.family == "moe"
+    attn_layers, ssm_layers = _stack(params, cfg)
+
+    def attn_step(bp, x):
+        x, _, a = _attn_mlp_block(bp, x, cfg, positions, use_moe)
+        return x, a
+
+    def ssm_step(bp, x):
+        return _ssm_block(bp, x, cfg)
+    attn_step, ssm_step = _remat(attn_step, cfg), _remat(ssm_step, cfg)
+    aux = 0.0
     for kind, i in _layer_order(cfg):
-        if kind == "attn":
-            h, _ = _attn_mlp_block(_attn_params(params, cfg, i), h, cfg,
-                                   positions)
+        if kind == "ssm":
+            h = ssm_step(ssm_layers[i], h)
         else:
-            h = _ssm_block(_ssm_params(params, cfg, i), h, cfg)
+            h, a = attn_step(attn_layers[i], h)
+            aux = aux + a
     h = rmsnorm(h, params["ln_f"])
-    return logits_fn(params, h, cfg), 0.0
+    return logits_fn(params, h, cfg), aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
-    """Next-token cross entropy over all positions but the last."""
-    logits, _ = forward(params, batch, cfg)
+    """Next-token CE (+ MoE aux). VLM: loss only on text positions."""
+    logits, aux = forward(params, batch, cfg)
     tokens = batch["tokens"]
     b, st = tokens.shape
+    if cfg.family == "vlm":
+        # patches occupy the first n_patches positions; predict text only
+        np_ = cfg.n_patches
+        logits = logits[:, np_ - 1: np_ - 1 + st, :]
     labels = torch.roll(tokens, -1, dims=1)
     mask = torch.ones((b, st), dtype=torch.float32, device=logits.device)
     mask[:, -1] = 0.0
-    return cross_entropy(logits, labels, mask)
+    ce = cross_entropy(logits, labels, mask)
+    return ce + AUX_WEIGHT * aux / max(cfg.n_layers, 1)
 
 
 # ---------------------------------------------------------------- decode
@@ -246,14 +304,15 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None):
     positions = _positions(h)
     cache = init_cache(cfg, b, max_seq, h.device)
     cd = dtype_of(cfg.compute_dtype)
+    attn_layers, ssm_layers = _stack(params, cfg)
     for kind, i in _layer_order(cfg):
         if kind == "attn":
-            h, (k, v) = _attn_mlp_block(_attn_params(params, cfg, i), h,
-                                        cfg, positions)
+            h, (k, v), _ = _attn_mlp_block(attn_layers[i], h, cfg, positions,
+                                           cfg.family == "moe")
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
         else:
-            h, state, conv = _ssm_block(_ssm_params(params, cfg, i), h, cfg,
+            h, state, conv = _ssm_block(ssm_layers[i], h, cfg,
                                         return_cache=True)
             cache["ssm"]["state"][i] = state
             cache["ssm"]["conv"][i] = conv.to(cd)
@@ -269,14 +328,15 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     _check_family(cfg)
     h = embed_tokens(params, tokens.long(), dtype_of(cfg.compute_dtype))
     pos = cache["pos"]
+    attn_layers, ssm_layers = _stack(params, cfg)
     for kind, i in _layer_order(cfg):
         if kind == "attn":
-            h = _attn_mlp_decode(_attn_params(params, cfg, i), h, cfg,
-                                 cache["k"][i], cache["v"][i], pos)
+            h = _attn_mlp_decode(attn_layers[i], h, cfg, cache["k"][i],
+                                 cache["v"][i], pos, cfg.family == "moe")
         else:
             st, cv = cache["ssm"]["state"], cache["ssm"]["conv"]
-            h, state, conv = _ssm_block_decode(_ssm_params(params, cfg, i), h,
-                                               cfg, st[i], cv[i])
+            h, state, conv = _ssm_block_decode(ssm_layers[i], h, cfg, st[i],
+                                               cv[i])
             st[i] = state
             cv[i] = conv.to(cv.dtype)
     cache["pos"] = pos + 1

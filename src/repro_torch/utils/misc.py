@@ -33,6 +33,46 @@ def _leaves(tree):
         yield tree
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf over nested dicts of the same keys."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_flatten_with_path(tree) -> tuple[list[str], list]:
+    """The leaves of nested dicts in JAX's order (keys sorted at every
+    level) with their paths as ``jax.tree_util.tree_flatten_with_path``
+    prints them: ``"['params']/['blocks']/['wq']"``."""
+    paths, leaves = [], []
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], prefix + [f"[{k!r}]"])
+        else:
+            paths.append("/".join(prefix))
+            leaves.append(t)
+    walk(tree, [])
+    return paths, leaves
+
+
+def tree_unflatten(like, leaves) -> dict:
+    """Nested dicts shaped as ``like`` holding ``leaves`` in JAX's order
+    (the inverse of :func:`tree_flatten_with_path`)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def tree_bytes(tree) -> int:
     """Total bytes of all tensors / arrays in a nested tuple/list/dict
     (NamedTuple states included)."""

@@ -13,11 +13,11 @@ torch = pytest.importorskip("torch")
 # the segment-DP profiles, kinds and grid of chip_smoke.py
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 from chip_smoke import (K1_TOL, K3_EDGE_MG, K3_GS, K3_KINDS,  # noqa: E402
-                        K3_MS,
+                        K3_MS, K4_BWD_SHAPES,
                         K4_SHAPES, K5_SHAPES, K6_SHAPES, LM_TOL,
                         _composed_predict, _mlp_predict_inputs,
-                        check_lm_kernels, k3_profiles, k6_fp32_distance,
-                        lm_kernel_inputs, to_cpu)
+                        check_k4_backward, check_lm_kernels, k3_profiles,
+                        k6_fp32_distance, lm_kernel_inputs, to_cpu)
 
 from repro_torch.kernels import KERNEL_LAUNCHES  # noqa: E402
 from repro_torch.kernels.ensemble_mlp.ops import (ensemble_mlp_forward,  # noqa: E402
@@ -459,3 +459,53 @@ def test_gumbel_draws_on_the_card_are_the_host_bits(cuda):
         want = -prng.log_f32(-prng.log_f32(u))
         got = prng_device.gumbel(key, (8, 32256), cuda)
         assert np.array_equal(got.cpu().numpy(), want)
+
+
+# K4's backward (the autograd Function that training calls) against the
+# plain backward, with chip_smoke.py's check: fp32 and bf16, causal and
+# not, kv_len = S and S - 37, a repeat bitwise, the training forward's
+# output bitwise the serving kernel's and the serving call launching the
+# original kernel. The reference's test shapes, G = 6 and 8, the training
+# shapes of granite-3-2b, phi3.5-moe and internvl2-26b at full width, and a
+# ragged S with D = 32
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K4_BWD_SHAPES + [
+    (8, 256, 32, 8, 64), (2, 256, 32, 8, 128), (2, 512, 48, 8, 128),
+    (3, 200, 4, 1, 32)])
+def test_flash_attention_backward_matches_the_plain_backward(cuda, shape):
+    check_k4_backward([shape])
+
+
+@pytest.mark.cuda
+def test_a_train_step_on_the_card_runs_k4_and_its_backward(cuda):
+    """One reduced granite-3-2b step under remat "block": K4's training
+    forward twice per layer, each backward kernel once, and the step's
+    loss and gradient norm within 1e-5 of the CPU's from the same
+    parameters."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.misc import tree_map
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(),
+                              remat="block")
+    base = build_model(cfg).init(0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda t: t.clone().to(dev), base)
+        opt = make_optimizer("adamw")
+        before = {k: KERNEL_LAUNCHES[k] for k in (
+            "flash_attention_lse", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkdv")}
+        m, _, _ = make_train_step(cfg, opt)(params, opt.init(params),
+                                            {"tokens": toks.to(dev)})
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]))
+        moved = {k: KERNEL_LAUNCHES[k] - v for k, v in before.items()}
+    assert moved == {"flash_attention_lse": 2 * cfg.n_layers,
+                     "flash_attention_bwd_dq": cfg.n_layers,
+                     "flash_attention_bwd_dkdv": cfg.n_layers}
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-5)
+

@@ -176,9 +176,3 @@ def test_the_hybrid_prefill_keeps_the_chunk_contract():
     layer = {k: v[0] for k, v in params["ssm"].items()}
     with pytest.raises(ValueError, match="chunk"):
         ssm_block(layer, torch.zeros((1, 200, cfg.d_model)), cfg)
-
-
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "internvl2-26b"])
-def test_families_of_later_work_say_so(arch):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_model(get_config(arch).reduced())
