@@ -92,6 +92,16 @@ Phases (any failure exits non-zero, without the final result line):
      sizey_risk), integer choices, strategies and row counts equal; (c)-(e)
      run in worker processes beside (a) and (b); every K1, K2 and K3 shape
      launched that no earlier phase checked is checked as in 3.
+ 15. (after 12) training: K4's and K6's backward (autograd Functions) held
+     to their plain backward, repeats bitwise; the OOM ladder and a killed
+     run's restart at e2e-100m; granite-3-2b at full width and depth sized
+     by Sizey; mamba2-780m at full width and depth and zamba2-7b at full
+     width cut in depth, K6's forward and backward counted; card vs CPU at
+     the reduced configs; phi3.5-moe and internvl2-26b cut in depth; both
+     backward kernels timed.
+ 16. (last) the distributed layer on a 1-device nccl mesh: the sharded
+     train step bitwise the unsharded one, compressed_psum over the group
+     bitwise the one-device round trip, the elastic controller unchanged.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``. Imports
@@ -2689,11 +2699,13 @@ def lm_phases() -> dict:
 
 
 # ----------------------------------------------------------- phase 15
-# Training on the card (after 14 and the LM phases): K4's backward against
-# the plain backward; the OOM ladder and a killed run's restart at
+# Training on the card (after 14 and the LM phases): K4's and K6's backward
+# against the plain backward; the OOM ladder and a killed run's restart at
 # e2e-100m; granite-3-2b at full width and depth through launch.train
-# --sizey, sized by the models that (c)'s jobs trained; card vs CPU at the
-# reduced configs; phi3.5-moe and internvl2-26b at full width cut in depth.
+# --sizey, sized by the models that (c)'s jobs trained; mamba2-780m at full
+# width and depth and zamba2-7b at full width cut in depth (f); card vs CPU
+# at the reduced configs; phi3.5-moe and internvl2-26b at full width cut in
+# depth.
 TRAIN_ARCH = "granite-3-2b"
 TRAIN_FULL_STEPS = 6
 TRAIN_FULL_ARGV = ["--arch", TRAIN_ARCH, "--scale", "full", "--steps",
@@ -2719,20 +2731,46 @@ RESTART_STEPS, RESTART_EVERY, RESTART_KILL = 6, 3, 4
 # version at the row's: ~7e-3 on the CPU rehearsal)
 K4_BWD_SHAPES = K4_SHAPES + [(1, 256, 12, 2, 64), (1, 256, 8, 1, 128)]
 K4_BWD_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# K6's backward at the reference's scan test shapes (K6_SHAPES, (B, H, S,
+# P, N, Q): a ragged last chunk at S = 200, N = 128) and at the two
+# training shapes of (f), mamba2-780m's and zamba2-7b's, fp32 and bf16,
+# with and without a gradient of the final state; x, B and C are strided
+# slices of one tensor, as the convolution gives them. Tolerance: the
+# largest |kernel - plain| over the largest |plain| of each gradient, the
+# plain backward computed in fp64, so that the measure is the kernel's own
+# rounding. fp32 2e-5 (summation order: at most 6.6e-6 on a CPU rehearsal
+# of the kernel and 8.11e-6 on an H100, where the fp32 plain backward
+# itself lies up to 1.1e-5 from fp64 in da, a sum over every position);
+# bf16 3e-2 (dx, dB and dC are rounded to bf16, 3.9e-3, as K4's; 3.77e-3
+# on an H100)
+K6_TRAIN_SHAPES = [(8, 48, 1024, 64, 128, 128), (2, 112, 1024, 64, 64, 128)]
+K6_BWD_SHAPES = K6_SHAPES + K6_TRAIN_SHAPES
+K6_BWD_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# (f): mamba2-780m at full width and depth through launch.train, batch 8 x
+# 1,024 (8 chunks of 128, so the inter-chunk recurrence and its reverse
+# run), 6 steps; zamba2-7b at full width cut to 6 layer positions (4 Mamba2
+# layers and 2 applications of the shared attention block: its 81
+# positions' fp32 parameters, gradients and AdamW state pass 74 GB), batch
+# 2 x 1,024, 3 steps
+SSM_ARGV = ["--arch", "mamba2-780m", "--scale", "full", "--steps", "6",
+            "--batch", "8", "--seq", "1024"]
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_BATCH, HYBRID_STEPS = "zamba2-7b", 6, 2, 3
 # (d): the reduced configs in fp32, 3 steps on the card and on the CPU from
 # the same parameters: losses and gradient norms within 1e-3 relative
 # (AdamW's first update g / (|g| + eps) turns the 1e-7 differences of tiny
 # gradients into visible ones, 1.3e-2 x lr in a weight between the
 # packages on a CPU, tests/test_torch_train.py), 1e-2 with int8 gradients
 # (an element that rounds to another int8 step flips its update)
-CVC_TRAIN_ARCHS = ("granite-3-2b", "phi3.5-moe-42b-a6.6b")
+CVC_TRAIN_ARCHS = ("granite-3-2b", "phi3.5-moe-42b-a6.6b", "mamba2-780m",
+                   "zamba2-7b")
 CVC_TRAIN_RTOL = {False: 1e-3, True: 1e-2}
 MOE_ARCH, MOE_TRAIN_LAYERS, MOE_SERVE_LAYERS = "phi3.5-moe-42b-a6.6b", 2, 16
 MOE_TRAIN_BATCH, MOE_SERVE_NEW = 2, 16
 MOE_SERVE_LENS = (256, 512)
 VLM_ARCH, VLM_LAYERS, VLM_BATCH, VLM_TEXT = "internvl2-26b", 2, 2, 256
-TRAIN_KERNELS = ("flash_attention", "flash_attention_lse",
-                 "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+K4_TRAIN_KERNELS = ("flash_attention", "flash_attention_lse",
+                    "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+TRAIN_KERNELS = K4_TRAIN_KERNELS + ("ssd_scan", "ssd_scan_bwd")
 
 
 def _grad_err(got, want) -> float:
@@ -2763,7 +2801,8 @@ def check_k4_backward(shapes, label="bwd") -> float:
             tol = K4_BWD_TOL[str(dtype)[6:]]
             for causal in (True, False):
                 for kv_len in sorted({s, max(1, s - 37)}):
-                    before = {n: KERNEL_LAUNCHES[n] for n in TRAIN_KERNELS}
+                    before = {n: KERNEL_LAUNCHES[n]
+                              for n in K4_TRAIN_KERNELS}
                     runs = []
                     for _ in range(2):
                         leaves = [t.clone().requires_grad_()
@@ -2779,7 +2818,7 @@ def check_k4_backward(shapes, label="bwd") -> float:
                         q, k, v, dout, causal=causal, kv_len=kv_len)
                     torch.cuda.synchronize()
                     moved = {n: KERNEL_LAUNCHES[n] - before[n]
-                             for n in TRAIN_KERNELS}
+                             for n in K4_TRAIN_KERNELS}
                     what = (f"(B,S,H,Hkv,D)={shape} {str(dtype)[6:]} "
                             f"causal={causal} kv_len={kv_len}")
                     if moved != {"flash_attention": 1,
@@ -2809,6 +2848,105 @@ def check_k4_backward(shapes, label="bwd") -> float:
                     if not ok:
                         _fail(f"K4 backward disagrees with the plain "
                               f"backward at {what}")
+    return worst
+
+
+def _k6_grad_inputs(shape, dtype, seed, dev):
+    """K6's inputs as the model gives them: x, B and C strided slices of
+    one (B, S, H P + 2 N) tensor ``xbc``; dt, a; and dy, dfinal fp32."""
+    import torch
+    b, h, s, p, n, _q = shape
+    randn = _gen_inputs(seed, dev)
+    xbc = torch.cat([randn(b, s, h * p), randn(b, s, 2 * n, scale=0.5)],
+                    -1).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, s, h) - 1.0)
+    a = -torch.exp(torch.linspace(-1.0, 0.5, h, device=dev))
+    return xbc, dt, a, randn(b, s, h, p), randn(b, h, p, n)
+
+
+def _k6_split(xbc, shape):
+    b, h, s, p, n, _q = shape
+    return (xbc[..., :h * p].view(b, s, h, p), xbc[..., h * p:h * p + n],
+            xbc[..., h * p + n:])
+
+
+def check_k6_backward(shapes, label="bwd") -> float:
+    """K6's backward (through the autograd Function, as training calls it,
+    the gradients flowing into the strided slices of one tensor) against
+    the plain backward in fp64 on the card: fp32 and bf16, with and without
+    a gradient of the final state; a repeat bitwise; the kernel's own
+    outputs in the promised types and bitwise what autograd received; the
+    training forward's output bitwise the serving call's, which launches
+    the serving kernel once. Returns the largest absolute difference."""
+    import torch
+    from repro_torch.kernels import KERNEL_LAUNCHES
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_backward_plain
+    dev = torch.device(DEV)
+    names = ("dx", "ddt", "dB", "dC", "da")
+    worst = 0.0
+    for i, shape in enumerate(shapes):
+        b, h, s, p, n, q = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            xbc, dt, a, dy, dfin = _k6_grad_inputs(shape, dtype, 300 + i, dev)
+            tol = K6_BWD_TOL[str(dtype)[6:]]
+            for fin in (False, True):
+                df = dfin if fin else None
+                before = {k: KERNEL_LAUNCHES[k] for k in ("ssd_scan",
+                                                          "ssd_scan_bwd")}
+                runs = []
+                for _ in range(2):
+                    leaves = [t.clone().requires_grad_() for t in (xbc, dt, a)]
+                    x, bm, cm = _k6_split(leaves[0], shape)
+                    y, st = ops.ssd_scan(x, leaves[1], bm, cm, leaves[2],
+                                         q_chunk=q)
+                    outs, gouts = ([y, st], [dy, df]) if fin else ([y], [dy])
+                    gx, gdt, ga = torch.autograd.grad(outs, leaves, gouts)
+                    gxh, gb, gc = _k6_split(gx, shape)
+                    runs.append((y.detach(), gxh, gdt, gb, gc, ga))
+                x, bm, cm = _k6_split(xbc, shape)
+                with torch.no_grad():
+                    served, _ = ops.ssd_scan(x, dt, bm, cm, a, q_chunk=q)
+                direct = ops._launch_backward(x, dt, bm, cm, a, dy, df, q)
+                want = ssd_scan_backward_plain(x, dt, bm, cm, a, dy, df,
+                                               q_chunk=q, dtype=torch.float64)
+                torch.cuda.synchronize()
+                moved = {k: KERNEL_LAUNCHES[k] - v for k, v in before.items()}
+                what = (f"(B,H,S,P,N,Q)={shape} {str(dtype)[6:]} "
+                        f"dfinal={'yes' if fin else 'none'}")
+                if moved != {"ssd_scan": 3, "ssd_scan_bwd": 3}:
+                    _fail(f"K6 backward {what}: launches {moved}")
+                if not all(torch.equal(u, v) for u, v in zip(runs[0],
+                                                             runs[1])):
+                    _fail(f"K6 backward {what}: a repeat differs")
+                # dB and dC reach xbc's gradient through autograd's sum of
+                # the slices' gradients: bitwise the kernel's own outputs
+                got = runs[0][1:]
+                if not all(torch.equal(u, v.reshape(u.shape))
+                           for u, v in zip(got, direct)):
+                    _fail(f"K6 backward {what}: autograd's gradients are not "
+                          f"the kernel's outputs")
+                kinds = [t.dtype for t in direct]
+                if kinds != [dtype, torch.float32, dtype, dtype,
+                             torch.float32]:
+                    _fail(f"K6 backward {what}: gradients in {kinds}")
+                if not torch.equal(runs[0][0], served):
+                    _fail(f"K6 {what}: the training forward's output is not "
+                          f"the serving kernel's")
+                errs = [_grad_err(g, w) for g, w in zip(got, want)]
+                worst = max(worst, *(float((g.double() - w).abs().max())
+                                     for g, w in zip(got, want)))
+                ok = max(errs) <= tol
+                print(f"[{label}] ssd_scan_bwd {what}: "
+                      + " ".join(f"{nm} {e:.2e}" for nm, e in zip(names,
+                                                                  errs))
+                      + f" of the largest (tol {tol:g}), repeat bitwise "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    _fail(f"K6 backward disagrees with the plain backward "
+                          f"at {what}")
+                del runs, direct, want
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -2849,32 +2987,45 @@ class _LaunchWatch:
         return False
 
 
+PROBED = (("blocks", "attn", "wq"), ("blocks", "ssm", "in_proj"),
+          ("mamba", "ssm", "in_proj"), ("shared", "attn", "wq"),
+          ("blocks", "moe", "we_gate"))
+
+
 def _param_probe(params):
-    """A few parameter values from the first layer's query projection,
-    the first expert's gate and the final norm: enough to see them move."""
+    """A few parameter values from the first layer's query projection (or
+    Mamba2 input projection), the first expert's gate and the final norm:
+    enough to see them move."""
     import torch
-    blocks = params["blocks"]
-    parts = [blocks["attn"]["wq"][0, 0, :64].float(),
-             params["ln_f"][:64].float()]
-    if "moe" in blocks:
-        parts.append(blocks["moe"]["we_gate"][0, 0, 0, :64].float())
+    parts = [params["ln_f"][:64].float()]
+    for path in PROBED:
+        t = params
+        for k in path:
+            t = t.get(k) if isinstance(t, dict) else None
+        if t is not None:
+            parts.append(t.reshape(-1)[:64].float())
     return torch.cat(parts)
 
 
-def _check_train_launches(label, watch, n_layers, remat_factor):
+def _check_train_launches(label, watch, n_layers, remat_factor,
+                          n_ssm: int = 0):
     """K4's training forward once per attention layer per step
     (remat_factor times: 2 under remat "block"), each backward kernel
-    once; the serving forward never."""
+    once; the serving forward never. K6's forward (the same launch with a
+    gradient or without) remat_factor times per Mamba2 layer per step, its
+    backward once."""
     steps = watch.steps
     got = {n: watch.launches.get(n, 0) for n in TRAIN_KERNELS}
     want = {"flash_attention": 0,
             "flash_attention_lse": remat_factor * n_layers * steps,
             "flash_attention_bwd_dq": n_layers * steps,
-            "flash_attention_bwd_dkdv": n_layers * steps}
-    print(f"[train {label}] {steps} steps x {n_layers} attention layers: "
-          f"launches {got}")
+            "flash_attention_bwd_dkdv": n_layers * steps,
+            "ssd_scan": remat_factor * n_ssm * steps,
+            "ssd_scan_bwd": n_ssm * steps}
+    print(f"[train {label}] {steps} steps x {n_layers} attention layers "
+          f"and {n_ssm} Mamba2 layers: launches {got}")
     if got != want or not steps:
-        _fail(f"train {label}: K4 launches {got}, expected {want}")
+        _fail(f"train {label}: launches {got}, expected {want}")
 
 
 def _recording_sizer(sizer, calls: list):
@@ -3046,6 +3197,70 @@ def train_full_width(sizer) -> dict:
     torch.cuda.empty_cache()
     return {"launches": watch.launches, "shapes": watch.shapes,
             "steps": watch.steps, "step_s": step_s}
+
+
+def train_ssm_hybrid() -> dict:
+    """(f) mamba2-780m at full width and depth through launch.train, and
+    zamba2-7b at full width cut to HYBRID_LAYERS positions through the
+    trainer: K6's forward and backward (and zamba2's K4) on every step,
+    counters zeroed just before each."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    out = {}
+    runs = (("ssm", launch.scaled_config(get_config(SSM_ARGV[1]),
+                                         SSM_ARGV[3]),
+             int(SSM_ARGV[7]), int(SSM_ARGV[9])),
+            ("hybrid", get_config(HYBRID_ARCH).with_layers(HYBRID_LAYERS),
+             HYBRID_BATCH, 1024))
+    for kind, cfg, batch, seq in runs:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _LaunchWatch() as watch:
+            if kind == "ssm":
+                trainer = launch.main(SSM_ARGV + ["--device", DEV])
+            else:
+                trainer = Trainer(cfg, TrainerConfig(
+                    steps=HYBRID_STEPS, global_batch=batch, seq_len=seq,
+                    log_every=1), device=DEV)
+                trainer.train()
+            torch.cuda.synchronize()
+            moved = float((_param_probe(trainer.params)
+                           - watch.first[-1]).abs().max())
+        wall = time.perf_counter() - t0
+        _check_train_launches(f"f {kind}", watch, cfg.n_attn_layers(),
+                              2 if cfg.remat in ("block", "dots") else 1,
+                              cfg.n_ssm_layers())
+        hist = trainer.history
+        losses = [r["loss"] for r in hist]
+        if not all(np.isfinite(losses)) or not moved > 0:
+            _fail(f"train f: {cfg.name} losses {losses}, parameters moved "
+                  f"{moved}")
+        walls = sorted(r["step_s"] for r in hist[1:])
+        step_s = walls[len(walls) // 2]
+        peak = torch.cuda.max_memory_allocated() / 1024**3
+        print(f"[train f] {cfg.name}: {cfg.n_layers} layer positions "
+              f"({cfg.n_ssm_layers()} Mamba2), {cfg.param_count():,} "
+              f"parameters, batch {batch} x {seq}, {len(hist)} steps, losses "
+              f"{[round(x, 4) for x in losses]}; step wall median "
+              f"{step_s:.3f} s ({batch * seq / step_s:.1f} tokens/s), first "
+              f"{hist[0]['step_s']:.3f} s; footprint "
+              f"{trainer.footprint_gb():.2f} GB, card peak {peak:.2f} GB; "
+              f"K6 forward {watch.launches.get('ssd_scan', 0)}, backward "
+              f"{watch.launches.get('ssd_scan_bwd', 0)} launches; wall "
+              f"{wall:.1f} s")
+        out[kind] = {"launches": watch.launches, "shapes": watch.shapes,
+                     "step_s": step_s}
+        del trainer
+        torch.cuda.empty_cache()
+    launched = set(out["ssm"]["shapes"]["ssd_scan"]) | set(
+        out["hybrid"]["shapes"]["ssd_scan"])
+    if launched != set(K6_TRAIN_SHAPES):
+        _fail(f"train f: K6 shapes {sorted(launched)}, expected "
+              f"{K6_TRAIN_SHAPES} (held to the plain backward in (a))")
+    return out
 
 
 def train_card_vs_cpu() -> None:
@@ -3295,8 +3510,59 @@ def time_k4_backward(shape) -> dict:
             "library_ms": both - fwd_ms}
 
 
-def train_phase() -> dict:
-    """Phase 15: training on the card. Returns K4's backward JSON row."""
+def _k6_bwd_work(b, h, s, p, n, q, itemsize):
+    # x, B and C (compute type), dt, a and dy (fp32) read once; dx, dB and
+    # dC (compute type), ddt and da (fp32) written once. Products: C.B^T
+    # over the causal pairs per (b, chunk), shared by the heads; per (b, h,
+    # chunk) dy.xs^T, M^T.dy, (D o L).B and (D o L)^T.C over the causal
+    # pairs, and five (Q, P, N) products (the chunk state recomputed,
+    # dy^T.prev, x^T.dS, B.dS^T and the dS update). Returns (bytes, FLOPs,
+    # the FLOPs of products with an fp32 operand)
+    nc = -(-s // q)
+    pairs = q * (q + 1) // 2
+    shared = 2 * b * nc * pairs * n
+    per_head = 2 * b * nc * h * (pairs * (2 * p + 2 * n) + 5 * q * p * n)
+    nbytes = itemsize * (2 * b * s * h * p + 4 * b * s * n) \
+        + 4 * (2 * b * s * h + 2 * h + b * s * h * p)
+    return nbytes, shared + per_head, per_head
+
+
+def time_k6_backward(shape) -> dict:
+    """K6's backward (its two launches) at a training shape in bf16 on the
+    model's strided slices, beside the plain backward (fp32) and the
+    forward at the same shape; no PyTorch call computes an SSD scan's
+    gradient, so no library time. Bound: the bytes, or the products at
+    the bf16 tensor rate with each fp32 operand in three passes (the
+    forward's convention); the fp32 CUDA-core rate's bound printed
+    beside."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_backward_plain
+    dev = torch.device(DEV)
+    b, h, s, p, n, q = shape
+    xbc, dt, a, dy, _ = _k6_grad_inputs(shape, torch.bfloat16, 13, dev)
+    x, bm, cm = _k6_split(xbc, shape)
+    ms = _time_ms(lambda: ops._launch_backward(x, dt, bm, cm, a, dy, None, q),
+                  10, 3)
+    fwd = _time_ms(lambda: ops._launch_forward(x, dt, bm, cm, a, q), 20, 5)
+    plain = _time_ms(lambda: ssd_scan_backward_plain(x, dt, bm, cm, a, dy,
+                                                     q_chunk=q), 3, 1)
+    nbytes, flops, fp32_op = _k6_bwd_work(*shape, 2)
+    bound, by = _bound_at(nbytes, flops + 2 * fp32_op, BF16_FLOPS_PER_S)
+    b32, by32 = _bound_at(nbytes, flops, FP32_FLOPS_PER_S)
+    print(f"[time] ssd_scan_bwd (B,H,S,P,N,Q)={shape} bf16: {ms:.5f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s of fp32 FMA), plain {plain:.5f} "
+          f"ms, the forward {fwd:.5f} ms; bound {bound:.5f} ms ({by}, bf16 "
+          f"tensor rate in three passes), {b32:.5f} ms ({by32}) at the fp32 "
+          f"rate; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; library: "
+          f"none (no PyTorch call computes an SSD scan's gradient)")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def train_phase() -> list:
+    """Phase 15: training on the card. Returns the JSON rows of K4's and
+    K6's backward."""
     import gc
     import shutil
     import torch
@@ -3309,6 +3575,7 @@ def train_phase() -> dict:
     print(f"[train] {torch.cuda.memory_allocated() / 1024**3:.2f} GB "
           f"allocated on the card at the start of phase 15")
     err = check_k4_backward(K4_BWD_SHAPES)
+    err6 = check_k6_backward(K6_BWD_SHAPES)
     tmp = REPO / "build" / "phase15"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
@@ -3323,6 +3590,7 @@ def train_phase() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     _replay_sizer_on_cpu(sizer._calls)
     del sizer
+    ssm = train_ssm_hybrid()
     train_card_vs_cpu()
     more = train_moe_vlm()
     launched = set(full["shapes"]["flash_attention"])
@@ -3336,14 +3604,135 @@ def train_phase() -> dict:
     row = time_k4_backward(k4s)
     for s in sorted(launched - {k4s}):
         time_k4_backward(s)
+    row6 = time_k6_backward(K6_TRAIN_SHAPES[0])
+    time_k6_backward(K6_TRAIN_SHAPES[1])
     wall = time.perf_counter() - t_start
     print(f"[train] phase 15 wall {wall:.1f} s")
     torch.cuda.empty_cache()
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/kernel.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
-            "launches": full["launches"].get("flash_attention_bwd_dq", 0),
-            "max_abs_err": err, **row}
+    return [{"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/kernel.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
+             "launches": full["launches"].get("flash_attention_bwd_dq", 0),
+             "max_abs_err": err, **row},
+            {"name": "ssd_scan_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/ssd_scan/kernel.cu",
+             "replaces": "src/repro/kernels/ssd_scan/kernel.py:71",
+             "launches": ssm["ssm"]["launches"].get("ssd_scan_bwd", 0),
+             "max_abs_err": err6, **row6}]
+
+
+# ----------------------------------------------------------- phase 16
+# The distributed layer on the card (after 15). The card is one H100, so
+# the mesh has one device: a 1-rank nccl group (rendezvous through a file
+# in the git-ignored build directory) and a (1, 1) ("data", "model") mesh.
+# The reduced granite-3-2b train step sharded by param_specs under
+# axis_rules (ZeRO-3 over DTensors, the loss and gradients through
+# local_map, so K4 and its backward run on the local tensors) against the
+# unsharded step; compressed_psum over the group against the one-device
+# round trip; ElasticController over the one-device fleet. No multi-GPU
+# number is measured here.
+DIST_BATCH, DIST_SEQ = 4, 64
+
+
+def distributed_phase() -> None:
+    """Phase 16: the sharded step, compressed_psum and the elastic
+    controller on a 1-device nccl mesh, each bitwise its one-device
+    counterpart."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.distributed.sharding import (axis_rules, batch_specs,
+                                                  distribute, local_tree,
+                                                  param_specs)
+    from repro_torch.kernels import KERNEL_LAUNCHES
+    from repro_torch.launch.elastic import ElasticController
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.compression import compressed_psum
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.utils.misc import tree_flatten_with_path, tree_map
+    t0 = time.perf_counter()
+    tmp = REPO / "build" / "phase16"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'store'}",
+                            rank=0, world_size=1,
+                            device_id=torch.device(DEV, 0))
+    try:
+        mesh = make_test_mesh(1, 1, device_type=DEV)
+        cfg = get_config("granite-3-2b").reduced()
+        model = build_model(cfg)
+        base = model.init(LM_SEED, device=DEV)
+        tokens = np.random.default_rng(LM_SEED).integers(
+            0, cfg.vocab, (DIST_BATCH, DIST_SEQ)).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(tokens).to(DEV)}
+        opt = make_optimizer("adamw")
+        runs = {}
+        for kind in ("unsharded", "sharded"):
+            params = tree_map(torch.clone, base)
+            before = {n: KERNEL_LAUNCHES[n] for n in K4_TRAIN_KERNELS}
+            if kind == "unsharded":
+                m, params, _ = step_mod.make_train_step(cfg, opt)(
+                    params, opt.init(params), batch)
+            else:
+                with axis_rules(mesh):
+                    params = distribute(params, mesh,
+                                        param_specs(params, mesh))
+                    state = opt.init(local_tree(params))
+                    db = distribute(batch, mesh, batch_specs(batch, mesh))
+                    m, params, _ = step_mod.make_train_step(
+                        cfg, opt, mesh=mesh)(params, state, db)
+                params = tree_map(lambda t: t.full_tensor(), params)
+            torch.cuda.synchronize()
+            moved = {n: KERNEL_LAUNCHES[n] - before[n]
+                     for n in K4_TRAIN_KERNELS}
+            runs[kind] = (m, tree_flatten_with_path(params)[1], moved)
+        (mu, pu, ku), (ms, ps, ks) = runs["unsharded"], runs["sharded"]
+        same = torch.equal(mu["loss"], ms["loss"]) and torch.equal(
+            mu["grad_norm"], ms["grad_norm"]) and all(
+            torch.equal(a, b) for a, b in zip(pu, ps))
+        print(f"[dist] {cfg.name} reduced, batch {DIST_BATCH} x {DIST_SEQ}, "
+              f"on a (1, 1) nccl mesh: loss {float(ms['loss'])!r} (unsharded "
+              f"{float(mu['loss'])!r}), grad norm {float(ms['grad_norm'])!r}; "
+              f"loss, grad norm and {len(ps)} updated parameters "
+              f"{'bitwise' if same else 'NOT bitwise'} the unsharded step's; "
+              f"K4 launches sharded {ks}, unsharded {ku}")
+        if not same:
+            _fail("phase 16: the sharded step is not the unsharded step")
+        if ks != ku or not ks["flash_attention_bwd_dq"]:
+            _fail(f"phase 16: K4 launches {ks}, the unsharded step's {ku}")
+        # compressed_psum over the 1-rank "data" group against the round
+        # trip with no group
+        _, grads = step_mod._value_and_grad(model.loss, base, batch)
+        key = prng.prng_key(LM_SEED)
+        alone = compressed_psum(grads, "data", key)
+        with axis_rules(mesh):
+            grouped = compressed_psum(grads, "data", key)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_flatten_with_path(alone)[1],
+            tree_flatten_with_path(grouped)[1]))
+        print(f"[dist] compressed_psum over the 1-rank group: "
+              f"{'bitwise' if same else 'NOT bitwise'} the one-device round "
+              f"trip ({len(tree_flatten_with_path(grads)[1])} leaves)")
+        if not same:
+            _fail("phase 16: compressed_psum over the group differs")
+        ctl = ElasticController(tree_map(torch.clone, base), device_type=DEV)
+        changed = ctl.maybe_rescale()
+        print(f"[dist] ElasticController over the 1-device fleet: mesh "
+              f"{tuple(ctl.mesh.shape)}, rescaled {changed}, events "
+              f"{ctl.events}")
+        if changed or ctl.events or ctl.mesh.size() != 1:
+            _fail("phase 16: the elastic controller saw a change")
+        del ctl, runs, grads, alone, grouped
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[dist] phase 16 wall {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -3365,8 +3754,10 @@ def main() -> int:
     t_start = time.perf_counter()
     build_kernels()
     if sys.argv[1:2] == ["--train-only"]:
-        # phases 1, 2 and 15 alone, for work on the training slice
-        print(json.dumps({"kernels": [train_phase()]}))
+        # phases 1, 2, 15 and 16 alone, for work on the training slice
+        rows = train_phase()
+        distributed_phase()
+        print(json.dumps({"kernels": rows}))
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
     errors = check_kernels()
@@ -3484,7 +3875,9 @@ def main() -> int:
     ]
     kernels += lm_phases()
     # phase 15: training on the card, K4's backward
-    kernels.append(train_phase())
+    kernels += train_phase()
+    # phase 16: the distributed layer on a 1-device mesh
+    distributed_phase()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -90,6 +90,11 @@ SIGNATURES = {
         # dtype, x, dt, B, C, a, y, final_state, B, S, H, P, N, Q,
         # x strides (B, S, H), B strides (B, S), C strides (B, S), stream
         "ssd_scan_fwd": (_I,) + (_P,) * 7 + (_I,) * 6 + (_L,) * 7 + (_P,),
+        # dtype, x, dt, B, C, a, dy, dfinal (or null), the scratch prevs,
+        # dB and dC partials and da partials, dx, ddt, dB, dC, da, B, S, H,
+        # P, N, Q, x strides (B, S, H), B strides (B, S), C strides (B, S),
+        # stream
+        "ssd_scan_bwd": (_I,) + (_P,) * 16 + (_I,) * 6 + (_L,) * 7 + (_P,),
     },
 }
 

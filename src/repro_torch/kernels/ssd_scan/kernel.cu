@@ -812,6 +812,610 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
     }
 }
 
+// ---------------------------------------------------------------- backward
+// K6's backward: the VJP of the scan above (the reference takes it by
+// autodiff of src/repro/models/ssm.py::_ssd_chunked; the TPU kernel has
+// none). Its chunked form is mamba_ssm's ssd_combined backward (state
+// passing, chunk state, chunk scan). One block per (head, sequence), 256
+// threads as 16 x 16, in fp32 FMA on the CUDA cores for both input types
+// (x, B and C are read in their own type and widened).
+//
+// First a forward walk over the chunks recomputes each chunk's entry state
+// and writes it to device scratch (B, H, chunks, P, N) fp32: the forward
+// kernels keep the state on chip (the bf16 one in mma fragments), so a
+// serving launch stays the same code and writes nothing more. Then a
+// reverse walk carries dS, the gradient of the state leaving the chunk,
+// from dfinal (zero if none) in shared memory, and per chunk, with
+// L[t][k] = exp(cum_t - cum_k) for k <= t, M = (C B^T) o L, D[t][k] =
+// dt_k (dy_t . x_k) and w_k = exp(cum_end - cum_k):
+//   dxs = M^T dy + diag(w) B dS^T               (dx = dxs dt)
+//   dC  = (D o L) B + diag(exp(cum)) dy prev
+//   dB  = (D o L)^T C + diag(w dt) x dS
+//   dcum_t = rowsum(M o D)_t - colsum(M o D)_t + exp(cum_t) dy_t . (prev C_t)
+//            - U_t, U_k = w_k dt_k x_k^T dS B_k, and on the chunk's last
+//            row + sum_k U_k + exp(cum_end) <dS, prev>
+//   dda = reverse cumsum(dcum); ddt = dda a + dxs . x; da_h = sum dda dt
+//   dS <- exp(cum_end) dS + (dy o exp(cum))^T C   (the previous chunk's)
+// dB and dC are sums over heads (B and C are shared by the H heads) and da
+// over sequences and chunks: each block writes its own partials (B, S, H,
+// N) and (B, H, chunks) in fp32, and a second kernel adds them in a fixed
+// order, so there are no atomics and a repeat is bitwise.
+//
+// What bounds it on an H100: at mamba2-780m's training shape (B = 8, S =
+// 1024, H = 48, P = 64, N = 128, Q = 128, bf16) the products it needs are
+// 51.8 GFLOP over the causal pairs, 0.77 ms at the fp32 CUDA-core rate,
+// against 0.064 ms for its 213 MB of bytes: so operations. This kernel
+// computes the whole (t, k) square in fp32 FMA, the simple design; the
+// tensor cores, as the forward uses them, are the way to its bound.
+// Shared memory holds x, dy, the Q x Q matrix (M, then D o L), dS and
+// 32-column tiles of B, C and prev (212 KB at that shape, one block an
+// SM); each product is register-blocked (8 x 8, 8 x 4 or 8 x 2 a thread)
+// as the fp32 forward's are.
+constexpr int kBwdNT = 32;   // state columns a tile of B, C and prev
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Stage rows 0..Q-1 of W columns (row stride ld elements) as floats in
+// dst[r * dld + j]; zeros at rows >= nv and columns >= lim.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* src, long long ld,
+                                           int nv, int Q, int W, int lim,
+                                           float* dst, int dld) {
+  for (int i = threadIdx.x; i < Q * W; i += kThreads) {
+    const int r = i / W, j = i % W;
+    dst[r * dld + j] = (r < nv && j < lim) ? to_float(src[r * ld + j]) : 0.0f;
+  }
+}
+
+template <typename T>
+struct BwdArgs {
+  const T* x;           // (B, S, H, P), strides x_sb, x_ss, x_sh
+  const float* dt;      // (B, S, H)
+  const T* bm;          // (B, S, N), strides b_sb, b_ss
+  const T* cm;          // (B, S, N), strides c_sb, c_ss
+  const float* a;       // (H,)
+  const float* dy;      // (B, S, H, P)
+  const float* dfinal;  // (B, H, P, N) or null
+  float* prevs;         // scratch (B, H, chunks, P, N)
+  T* dx;                // (B, S, H, P)
+  float* ddt;           // (B, S, H)
+  float* dbp;           // partials (B, S, H, N)
+  float* dcp;           // partials (B, S, H, N)
+  float* dap;           // partials (B, H, chunks)
+  int S, H, P, N, Q;
+  long long x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss;
+};
+
+size_t bwd_smem_bytes(int P, int N, int Q) {
+  const size_t q = Q, p = P, t1 = kBwdNT + 1;
+  return sizeof(float) * (2 * q * (p + 1) + q * (q + 1) + p * (N + 1) +
+                          2 * q * t1 + p * t1 + 6 * q + kThreads);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_scan_bwd_kernel(const BwdArgs<T> g) {
+  extern __shared__ float4 smem4[];
+  const int S = g.S, H = g.H, P = g.P, N = g.N, Q = g.Q;
+  const int P1 = P + 1, N1 = N + 1, Q1 = Q + 1, T1 = kBwdNT + 1;
+  float* sX = reinterpret_cast<float*>(smem4);  // [Q][P + 1] x
+  float* sDy = sX + Q * P1;                      // [Q][P + 1] dy
+  float* sQQ = sDy + Q * P1;                     // [Q][Q + 1] M, then D o L
+  float* sS = sQQ + Q * Q1;                      // [P][N + 1] state, then dS
+  float* sBt = sS + P * N1;                      // [Q][NT + 1] B tile
+  float* sCt = sBt + Q * T1;                     // [Q][NT + 1] C tile
+  float* sPv = sCt + Q * T1;                     // [P][NT + 1] prev tile
+  float* sDt = sPv + P * T1;                     // [Q] dt
+  float* sCum = sDt + Q;                         // [Q] cum
+  float* sW = sCum + Q;                          // [Q] w (forward: w dt)
+  float* sE = sW + Q;                            // [Q] exp(cum)
+  float* sDc = sE + Q;                           // [Q] dcum, then dda
+  float* sU = sDc + Q;                           // [Q] U
+  float* sRed = sU + Q;                          // [kThreads] <dS, prev>
+  // between tiles, sBt and sCt hold [Q][16] partial sums (one per tx)
+  float* sPartA = sBt;
+  float* sPartB = sCt;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int nc = (S + Q - 1) / Q;
+  const float ah = g.a[h];
+  const T* xb = g.x + b * g.x_sb + h * g.x_sh;
+  const T* bb = g.bm + b * g.b_sb;
+  const T* cb = g.cm + b * g.c_sb;
+  const float* dtb = g.dt + static_cast<size_t>(b) * S * H + h;
+  const float* dyb = g.dy + (static_cast<size_t>(b) * S * H + h) * P;
+  const long long dy_ld = static_cast<long long>(H) * P;
+  float* prevb = g.prevs + (static_cast<size_t>(b) * H + h) * nc * P * N;
+  // this thread's rows (ty + 16 i) and columns (tx + 16 j) of a Q x Q
+  // tile, of P and of a state tile, clamped for the loads (results at
+  // clamped indices are computed and dropped)
+  int qi[8], qk[8], pj[4], pi[4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    qi[i] = min(ty + 16 * i, Q - 1);
+    qk[i] = min(tx + 16 * i, Q - 1);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    pj[j] = min(tx + 16 * j, P - 1);
+    pi[j] = min(ty + 16 * j, P - 1);
+  }
+  // cum = cumsum(dt a) in order, by one thread
+  auto scan_cum = [&]() {
+    if (tid == 0) {
+      float run = 0.0f;
+      for (int r = 0; r < Q; ++r) {
+        run += sDt[r] * ah;
+        sCum[r] = run;
+      }
+    }
+  };
+
+  // ---- forward walk: the chunk-entry states
+  for (int i = tid; i < P * N1; i += kThreads) sS[i] = 0.0f;
+  for (int c = 0; c < nc; ++c) {
+    const int c0 = c * Q, nv = min(Q, S - c0);
+    __syncthreads();   // the last chunk is done with every buffer
+    stage_rows(xb + c0 * g.x_ss, g.x_ss, nv, Q, P, P, sX, P1);
+    for (int r = tid; r < Q; r += kThreads)
+      sDt[r] = r < nv ? dtb[static_cast<size_t>(c0 + r) * H] : 0.0f;
+    float* pv = prevb + static_cast<size_t>(c) * P * N;
+    for (int i = tid; i < P * N; i += kThreads)
+      pv[i] = sS[(i / N) * N1 + i % N];
+    __syncthreads();
+    scan_cum();
+    __syncthreads();
+    const float cum_end = sCum[Q - 1], e_end = expf(cum_end);
+    for (int t = tid; t < Q; t += kThreads)
+      sW[t] = expf(cum_end - sCum[t]) * sDt[t];
+    for (int n0 = 0; n0 < N; n0 += kBwdNT) {
+      const int wn = min(kBwdNT, N - n0);
+      __syncthreads();
+      stage_rows(bb + c0 * g.b_ss + n0, g.b_ss, nv, Q, kBwdNT, wn, sBt, T1);
+      __syncthreads();
+      // state[p][n] = e_end state + sum_t x[t][p] (w dt)[t] B[t][n],
+      // p = ty + 16 i, n = n0 + tx + 16 j
+      float acc[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.0f;
+      for (int t = 0; t < Q; ++t) {
+        const float w = sW[t];
+        float xv[4], bv[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xv[i] = sX[t * P1 + pi[i]] * w;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) bv[j] = sBt[t * T1 + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(xv[i], bv[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int p = ty + 16 * i, n = tx + 16 * j;
+          if (p < P && n < wn) {
+            float* s = sS + p * N1 + n0 + n;
+            *s = e_end * *s + acc[i][j];
+          }
+        }
+    }
+  }
+
+  // ---- reverse walk
+  __syncthreads();
+  const float* dfb = g.dfinal == nullptr
+                         ? nullptr
+                         : g.dfinal + (static_cast<size_t>(b) * H + h) * P * N;
+  for (int i = tid; i < P * N1; i += kThreads) {
+    const int p = i / N1, n = i % N1;
+    sS[i] = (dfb != nullptr && n < N) ? dfb[p * N + n] : 0.0f;
+  }
+  for (int c = nc - 1; c >= 0; --c) {
+    const int c0 = c * Q, nv = min(Q, S - c0);
+    __syncthreads();
+    stage_rows(xb + c0 * g.x_ss, g.x_ss, nv, Q, P, P, sX, P1);
+    stage_rows(dyb + c0 * dy_ld, dy_ld, nv, Q, P, P, sDy, P1);
+    for (int r = tid; r < Q; r += kThreads)
+      sDt[r] = r < nv ? dtb[static_cast<size_t>(c0 + r) * H] : 0.0f;
+    __syncthreads();
+    scan_cum();
+    __syncthreads();
+    const float cum_end = sCum[Q - 1], e_end = expf(cum_end);
+    for (int t = tid; t < Q; t += kThreads) {
+      sW[t] = expf(cum_end - sCum[t]);
+      sE[t] = expf(sCum[t]);
+    }
+    const float* prevc = prevb + static_cast<size_t>(c) * P * N;
+
+    // 1. M = (C B^T) o L, t = ty + 16 i, k = tx + 16 j, into sQQ
+    {
+      float m[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) m[i][j] = 0.0f;
+      for (int n0 = 0; n0 < N; n0 += kBwdNT) {
+        const int wn = min(kBwdNT, N - n0);
+        __syncthreads();
+        stage_rows(bb + c0 * g.b_ss + n0, g.b_ss, nv, Q, kBwdNT, wn, sBt, T1);
+        stage_rows(cb + c0 * g.c_ss + n0, g.c_ss, nv, Q, kBwdNT, wn, sCt, T1);
+        __syncthreads();
+        for (int nn = 0; nn < wn; ++nn) {
+          float cv[8], bv[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            cv[i] = sCt[qi[i] * T1 + nn];
+            bv[i] = sBt[qk[i] * T1 + nn];
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) m[i][j] = fmaf(cv[i], bv[j], m[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int t = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int k = tx + 16 * j;
+          if (t < Q && k < Q)   // exp above the diagonal may overflow
+            sQQ[t * Q1 + k] =
+                k <= t ? m[i][j] * expf(sCum[t] - sCum[k]) : 0.0f;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. dxs = M^T dy, k = ty + 16 i, p = tx + 16 j
+    float dxs[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dxs[i][j] = 0.0f;
+    for (int t = 0; t < Q; ++t) {
+      float mv[8], dv[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mv[i] = sQQ[t * Q1 + qi[i]];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dv[j] = sDy[t * P1 + pj[j]];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dxs[i][j] = fmaf(mv[i], dv[j], dxs[i][j]);
+    }
+
+    // 3. D[t][k] = dt_k (dy_t . x_k), t = ty + 16 i, k = tx + 16 j; the row
+    // and column sums of M o D; then D o L over M
+    {
+      float d[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) d[i][j] = 0.0f;
+      for (int p = 0; p < P; ++p) {
+        float yv[8], xv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          yv[i] = sDy[qi[i] * P1 + p];
+          xv[i] = sX[qk[i] * P1 + p];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) d[i][j] = fmaf(yv[i], xv[j], d[i][j]);
+      }
+      float rs[8], cs[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) rs[i] = cs[i] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          d[i][j] *= sDt[qk[j]];
+          if (ty + 16 * i < Q && tx + 16 * j < Q) {
+            const float md = sQQ[qi[i] * Q1 + qk[j]] * d[i][j];
+            rs[i] += md;
+            cs[j] += md;
+          }
+        }
+      __syncthreads();   // every read of M is done
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int t = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int k = tx + 16 * j;
+          if (t < Q && k < Q)
+            sQQ[t * Q1 + k] =
+                k <= t ? d[i][j] * expf(sCum[t] - sCum[k]) : 0.0f;
+        }
+        if (t < Q) sPartA[t * 16 + tx] = rs[i];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (tx + 16 * j < Q) sPartB[(tx + 16 * j) * 16 + ty] = cs[j];
+    }
+    __syncthreads();
+    for (int t = tid; t < Q; t += kThreads) {
+      float r = 0.0f, s = 0.0f;
+      for (int u = 0; u < 16; ++u) r += sPartA[t * 16 + u];
+      for (int u = 0; u < 16; ++u) s += sPartB[t * 16 + u];
+      sDc[t] = r - s;
+    }
+
+    // 4. per 32-column tile of the state: dC, dB, dxs += w B dS^T, the
+    // terms of dcum, then dS for the previous chunk
+    float yo[8], uu[8], dec = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) yo[i] = uu[i] = 0.0f;
+    for (int n0 = 0; n0 < N; n0 += kBwdNT) {
+      const int wn = min(kBwdNT, N - n0);
+      __syncthreads();   // the partial sums (first tile) or the last tile
+      stage_rows(bb + c0 * g.b_ss + n0, g.b_ss, nv, Q, kBwdNT, wn, sBt, T1);
+      stage_rows(cb + c0 * g.c_ss + n0, g.c_ss, nv, Q, kBwdNT, wn, sCt, T1);
+      stage_rows(prevc + n0, N, P, P, kBwdNT, wn, sPv, T1);
+      __syncthreads();
+      int ns[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) ns[j] = n0 + min(tx + 16 * j, wn - 1);
+      // dC[t][n] = sum_k (D o L)[t][k] B[k][n] + exp(cum_t) dy_t . prev[:, n]
+      {
+        float a1[8][2], a2[8][2];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a1[i][0] = a1[i][1] = a2[i][0] = a2[i][1] = 0.0f;
+        for (int k = 0; k < Q; ++k) {
+          float lv[8], bv[2];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) lv[i] = sQQ[qi[i] * Q1 + k];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) bv[j] = sBt[k * T1 + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) a1[i][j] = fmaf(lv[i], bv[j], a1[i][j]);
+        }
+        for (int p = 0; p < P; ++p) {
+          float yv[8], pv[2];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) yv[i] = sDy[qi[i] * P1 + p];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) pv[j] = sPv[p * T1 + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) a2[i][j] = fmaf(yv[i], pv[j], a2[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int t = ty + 16 * i;
+          const float e = sE[qi[i]];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int n = tx + 16 * j;
+            const float off = e * a2[i][j];
+            if (t < Q) yo[i] = fmaf(sCt[t * T1 + n], off, yo[i]);
+            if (t < nv && n < wn)
+              g.dcp[((static_cast<size_t>(b) * S + c0 + t) * H + h) * N + n0 +
+                    n] = a1[i][j] + off;
+          }
+        }
+      }
+      // dB[k][n] = sum_t (D o L)[t][k] C[t][n] + w_k dt_k x_k . dS[:, n]
+      {
+        float b1[8][2], b2[8][2];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) b1[i][0] = b1[i][1] = b2[i][0] = b2[i][1] = 0.0f;
+        for (int t = 0; t < Q; ++t) {
+          float lv[8], cv[2];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) lv[i] = sQQ[t * Q1 + qi[i]];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) cv[j] = sCt[t * T1 + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) b1[i][j] = fmaf(lv[i], cv[j], b1[i][j]);
+        }
+        for (int p = 0; p < P; ++p) {
+          float xv[8], sv[2];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) xv[i] = sX[qi[i] * P1 + p];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) sv[j] = sS[p * N1 + ns[j]];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) b2[i][j] = fmaf(xv[i], sv[j], b2[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int k = ty + 16 * i;
+          const float wd = sW[qi[i]] * sDt[qi[i]];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int n = tx + 16 * j;
+            const float st = wd * b2[i][j];
+            if (k < Q) uu[i] = fmaf(sBt[k * T1 + n], st, uu[i]);
+            if (k < nv && n < wn)
+              g.dbp[((static_cast<size_t>(b) * S + c0 + k) * H + h) * N + n0 +
+                    n] = b1[i][j] + st;
+          }
+        }
+      }
+      // dxs[k][p] += w_k sum_n B[k][n] dS[p][n], k = ty + 16 i, p = tx + 16 j
+      {
+        float acc[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+        for (int nn = 0; nn < wn; ++nn) {
+          float bv[8], sv[4];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) bv[i] = sBt[qi[i] * T1 + nn];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sv[j] = sS[pj[j] * N1 + n0 + nn];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(bv[i], sv[j], acc[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float w = sW[qi[i]];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dxs[i][j] = fmaf(w, acc[i][j], dxs[i][j]);
+        }
+      }
+      // <dS, prev> over this thread's elements of the tile
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int p = ty + 16 * i, n = tx + 16 * j;
+          if (p < P && n < wn)
+            dec = fmaf(sS[p * N1 + n0 + n], sPv[p * T1 + n], dec);
+        }
+      __syncthreads();   // every read of this tile of dS is done
+      // dS[p][n] <- e_end dS[p][n] + sum_t dy[t][p] exp(cum_t) C[t][n]
+      {
+        float acc[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.0f;
+        for (int t = 0; t < Q; ++t) {
+          const float e = sE[t];
+          float yv[4], cv[2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) yv[i] = sDy[t * P1 + pi[i]] * e;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) cv[j] = sCt[t * T1 + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(yv[i], cv[j], acc[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int p = ty + 16 * i, n = tx + 16 * j;
+            if (p < P && n < wn) {
+              float* s = sS + p * N1 + n0 + n;
+              *s = e_end * *s + acc[i][j];
+            }
+          }
+      }
+    }
+
+    // 5. dcum's remaining terms, dda = reverse cumsum, this chunk's da
+    __syncthreads();   // the last tile is done with sBt and sCt
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = ty + 16 * i;
+      if (t < Q) {
+        sPartA[t * 16 + tx] = yo[i];
+        sPartB[t * 16 + tx] = uu[i];
+      }
+    }
+    sRed[tid] = dec;
+    __syncthreads();
+    for (int t = tid; t < Q; t += kThreads) {
+      float y = 0.0f, u = 0.0f;
+      for (int v = 0; v < 16; ++v) y += sPartA[t * 16 + v];
+      for (int v = 0; v < 16; ++v) u += sPartB[t * 16 + v];
+      sU[t] = u;
+      sDc[t] += y - u;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float us = 0.0f, dsp = 0.0f;
+      for (int t = 0; t < Q; ++t) us += sU[t];
+      for (int i = 0; i < kThreads; ++i) dsp += sRed[i];
+      sDc[Q - 1] += us + e_end * dsp;
+      float run = 0.0f, da = 0.0f;
+      for (int t = Q - 1; t >= 0; --t) {
+        run += sDc[t];
+        sDc[t] = run;
+        da = fmaf(run, sDt[t], da);
+      }
+      g.dap[(static_cast<size_t>(b) * H + h) * nc + c] = da;
+    }
+    __syncthreads();
+
+    // 6. dx = dxs dt; ddt = dda a + dxs . x
+    float rx[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int k = ty + 16 * i;
+      rx[i] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = tx + 16 * j;
+        if (p < P) {
+          rx[i] = fmaf(dxs[i][j], sX[qi[i] * P1 + p], rx[i]);
+          if (k < nv)
+            store_as(g.dx + ((static_cast<size_t>(b) * S + c0 + k) * H + h) * P +
+                         p,
+                     dxs[i][j] * sDt[k]);
+        }
+      }
+      if (k < Q) sPartA[k * 16 + tx] = rx[i];
+    }
+    __syncthreads();
+    for (int t = tid; t < nv; t += kThreads) {
+      float s = 0.0f;
+      for (int v = 0; v < 16; ++v) s += sPartA[t * 16 + v];
+      g.ddt[(static_cast<size_t>(b) * S + c0 + t) * H + h] = sDc[t] * ah + s;
+    }
+  }
+}
+
+// dB and dC: the per-head partials summed over heads in order, in the
+// inputs' type; da: the (sequence, chunk) partials summed in order
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_bwd_sum_kernel(const float* __restrict__ dbp,
+                        const float* __restrict__ dcp,
+                        const float* __restrict__ dap, T* db, T* dc,
+                        float* da, int B, int S, int H, int N, int nc) {
+  const long long total = static_cast<long long>(B) * S * N;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < total) {
+    const long long bs = i / N;
+    const int n = static_cast<int>(i % N);
+    const float* pb = dbp + bs * H * N + n;
+    const float* pc = dcp + bs * H * N + n;
+    float sb = 0.0f, sc = 0.0f;
+    for (int hh = 0; hh < H; ++hh) {
+      sb += pb[static_cast<size_t>(hh) * N];
+      sc += pc[static_cast<size_t>(hh) * N];
+    }
+    store_as(db + i, sb);
+    store_as(dc + i, sc);
+  } else if (i < total + H) {
+    const int hh = static_cast<int>(i - total);
+    float s = 0.0f;
+    for (int bb = 0; bb < B; ++bb)
+      for (int c = 0; c < nc; ++c)
+        s += dap[(static_cast<size_t>(bb) * H + hh) * nc + c];
+    da[hh] = s;
+  }
+}
+// ---------------------------------------------------------- end backward
+
 constexpr int kMaxDevices = 64;
 
 // Opt a kernel in to `bytes` of dynamic shared memory once per device: the
@@ -847,6 +1451,27 @@ int launch_f32(const void* x, const float* dt, const void* bm, const void* cm,
       static_cast<const float*>(x), dt, static_cast<const float*>(bm),
       static_cast<const float*>(cm), a, y, fin, S, H, P, N, Q, x_sb, x_ss,
       x_sh, b_sb, b_ss, c_sb, c_ss);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const BwdArgs<T>& args, T* db, T* dc, float* da, int B,
+               cudaStream_t stream) {
+  static int opted[kMaxDevices];
+  const int smem = static_cast<int>(bwd_smem_bytes(args.P, args.N, args.Q));
+  cudaError_t err = opt_in_smem(
+      reinterpret_cast<const void*>(ssd_scan_bwd_kernel<T>), opted, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_scan_bwd_kernel<T><<<dim3(args.H, B), kThreads, smem, stream>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total =
+      static_cast<long long>(B) * args.S * args.N + args.H;
+  const int nc = (args.S + args.Q - 1) / args.Q;
+  ssd_scan_bwd_sum_kernel<T>
+      <<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads,
+         0, stream>>>(args.dbp, args.dcp, args.dap, db, dc, da, B, args.S,
+                      args.H, args.N, nc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -947,6 +1572,45 @@ extern "C" int ssd_scan_fwd(int dtype, const void* x, const float* dt,
                          x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss, stream);
   return launch_tc<128>(x, dt, bm, cm, a, y, final_state, B, S, H, P, N, Q,
                         x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss, stream);
+}
+
+// The backward: x, dt, B, C and a as ssd_scan_fwd takes them; dy (B, S, H,
+// P) fp32 contiguous; dfinal (B, H, P, N) fp32 contiguous or null (zero).
+// Scratch: prevs (B, H, chunks, P, N), dbp and dcp (B, S, H, N), dap (B, H,
+// chunks), fp32. Writes dx (B, S, H, P), dB and dC (B, S, N) contiguous in
+// the inputs' type, ddt (B, S, H) and da (H,) fp32. Two launches on the
+// stream: the backward, then the fixed-order sum over heads.
+extern "C" int ssd_scan_bwd(int dtype, const void* x, const float* dt,
+                            const void* bm, const void* cm, const float* a,
+                            const float* dy, const float* dfinal,
+                            float* prevs, float* dbp, float* dcp, float* dap,
+                            void* dx, float* ddt, void* db, void* dc,
+                            float* da, int B, int S, int H, int P, int N,
+                            int Q, long long x_sb, long long x_ss,
+                            long long x_sh, long long b_sb, long long b_ss,
+                            long long c_sb, long long c_ss,
+                            cudaStream_t stream) {
+  if (Q < 1 || Q > kMaxQ || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
+      B < 1 || S < 1 || H < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    const BwdArgs<float> args{
+        static_cast<const float*>(x), dt, static_cast<const float*>(bm),
+        static_cast<const float*>(cm), a, dy, dfinal, prevs,
+        static_cast<float*>(dx), ddt, dbp, dcp, dap, S, H, P, N, Q, x_sb,
+        x_ss, x_sh, b_sb, b_ss, c_sb, c_ss};
+    return launch_bwd(args, static_cast<float*>(db), static_cast<float*>(dc),
+                      da, B, stream);
+  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  const BwdArgs<bf16> args{
+      static_cast<const bf16*>(x), dt, static_cast<const bf16*>(bm),
+      static_cast<const bf16*>(cm), a, dy, dfinal, prevs,
+      static_cast<bf16*>(dx), ddt, dbp, dcp, dap, S, H, P, N, Q, x_sb, x_ss,
+      x_sh, b_sb, b_ss, c_sb, c_ss};
+  return launch_bwd(args, static_cast<bf16*>(db), static_cast<bf16*>(dc), da,
+                    B, stream);
 }
 
 extern "C" const char* kernel_error_string(int err) {

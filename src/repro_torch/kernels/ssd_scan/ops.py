@@ -7,6 +7,16 @@ returns y and the final state. CPU tensors take the plain chunked version
 (``ref.py``); CUDA tensors launch the kernel in ``kernel.cu`` on the
 current stream, which reads the slices through their strides: in fp32 the
 CUDA-core kernel, in bf16 the tensor-core kernel.
+
+Training: when grad mode is on and an input requires a gradient, a CUDA
+call goes through ``SsdScan`` (a ``torch.autograd.Function``). Its forward
+is the serving launch, unchanged; its backward launches K6's backward
+(``ssd_scan_bwd`` in ``kernel.cu``: the chunk-entry states recomputed,
+then the reverse walk over chunks, then a fixed-order sum of dB, dC and da
+over heads and chunks), which returns dx, dB and dC in the inputs' type
+and ddt and da in fp32, and takes a gradient of the final state or none.
+On the CPU the plain version's own autograd runs. ``KERNEL_LAUNCHES``
+counts ``ssd_scan`` (every forward) and ``ssd_scan_bwd`` apart.
 """
 from __future__ import annotations
 
@@ -72,15 +82,8 @@ def _check_cuda(x, dt, bmat, cmat, a, q_chunk):
         raise ValueError("ssd_scan takes at most 65535 sequences")
 
 
-def ssd_scan(x, dt, bmat, cmat, a, *, q_chunk: int = 128):
-    """x (B, S, H, P); dt (B, S, H) fp32; bmat, cmat (B, S, N); a (H,) fp32
-    -> (y (B, S, H, P) fp32, final state (B, H, P, N) fp32), the chunked
-    SSD scan in chunks of ``q_chunk`` positions."""
-    q_chunk = int(q_chunk)
-    _check(x, dt, bmat, cmat, a, q_chunk)
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, bmat, cmat, a, q_chunk=q_chunk)
-    _check_cuda(x, dt, bmat, cmat, a, q_chunk)
+def _launch_forward(x, dt, bmat, cmat, a, q_chunk):
+    """K6 on the card: (y, final state), both fp32."""
     b, s, h, p = x.shape
     n = bmat.shape[2]
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
@@ -100,3 +103,90 @@ def ssd_scan(x, dt, bmat, cmat, a, *, q_chunk: int = 128):
     _build.check(lib, err, NAME)
     KERNEL_LAUNCHES[NAME] += 1
     return y, final
+
+
+def backward_args(x, dt, bmat, cmat, a, dy, dfinal, q_chunk):
+    """The outputs (dx, ddt, dB, dC, da), and the arguments of the C
+    function ``ssd_scan_bwd`` before the stream (its scratch allocated
+    here): dy fp32 contiguous (B, S, H, P), ``dfinal`` fp32 contiguous
+    (B, H, P, N) or None."""
+    b, s, h, p = x.shape
+    n = bmat.shape[2]
+    nc = -(-s // q_chunk)
+    f32 = {"dtype": torch.float32, "device": x.device}
+    outs = (torch.empty((b, s, h, p), dtype=x.dtype, device=x.device),
+            torch.empty((b, s, h), **f32),
+            torch.empty((b, s, n), dtype=x.dtype, device=x.device),
+            torch.empty((b, s, n), dtype=x.dtype, device=x.device),
+            torch.empty((h,), **f32))
+    scratch = (torch.empty((b, h, nc, p, n), **f32),
+               torch.empty((b, s, h, n), **f32),
+               torch.empty((b, s, h, n), **f32),
+               torch.empty((b, h, nc), **f32))
+    ptrs = (x, dt, bmat, cmat, a, dy)
+    args = (DTYPES[x.dtype], *(t.data_ptr() for t in ptrs),
+            None if dfinal is None else dfinal.data_ptr(),
+            *(t.data_ptr() for t in scratch),
+            *(t.data_ptr() for t in outs), b, s, h, p, n, q_chunk,
+            *x.stride()[:3], *bmat.stride()[:2], *cmat.stride()[:2])
+    return outs, scratch, args
+
+
+def _launch_backward(x, dt, bmat, cmat, a, dy, dfinal, q_chunk):
+    """K6's backward on the card: (dx, ddt, dB, dC, da)."""
+    b, s, h, _ = x.shape
+    if dy.shape != x.shape:
+        raise ValueError(f"ssd_scan's dy {tuple(dy.shape)} is not x's "
+                         f"{tuple(x.shape)}")
+    dy = dy.to(torch.float32).contiguous()
+    if dfinal is not None:
+        dfinal = dfinal.to(torch.float32).contiguous()
+    outs, scratch, args = backward_args(x, dt, bmat, cmat, a, dy, dfinal,
+                                        q_chunk)
+    if b * h == 0 or s == 0:
+        return tuple(t.zero_() for t in outs)
+    lib = _build.load(NAME)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd(*args, stream)
+    _build.check(lib, err, f"{NAME}_bwd")
+    KERNEL_LAUNCHES[f"{NAME}_bwd"] += 1
+    del scratch
+    return outs
+
+
+class SsdScan(torch.autograd.Function):
+    """K6 with its hand-written backward, on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, x, dt, bmat, cmat, a, q_chunk):
+        y, final = _launch_forward(x, dt, bmat, cmat, a, q_chunk)
+        ctx.save_for_backward(x, dt, bmat, cmat, a)
+        ctx.q_chunk = q_chunk
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, bmat, cmat, a = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        grads = _launch_backward(x, dt, bmat, cmat, a, dy, dfinal,
+                                 ctx.q_chunk)
+        return (*grads, None)
+
+
+def ssd_scan(x, dt, bmat, cmat, a, *, q_chunk: int = 128):
+    """x (B, S, H, P); dt (B, S, H) fp32; bmat, cmat (B, S, N); a (H,) fp32
+    -> (y (B, S, H, P) fp32, final state (B, H, P, N) fp32), the chunked
+    SSD scan in chunks of ``q_chunk`` positions. Differentiable in every
+    input (see the module's docstring)."""
+    q_chunk = int(q_chunk)
+    _check(x, dt, bmat, cmat, a, q_chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, bmat, cmat, a, q_chunk=q_chunk)
+    _check_cuda(x, dt, bmat, cmat, a, q_chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, bmat, cmat, a)):
+        return SsdScan.apply(x, dt, bmat, cmat, a, q_chunk)
+    return _launch_forward(x, dt, bmat, cmat, a, q_chunk)

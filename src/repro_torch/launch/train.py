@@ -4,9 +4,8 @@
         --scale e2e-100m --steps 300 --ckpt-dir /tmp/ckpt [--device cpu]
 
 Scales: reduced (CPU smoke), e2e-100m (the ~100M end-to-end example),
-full (the real config). Trains on ``--device``, CUDA by default; on the
-card the ``ssm`` and ``hybrid`` families raise (K6 has no backward kernel
-yet). The launcher owns the fault-tolerance story: Sizey sizes the job's
+full (the real config). Trains on ``--device``, CUDA by default. The
+launcher owns the fault-tolerance story: Sizey sizes the job's
 memory, a SimulatedOOM triggers the paper's retry ladder with
 restart-from-checkpoint. ``main`` also takes a ``sizer`` to share one
 ``SizeyJobSizer`` (and its history) across runs; by default it makes the

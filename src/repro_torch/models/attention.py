@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.models.layers import (INIT_STD, apply_rope, as_type,
@@ -78,6 +79,9 @@ def attention_block(params, x, cfg: ModelConfig, positions):
     """Full self-attention sublayer (the caller adds the residual).
     Returns (out, (k, v)) so that prefill can collect the cache."""
     q, k, v = _project_qkv(params, x, cfg, positions)
+    q = shard(q, ("batch", None, "heads", None))
+    k = shard(k, ("batch", None, "heads", None))
+    v = shard(v, ("batch", None, "heads", None))
     o = causal_attention(q, k, v, cfg)
     b, s = x.shape[:2]
     o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
@@ -98,6 +102,11 @@ def decode_attention_block(params, x, cfg: ModelConfig, k_cache, v_cache,
     idx = pos.reshape(1).long()
     k_cache.index_copy_(1, idx, k_new.to(k_cache.dtype))
     v_cache.index_copy_(1, idx, v_new.to(v_cache.dtype))
+    k_cache = shard(k_cache, ("batch", "kv_seq", None, None))
+    v_cache = shard(v_cache, ("batch", "kv_seq", None, None))
+    # the reference also keeps its (B, H, S) scores sequence-sharded
+    # ("batch", None, "kv_seq"); here they live inside K5, which splits
+    # them over the cache's sequence already (split-KV)
     o = flash_decode(q, k_cache, v_cache, pos, scale=cfg.head_dim ** -0.5)
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     return o @ as_type(params["wo"], x.dtype), k_cache, v_cache

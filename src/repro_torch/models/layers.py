@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 
 INIT_STD = 0.02
 
@@ -88,6 +89,7 @@ def mlp_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
 def mlp(params, x: torch.Tensor, compute_dtype):
     h = F.silu(x @ as_type(params["w_gate"], compute_dtype)) \
         * (x @ as_type(params["w_up"], compute_dtype))
+    h = shard(h, ("batch", None, "ff"))
     return h @ as_type(params["w_down"], compute_dtype)
 
 
@@ -106,6 +108,7 @@ def embed_tokens(params, tokens: torch.Tensor, compute_dtype):
 def logits_fn(params, x: torch.Tensor, cfg: ModelConfig):
     """Final logits in fp32 with the padded-vocab tail set to -1e9."""
     logits = (x @ as_type(params["lm_head"], x.dtype)).float()
+    logits = shard(logits, ("batch", None, "vocab"))
     if cfg.padded_vocab != cfg.vocab:
         logits[..., cfg.vocab:] = -1e9
     return logits

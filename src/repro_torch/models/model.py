@@ -13,13 +13,11 @@ for ``models.moe``'s routed experts and adds their load-balance loss;
 ``vlm`` prepends the batch's ``patch_embeds`` to the token embeddings and
 takes its loss on the text positions only.
 
-Kernels: full attention goes to K4 (``kernels.flash_attention``, with its
-hand-written backward when a gradient is asked for), decode attention to
-K5 (``kernels.flash_decode``) and the Mamba2 prefill scan to K6
-(``kernels.ssd_scan``), each the CUDA kernel on the card and its plain
-version on the CPU. K6 has no backward kernel yet: on the card the
-``ssm`` and ``hybrid`` families serve but do not train (``train.step``
-says so).
+Kernels: full attention goes to K4 (``kernels.flash_attention``), decode
+attention to K5 (``kernels.flash_decode``) and the Mamba2 prefill scan to
+K6 (``kernels.ssd_scan``), each the CUDA kernel on the card and its plain
+version on the CPU; K4 and K6 run their hand-written backward kernels when
+a gradient is asked for.
 
 ``cfg.remat``: with a gradient asked for, ``"block"`` (the default) and
 ``"dots"`` recompute each block in the backward
@@ -39,6 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -97,7 +96,9 @@ def _attn_mlp_block(params, x, cfg: ModelConfig, positions, use_moe: bool):
         m, aux = moe_mod.moe_block(params["moe"], h, cfg)
     else:
         m, aux = mlp(params["mlp"], h, dtype_of(cfg.compute_dtype)), 0.0
-    return x + m, kv, aux
+    x = shard(x + m, ("batch", "seq_sp" if cfg.seq_shard else None,
+                      "embed"))
+    return x, kv, aux
 
 
 def _attn_mlp_decode(params, x, cfg, k_cache, v_cache, pos, use_moe: bool):
@@ -123,7 +124,9 @@ def _ssm_block_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
 def _ssm_block(params, x, cfg: ModelConfig, return_cache: bool = False):
     h = rmsnorm(x, params["ln"])
     if not return_cache:
-        return x + ssm_mod.ssm_block(params["ssm"], h, cfg)
+        return shard(x + ssm_mod.ssm_block(params["ssm"], h, cfg),
+                     ("batch", "seq_sp" if cfg.seq_shard else None,
+                      "embed"))
     y, state, conv = ssm_mod.ssm_block(params["ssm"], h, cfg,
                                        return_cache=True)
     return x + y, state, conv
@@ -221,7 +224,7 @@ def _inputs_to_h(params, batch, cfg: ModelConfig):
     h = embed_tokens(params, batch["tokens"].long(), cd)
     if cfg.family == "vlm":
         h = torch.cat([batch["patch_embeds"].to(cd), h], dim=1)
-    return h
+    return shard(h, ("batch", None, "embed"))
 
 
 def _positions(h):
@@ -327,6 +330,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     state and convolution tail replaced) and returned with ``pos`` + 1."""
     _check_family(cfg)
     h = embed_tokens(params, tokens.long(), dtype_of(cfg.compute_dtype))
+    h = shard(h, ("batch", None, "embed"))
     pos = cache["pos"]
     attn_layers, ssm_layers = _stack(params, cfg)
     for kind, i in _layer_order(cfg):

@@ -9,9 +9,6 @@ dropped (their combine weight is zero), as in Switch. All three
 ``rowwise`` (a per-row cumsum plus row offsets, the same dispatch) and
 ``grouped`` (capacity per sequence row).
 
-The reference's ``shard(...)`` annotations are left out: on one device
-they are the identity (sharding comes with ROADMAP queue 1, item 9).
-
 Top-k: ``jax.lax.top_k`` picks the lowest index among equal values first;
 ``torch.topk`` promises no order among ties, so the top k are taken from
 a stable descending sort, which keeps equal values in index order.
@@ -29,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models.layers import INIT_STD, as_type, dense_init
 from repro_torch.utils.misc import ceil_div
 
@@ -88,14 +86,16 @@ def _positions_rowwise(top_i, b, s, e, k):
                         rows.reshape(-1)[:, None])[:, 0]
 
 
-def _experts(params, buf, cd, spec: str):
+def _experts(params, buf, cd, spec: str, logical: tuple):
     """Expert SwiGLU over a capacity buffer (``spec`` names its leading
-    dims: "e" or "be")."""
+    dims: "e" or "be"; ``logical`` the hidden's logical axes, ff sharded
+    over "model")."""
     g = F.silu(torch.einsum(f"{spec}cd,edf->{spec}cf", buf,
                             as_type(params["we_gate"], cd)))
     u = torch.einsum(f"{spec}cd,edf->{spec}cf", buf,
                      as_type(params["we_up"], cd))
-    return torch.einsum(f"{spec}cf,efd->{spec}cd", g * u,
+    h = shard(g * u, logical)
+    return torch.einsum(f"{spec}cf,efd->{spec}cd", h,
                         as_type(params["we_out"], cd))
 
 
@@ -129,7 +129,8 @@ def moe_block(params, x, cfg: ModelConfig):
     buf = torch.zeros((e, cap, d), dtype=cd, device=x.device)
     buf = buf.index_put((flat_e, safe_pos.long()),
                         xf[tok_idx] * keep[:, None].to(cd), accumulate=True)
-    out = _experts(params, buf, cd, "e")
+    buf = shard(buf, ("experts", "batch", None))
+    out = _experts(params, buf, cd, "e", ("experts", "batch", "ff"))
 
     # combine: gather each (token, slot) row back, weight, and sum slots
     y = out[flat_e, safe_pos.long()] * flat_w[:, None]
@@ -166,7 +167,8 @@ def _moe_block_grouped(params, x, cfg: ModelConfig):
     buf = buf.index_put((bidx, rows_e, safe_pos),
                         x[:, tok_idx] * keep[..., None].to(cd),
                         accumulate=True)
-    out = _experts(params, buf, cd, "be")
+    buf = shard(buf, ("batch", "experts", None, None))
+    out = _experts(params, buf, cd, "be", ("batch", "experts", None, "ff"))
 
     y = out[bidx, rows_e, safe_pos] * rows_w[..., None]   # (B, S*k, d)
     y = torch.sum(y.reshape(b, s, k, d), dim=2)

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.layers import INIT_STD, as_type, dense_init, rmsnorm
 
@@ -84,6 +85,7 @@ def ssm_block(params, x, cfg: ModelConfig, return_cache: bool = False):
     a = -torch.exp(params["a_log"])
 
     xh = xc.reshape(b, s, h, p)
+    xh = shard(xh, ("batch", None, "ssm_heads", None))
     y, final_state = ssd_scan(xh, dt, bmat, cmat, a, q_chunk=q)
     y = y + params["ssm_d"][None, None, :, None] * xh.float()
     y = y.reshape(b, s, di).to(cd)

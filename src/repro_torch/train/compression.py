@@ -14,7 +14,8 @@ chunks of counters, so a leaf of any size costs a few chunk-sized
 temporaries.
 
 Wired in as the ``grad_transform`` hook of ``make_train_step``;
-``compressed_psum`` is the all-reduce variant for data-parallel paths.
+``compressed_psum`` is the all-reduce variant for data-parallel paths, over
+a process group (a mesh axis under ``distributed.sharding.axis_rules``).
 """
 from __future__ import annotations
 
@@ -45,10 +46,19 @@ def _uniform(key: np.ndarray, shape, device) -> torch.Tensor:
     return out.reshape(tuple(shape))
 
 
+def _scale(g32):
+    """max(|g|, 1e-12) / 127 as a true fp32 division on every device: on a
+    CUDA device a division by a Python number multiplies by its reciprocal
+    instead, which can differ by one ulp from the CPU's and JAX's
+    quotient."""
+    top = torch.clamp_min(torch.max(torch.abs(g32)), 1e-12)
+    return top / torch.tensor(127.0, dtype=torch.float32, device=top.device)
+
+
 def _quantize_leaf(key, g, scale=None):
     g32 = g.float()
     if scale is None:
-        scale = torch.clamp_min(torch.max(torch.abs(g32)), 1e-12) / 127.0
+        scale = _scale(g32)
     x = g32 / scale
     lo = torch.floor(x)
     p_up = x - lo
@@ -88,20 +98,43 @@ def make_compressor(seed: int = 0):
     return transform
 
 
-def compressed_psum(grads, axis_name: str, key):
-    """int8-on-the-wire sum for data-parallel paths.
+def _group(axis_name: str):
+    """The process group of the axis ``axis_name`` of the mesh that
+    ``distributed.sharding.axis_rules`` activated; with no mesh active,
+    None: a group of this one process."""
+    from repro_torch.distributed.sharding import _current_mesh, axis_names
+    mesh = _current_mesh()
+    if mesh is None:
+        return None
+    if axis_name not in axis_names(mesh):
+        raise ValueError(f"compressed_psum: the mesh has no axis "
+                         f"{axis_name!r} (axes {axis_names(mesh)})")
+    return mesh.get_group(axis_name)
 
-    Peers first agree on a per-leaf global scale (a max over the group),
-    quantize with that shared scale, sum the int8 payload in int32 (no
-    overflow) and dequantize. Until the port has process groups (ROADMAP
-    queue 1, item 9) the group is this one device: ``axis_name`` is not
-    read, the max and the sum are over the device itself, and the result
-    is the quantize/dequantize round trip at the leaf's own scale."""
+
+def compressed_psum(grads, axis_name: str, key):
+    """int8-on-the-wire sum over the group ``axis_name`` names (see
+    ``_group``), for data-parallel paths.
+
+    Peers first agree on a per-leaf global scale (one all-reduce of the
+    leaves' fp32 scales by max: negligible traffic), quantize with that
+    shared scale, all-reduce the int8 payload as int32 (no overflow) and
+    dequantize. Every peer passes the same ``key``, as the reference's
+    shard_map does. With a group of one, the quantize/dequantize round
+    trip at each leaf's own scale."""
+    import torch.distributed as dist
+    group = _group(axis_name)
     _, leaves = tree_flatten_with_path(grads)
-    scales = [torch.clamp_min(torch.max(torch.abs(g.float())), 1e-12)
-              / 127.0 for g in leaves]
+    scales = [_scale(g.float()) for g in leaves]
+    if group is not None and leaves:
+        shared = torch.stack(scales)
+        dist.all_reduce(shared, op=dist.ReduceOp.MAX, group=group)
+        scales = list(shared.unbind(0))
     keys = prng.split(key, len(leaves))
     summed = [_quantize_leaf(k, g, s)[0].to(torch.int32)
               for k, g, s in zip(keys, leaves, scales)]
+    if group is not None:
+        for q in summed:
+            dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
     return tree_unflatten(grads, [q.float() * s
                                   for q, s in zip(summed, scales)])

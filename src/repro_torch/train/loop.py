@@ -39,7 +39,7 @@ from repro_torch.data.pipeline import SyntheticTokenPipeline
 from repro_torch.models.model import init_params
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.optimizer import make_optimizer
-from repro_torch.train.step import check_trainable, make_train_step
+from repro_torch.train.step import make_train_step
 from repro_torch.utils.misc import resolve_device, tree_bytes
 
 
@@ -94,7 +94,6 @@ class Trainer:
                  *, hooks: list[Callable] | None = None, device=None,
                  params: dict | None = None):
         self.device = resolve_device(device)
-        check_trainable(cfg, self.device)
         self.cfg, self.tc = cfg, tc
         self.monitor = StragglerMonitor()
         self.hooks = hooks or []

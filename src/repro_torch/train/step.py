@@ -6,10 +6,26 @@ takes the place of ``jax.value_and_grad`` and a loop the place of the
 microbatch ``lax.scan``, adding each microbatch's loss and gradients in
 the scan's order in fp32 and scaling by ``1 / microbatches`` after.
 
-On a CUDA device the gradient of attention comes from K4's backward
-kernel. K6 (the Mamba2 scan) has none yet, so the ``ssm`` and ``hybrid``
-families train only on the CPU: on the card the step raises (ROADMAP
-queue 1: K6's backward, then ``ssm``/``hybrid`` training on the card).
+On a CUDA device the gradients of attention and of the Mamba2 scan come
+from the backward kernels of K4 and K6 (each an autograd Function).
+
+With a ``mesh`` (a ``DeviceMesh`` with the reference's axes, see
+``distributed.sharding``) the step is ZeRO-3 over DTensors: ``params`` are
+DTensors placed by ``param_specs`` (every weight spread over the FSDP axes
+and "model"), ``batch`` DTensors placed by ``batch_specs`` (the batch over
+the FSDP axes), and ``opt_state`` the optimizer's state of the local
+shards (``opt.init(local_tree(params))``). The loss and gradients run
+through ``local_map`` on local tensors: the weights gathered whole, this
+rank's batch shard, so every kernel gets a plain tensor; each rank's loss
+and gradients are scaled by 1 / (FSDP ranks) and come back as partial
+sums over the FSDP axes, which the redistribution to the weights'
+placements adds (a reduce-scatter). The clip takes the global norm over
+the sharded gradients, and the optimizer updates each rank's shards in
+place. The "model" axis shards storage only: every rank of a "model" row
+computes the same local step (tensor-parallel compute is the reference's
+and not the port's). Needs an elementwise optimizer (AdamW) and takes no
+``grad_transform``; on a one-device mesh every number is the unsharded
+step's.
 """
 from __future__ import annotations
 
@@ -23,19 +39,6 @@ from repro_torch.models.model import loss_fn
 from repro_torch.train.optimizer import OptimizerDef
 from repro_torch.utils.misc import (tree_flatten_with_path, tree_map,
                                     tree_unflatten)
-
-NO_BACKWARD_ON_CUDA = ("ssm", "hybrid")
-
-
-def check_trainable(cfg: ModelConfig, device) -> None:
-    """Raise for a family whose kernels have no backward on ``device``."""
-    if torch.device(device).type == "cuda" \
-            and cfg.family in NO_BACKWARD_ON_CUDA:
-        raise NotImplementedError(
-            f"family {cfg.family!r} does not train on a CUDA device yet: "
-            f"K6 (ssd_scan) has no backward kernel (ROADMAP queue 1, "
-            f"'K6 backward, then ssm/hybrid training on the card'); train "
-            f"it with device='cpu'")
 
 
 def _clip_by_global_norm(grads, max_norm: float):
@@ -61,16 +64,61 @@ def _value_and_grad(loss, params, batch):
     return value.detach(), tree_unflatten(params, grads)
 
 
+def _sharded(grads_of, mesh):
+    """``grads_of`` over DTensors: run on local tensors through
+    ``local_map`` (weights replicated, the batch by ``batch_specs``), the
+    gradients reduced onto the weights' placements."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.distributed.sharding import (FSDP_AXES, axis_names,
+                                                  batch_specs, placements)
+    names = axis_names(mesh)
+    fsdp = [i for i, a in enumerate(names) if a in FSDP_AXES]
+    ranks = 1
+    for i in fsdp:
+        ranks *= mesh.size(i)
+    summed = tuple(Partial() if i in fsdp else Replicate()
+                   for i in range(len(names)))
+    whole = (Replicate(),) * len(names)
+
+    def local(params, batch):
+        l, g = grads_of(params, batch)
+        return l / ranks, tree_map(lambda t: t / ranks, g)
+
+    def run(params, batch):
+        n_params = len(pytree.tree_leaves(params))
+        b_place = [placements(s, mesh) for s in pytree.tree_leaves(
+            batch_specs(batch, mesh),
+            is_leaf=lambda x: isinstance(x, tuple))]
+        fn = local_map(local, out_placements=(summed,) * (1 + n_params),
+                       in_placements=(whole,) * n_params + tuple(b_place),
+                       device_mesh=mesh, redistribute_inputs=True)
+        l, grads = fn(params, batch)
+        grads = tree_map(lambda g, p: g.redistribute(mesh, p.placements),
+                         grads, params)
+        return l.full_tensor(), grads
+
+    return run
+
+
 def make_train_step(cfg: ModelConfig, opt: OptimizerDef,
                     *, microbatches: int = 1, max_grad_norm: float = 1.0,
-                    grad_transform: Callable | None = None):
+                    grad_transform: Callable | None = None, mesh=None):
     """Build train_step(params, opt_state, batch) -> (metrics, params, opt).
 
     ``microbatches`` > 1 accumulates gradients over equal splits of the
     leading batch dim (activation memory / throughput knob).
     ``grad_transform`` hooks in gradient compression (train/compression.py).
-    The optimizer updates ``params`` and ``opt_state`` in place.
+    The optimizer updates ``params`` and ``opt_state`` in place. With a
+    ``mesh``, the ZeRO-3 step over DTensors of the module's docstring.
     """
+    if mesh is not None and (opt.name != "adamw"
+                             or grad_transform is not None):
+        raise ValueError(f"a sharded step updates each rank's shards alone: "
+                         f"it takes an elementwise optimizer (adamw, not "
+                         f"{opt.name}) and no grad_transform")
     loss = functools.partial(loss_fn, cfg=cfg)
 
     def grads_of(params, batch):
@@ -95,14 +143,21 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerDef,
         inv = 1.0 / microbatches
         return acc_l * inv, tree_map(lambda x: x * inv, acc_g)
 
+    if mesh is not None:
+        grads_of = _sharded(grads_of, mesh)
+
     def train_step(params, opt_state, batch):
-        _, leaves = tree_flatten_with_path(params)
-        check_trainable(cfg, leaves[0].device)
         l, grads = grads_of(params, batch)
         grads, gnorm = _clip_by_global_norm(grads, max_grad_norm)
         if grad_transform is not None:
             grads = grad_transform(grads)
-        params, opt_state = opt.update(grads, opt_state, params)
+        if mesh is None:
+            params, opt_state = opt.update(grads, opt_state, params)
+        else:
+            from repro_torch.distributed.sharding import local_tree
+            _, opt_state = opt.update(local_tree(grads), opt_state,
+                                      local_tree(params))
+            gnorm = gnorm.full_tensor()
         metrics = {"loss": l, "grad_norm": gnorm}
         return metrics, params, opt_state
 

@@ -14,10 +14,11 @@ torch = pytest.importorskip("torch")
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 from chip_smoke import (K1_TOL, K3_EDGE_MG, K3_GS, K3_KINDS,  # noqa: E402
                         K3_MS, K4_BWD_SHAPES,
-                        K4_SHAPES, K5_SHAPES, K6_SHAPES, LM_TOL,
-                        _composed_predict, _mlp_predict_inputs,
-                        check_k4_backward, check_lm_kernels, k3_profiles,
-                        k6_fp32_distance, lm_kernel_inputs, to_cpu)
+                        K4_SHAPES, K5_SHAPES, K6_BWD_SHAPES, K6_SHAPES,
+                        LM_TOL, _composed_predict, _mlp_predict_inputs,
+                        check_k4_backward, check_k6_backward,
+                        check_lm_kernels, k3_profiles, k6_fp32_distance,
+                        lm_kernel_inputs, to_cpu)
 
 from repro_torch.kernels import KERNEL_LAUNCHES  # noqa: E402
 from repro_torch.kernels.ensemble_mlp.ops import (ensemble_mlp_forward,  # noqa: E402
@@ -509,3 +510,44 @@ def test_a_train_step_on_the_card_runs_k4_and_its_backward(cuda):
                      "flash_attention_bwd_dkdv": cfg.n_layers}
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-5)
 
+
+# K6's backward through its autograd Function against the plain backward
+# in fp64, with chip_smoke.py's check: fp32 and bf16, with and without a
+# gradient of the final state, on the strided slices of one tensor, a
+# repeat bitwise, the gradients in the inputs' types. The reference's scan
+# test shapes, the training shapes of mamba2-780m and zamba2-7b, and a
+# ragged S with N = 48 and Q = 32
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K6_BWD_SHAPES + [(3, 5, 77, 32, 48, 32)])
+def test_ssd_scan_backward_matches_the_plain_backward(cuda, shape):
+    check_k6_backward([shape])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b"])
+def test_a_train_step_on_the_card_runs_k6_and_its_backward(cuda, arch):
+    """One reduced step under remat "block": K6's forward twice per Mamba2
+    layer, its backward once, and the step's loss and gradient norm
+    within 1e-5 of the CPU's from the same parameters."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.misc import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat="block")
+    base = build_model(cfg).init(0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 256)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda t: t.clone().to(dev), base)
+        opt = make_optimizer("adamw")
+        before = {k: KERNEL_LAUNCHES[k] for k in ("ssd_scan", "ssd_scan_bwd")}
+        m, _, _ = make_train_step(cfg, opt)(params, opt.init(params),
+                                            {"tokens": toks.to(dev)})
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]))
+        moved = {k: KERNEL_LAUNCHES[k] - v for k, v in before.items()}
+    assert moved == {"ssd_scan": 2 * cfg.n_ssm_layers(),
+                     "ssd_scan_bwd": cfg.n_ssm_layers()}
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-5)

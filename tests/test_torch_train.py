@@ -499,24 +499,3 @@ def test_remat_changes_no_number(arch):
         for a, b in zip(tree_flatten_with_path(out[remat][1])[1],
                         tree_flatten_with_path(out["none"][1])[1]):
             assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b"])
-def test_ssm_and_hybrid_do_not_train_on_a_cuda_device(arch, monkeypatch):
-    """K6 has no backward: on a CUDA device the step and the trainer raise
-    (the device check is mocked: this machine has no card)."""
-    _, tcfg = _reduced(arch)
-    with pytest.raises(NotImplementedError, match="K6"):
-        step_mod.check_trainable(tcfg, "cuda")
-    step_mod.check_trainable(tcfg, "cpu")
-    step_mod.check_trainable(get_config("granite-3-2b").reduced(), "cuda")
-    monkeypatch.setattr("repro_torch.train.loop.resolve_device",
-                        lambda d=None: torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="K6 backward"):
-        Trainer(tcfg, TrainerConfig(steps=1, global_batch=2, seq_len=16))
-    params = build_model(tcfg).init(0, device="cpu")
-    monkeypatch.setattr(torch.Tensor, "device", property(
-        lambda self: torch.device("cuda")), raising=False)
-    st = make_train_step(tcfg, opt.make_optimizer("adamw"))
-    with pytest.raises(NotImplementedError, match="K6"):
-        st(params, None, None)
