@@ -99,9 +99,20 @@ Phases (any failure exits non-zero, without the final result line):
      width cut in depth, K6's forward and backward counted; card vs CPU at
      the reduced configs; phi3.5-moe and internvl2-26b cut in depth; both
      backward kernels timed.
- 16. (last) the distributed layer on a 1-device nccl mesh: the sharded
-     train step bitwise the unsharded one, compressed_psum over the group
+ 16. the distributed layer on a 1-device nccl mesh: the sharded train
+     step bitwise the unsharded one, compressed_psum over the group
      bitwise the one-device round trip, the elastic controller unchanged.
+ 17. (last) the dry run (``repro_torch.launch.dryrun``) in a process of
+     its own: (a) phase 15's granite-3-2b and mamba2-780m steps traced on
+     fake CUDA tensors over a (1, 1) fake mesh, through K4-K6's fake
+     kernels, the predicted peak per card within 25 % of phase 15's
+     ``max_memory_allocated`` and the traced FLOPs over the measured step
+     wall printed as a share of the bf16 tensor rate; (b) the reference
+     test's four cells (granite-3-2b, train_4k and decode_32k) on 256 and
+     512 fake ranks, every row ok; beside them (c) methylseq 0.05 serially
+     through ``SizeyPredictor(fused=False)`` (the per-model loop) and the
+     fused path on the card: integer choices equal, allocations within
+     phase 6's tolerance, K1 and K2 once per model call of the loop.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``. Imports
@@ -1993,8 +2004,7 @@ def risk_phase(serial_predicts: int) -> dict:
 # ----------------------------------------------------------- phases 8-12
 # The LM serving slice: zamba2-7b at full width through the port's
 # ServeEngine and KVCacheSizer, with K4 flash_attention, K5 flash_decode and
-# K6 ssd_scan. H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet).
-BF16_FLOPS_PER_S = 989e12
+# K6 ssd_scan; their bounds count the work of analysis/kernel_costs.py.
 LM_SEED = 0
 SERVE_ARCH = "zamba2-7b"
 SERVE_REQUESTS = 32
@@ -2509,61 +2519,6 @@ def lm_card_vs_cpu() -> None:
         _fail("the card and the CPU disagree on the LM path")
 
 
-def _k4_bound(b, s, h, hkv, d, itemsize):
-    # q, k, v read once and out written once; Q.K^T and P.V over the causal
-    # pairs only (the tiles above the diagonal are skipped), at the bf16
-    # tensor rate
-    pairs = s * (s + 1) // 2
-    return _bound_at(itemsize * (2 * b * s * h * d + 2 * b * s * hkv * d),
-                     4 * b * h * pairs * d, BF16_FLOPS_PER_S)
-
-
-def _k5_bound(b, h, hkv, d, pos, itemsize):
-    # the live K and V (positions 0..pos) read once, q read and out written;
-    # a dot and a multiply-add per live value, at the bf16 tensor rate
-    live = pos + 1
-    return _bound_at(itemsize * (2 * b * live * hkv * d + 2 * b * h * d),
-                     4 * b * h * live * d, BF16_FLOPS_PER_S)
-
-
-def _k6_work(b, h, s, p, n, q, itemsize):
-    # x, B and C (compute type), dt, a read once; y and the state written
-    # (fp32). Per (b, chunk) C.B^T over the causal pairs (shared by the
-    # heads); per (b, h, chunk) M.xs over the causal pairs, C.state and the
-    # state update. Returns (bytes, the products' FLOPs, the FLOPs of the
-    # products with an fp32 operand)
-    nc = -(-s // q)
-    pairs = q * (q + 1) // 2
-    shared = 2 * b * nc * pairs * n
-    per_head = 2 * b * nc * h * (pairs * p + 2 * q * p * n)
-    nbytes = itemsize * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h) \
-        + 4 * (b * s * h * p + b * h * p * n)
-    return nbytes, shared + per_head, per_head
-
-
-def _k6_bound(b, h, s, p, n, q, itemsize):
-    # at the route's rates: bf16 on the tensor cores, where C.B^T takes one
-    # pass and each product with an fp32 operand (M, the state, x w dt)
-    # three (its bf16 hi, mid and lo); fp32 on the CUDA cores
-    nbytes, flops, fp32_op = _k6_work(b, h, s, p, n, q, itemsize)
-    if itemsize == 2:
-        return _bound_at(nbytes, flops + 2 * fp32_op, BF16_FLOPS_PER_S)
-    return _bound_at(nbytes, flops, FP32_FLOPS_PER_S)
-
-
-def _k6_bound_fp32_rate(b, h, s, p, n, q, itemsize):
-    # the products at the fp32 CUDA-core rate (the CUDA-core kernel's bound)
-    nbytes, flops, _ = _k6_work(b, h, s, p, n, q, itemsize)
-    return _bound_at(nbytes, flops, FP32_FLOPS_PER_S)
-
-
-def _bound_at(nbytes, flops, rate):
-    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops / rate
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
-
-
 def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
     """K4, K5 and K6 at the given full-width bf16 shapes beside their plain
     versions and, for K4 and K5, one call of PyTorch's
@@ -2574,6 +2529,7 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     from repro_torch.kernels.flash_decode.ops import flash_decode
     from repro_torch.kernels.flash_decode.ref import flash_decode_plain
+    from repro_torch.analysis import kernel_costs as costs
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
     dev = torch.device(DEV)
@@ -2584,7 +2540,7 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
         return {"enable_gqa": True} if h != hkv else {}
     q, k, v = lm_kernel_inputs("flash_attention", k4_shape, bf16, 7, dev)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    bound, by = _k4_bound(*k4_shape, 2)
+    bound, by = costs.k4_bound(*k4_shape, 2)
     rows["flash_attention"] = {
         "ms": _time_ms(lambda: flash_attention(q, k, v), 10, 3),
         "plain_ms": _time_ms(lambda: flash_attention_plain(q, k, v), 5, 2),
@@ -2596,7 +2552,7 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
     q, kc, vc, pos = lm_kernel_inputs("flash_decode", k5_shape, bf16, 8, dev)
     mask = (torch.arange(k5_shape[1], device=dev) <= pos)[None, None, None]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
-    bound, by = _k5_bound(k5_shape[0], k5_shape[2], k5_shape[3],
+    bound, by = costs.k5_bound(k5_shape[0], k5_shape[2], k5_shape[3],
                           k5_shape[4], k5_shape[5], 2)
     rows["flash_decode"] = {
         "ms": _time_ms(lambda: flash_decode(q, kc, vc, pos), 30, 10),
@@ -2609,7 +2565,7 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
     del q, kc, vc, qt, kt, vt
     x, dt, bm, cm, a = lm_kernel_inputs("ssd_scan", k6_shape, bf16, 9, dev)
     qc = k6_shape[5]
-    bound, by = _k6_bound(*k6_shape, 2)
+    bound, by = costs.k6_bound(*k6_shape, 2)
     rows["ssd_scan"] = {
         "ms": _time_ms(lambda: ssd_scan(x, dt, bm, cm, a, q_chunk=qc), 10, 3),
         "plain_ms": _time_ms(lambda: ssd_scan_plain(x, dt, bm, cm, a,
@@ -2631,8 +2587,8 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
               f"{r['bound_ms']:.3e} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms']:.3f} of the bound")
     r = rows["ssd_scan"]
-    k6_bytes = _k6_work(*k6_shape, 2)[0]
-    fp32_bound, _ = _k6_bound_fp32_rate(*k6_shape, 2)
+    k6_bytes = costs.k6_work(*k6_shape, 2)[0]
+    fp32_bound, _ = costs.k6_bound_fp32_rate(*k6_shape, 2)
     print(f"[time] ssd_scan {k6_shape} bf16: {k6_bytes / r['ms'] / 1e6:.1f} "
           f"GB/s of its {k6_bytes / 1e6:.1f} MB; bound {r['bound_ms']:.4f} "
           f"ms at the tensor-core and HBM rates, {fp32_bound:.4f} ms with "
@@ -3184,6 +3140,7 @@ def train_full_width(sizer) -> dict:
     step_s = walls[len(walls) // 2]
     tokens = 8 * 256
     retries = sum(c[0] == "retry" for c in sizer._calls[n0:])
+    peak = torch.cuda.max_memory_allocated()
     print(f"[train b] {cfg.name}: {cfg.param_count():,} parameters, "
           f"{len(hist)} steps (+{watch.steps - len(hist)} killed by the "
           f"ladder, {retries} retries), losses {[round(x, 4) for x in losses]}; "
@@ -3191,12 +3148,12 @@ def train_full_width(sizer) -> dict:
           f"first {hist[0]['step_s']:.3f} s; Sizey allocation "
           f"{trainer.tc.memory_budget_gb:.2f} GB (first {sized[0][2]:.2f} GB "
           f"from the models), footprint {trainer.footprint_gb():.2f} GB, card "
-          f"peak {torch.cuda.max_memory_allocated() / 1024**3:.2f} GB; "
+          f"peak {peak / 1024**3:.2f} GB; "
           f"K1 {k12[0]}, K2 {k12[1]} launches; wall {wall:.1f} s")
     del trainer
     torch.cuda.empty_cache()
     return {"launches": watch.launches, "shapes": watch.shapes,
-            "steps": watch.steps, "step_s": step_s}
+            "steps": watch.steps, "step_s": step_s, "peak": peak}
 
 
 def train_ssm_hybrid() -> dict:
@@ -3240,19 +3197,20 @@ def train_ssm_hybrid() -> dict:
                   f"{moved}")
         walls = sorted(r["step_s"] for r in hist[1:])
         step_s = walls[len(walls) // 2]
-        peak = torch.cuda.max_memory_allocated() / 1024**3
+        peak = torch.cuda.max_memory_allocated()
         print(f"[train f] {cfg.name}: {cfg.n_layers} layer positions "
               f"({cfg.n_ssm_layers()} Mamba2), {cfg.param_count():,} "
               f"parameters, batch {batch} x {seq}, {len(hist)} steps, losses "
               f"{[round(x, 4) for x in losses]}; step wall median "
               f"{step_s:.3f} s ({batch * seq / step_s:.1f} tokens/s), first "
               f"{hist[0]['step_s']:.3f} s; footprint "
-              f"{trainer.footprint_gb():.2f} GB, card peak {peak:.2f} GB; "
+              f"{trainer.footprint_gb():.2f} GB, card peak "
+              f"{peak / 1024**3:.2f} GB; "
               f"K6 forward {watch.launches.get('ssd_scan', 0)}, backward "
               f"{watch.launches.get('ssd_scan_bwd', 0)} launches; wall "
               f"{wall:.1f} s")
         out[kind] = {"launches": watch.launches, "shapes": watch.shapes,
-                     "step_s": step_s}
+                     "step_s": step_s, "peak": peak}
         del trainer
         torch.cuda.empty_cache()
     launched = set(out["ssm"]["shapes"]["ssd_scan"]) | set(
@@ -3457,22 +3415,14 @@ def train_moe_vlm() -> dict:
     return shapes
 
 
-def _k4_bwd_bound(b, s, h, hkv, d, itemsize):
-    # q, k, v, o, dO and lse read once, dq, dk and dv written once; 2.5
-    # times the forward's products over the causal pairs, at the bf16
-    # tensor rate
-    pairs = s * (s + 1) // 2
-    nbytes = itemsize * (3 * b * s * h * d + 2 * b * s * hkv * d) \
-        + 4 * b * h * s + itemsize * (b * s * h * d + 2 * b * s * hkv * d)
-    return _bound_at(nbytes, 10 * b * h * pairs * d, BF16_FLOPS_PER_S)
-
-
 def time_k4_backward(shape) -> dict:
     """K4's backward (its two launches) at a training shape in bf16, causal,
-    beside the plain backward and scaled_dot_product_attention's backward
-    (forward + backward under autograd, less the forward)."""
+    beside the plain backward and scaled_dot_product_attention's backward:
+    the device time (torch.profiler) of the kernels its backward runs,
+    the autograd graph of one forward kept and walked again each call."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.analysis import kernel_costs as costs
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_backward_plain
@@ -3493,38 +3443,26 @@ def time_k4_backward(shape) -> dict:
     dt = dout.transpose(1, 2)
     gqa = {"enable_gqa": True} if h != hkv else {}
 
-    def fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              **gqa)
-    both = _time_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dt),
-                    20, 5)
-    fwd_ms = _time_ms(fwd, 20, 5)
-    bound, by = _k4_bwd_bound(*shape, 2)
-    flops = 10 * b * h * (s * (s + 1) // 2) * d
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             **gqa)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dt,
+                                   retain_graph=True)
+    lib = _device_ms(lib_bwd, n=20)
+    how = "device time of its kernels (torch.profiler)"
+    if lib is None:
+        lib = _time_ms(lib_bwd, 20, 5)
+        how = "CUDA events (the profiler showed no device time)"
+    bound, by = costs.k4_bwd_bound(*shape, 2)
+    flops = costs.k4_bwd_work(*shape, 2)[1]
     print(f"[time] flash_attention_bwd (B,S,H,Hkv,D)={shape} bf16 causal: "
           f"{ms:.5f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
           f"{plain:.5f} ms, scaled_dot_product_attention backward "
-          f"{both - fwd_ms:.5f} ms ({both:.5f} - {fwd_ms:.5f}), bound "
-          f"{bound:.5f} ms ({by})")
+          f"{lib:.5f} ms ({how}), bound {bound:.5f} ms ({by})")
+    del lib_out
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": both - fwd_ms}
-
-
-def _k6_bwd_work(b, h, s, p, n, q, itemsize):
-    # x, B and C (compute type), dt, a and dy (fp32) read once; dx, dB and
-    # dC (compute type), ddt and da (fp32) written once. Products: C.B^T
-    # over the causal pairs per (b, chunk), shared by the heads; per (b, h,
-    # chunk) dy.xs^T, M^T.dy, (D o L).B and (D o L)^T.C over the causal
-    # pairs, and five (Q, P, N) products (the chunk state recomputed,
-    # dy^T.prev, x^T.dS, B.dS^T and the dS update). Returns (bytes, FLOPs,
-    # the FLOPs of products with an fp32 operand)
-    nc = -(-s // q)
-    pairs = q * (q + 1) // 2
-    shared = 2 * b * nc * pairs * n
-    per_head = 2 * b * nc * h * (pairs * (2 * p + 2 * n) + 5 * q * p * n)
-    nbytes = itemsize * (2 * b * s * h * p + 4 * b * s * n) \
-        + 4 * (2 * b * s * h + 2 * h + b * s * h * p)
-    return nbytes, shared + per_head, per_head
+            "library_ms": lib}
 
 
 def time_k6_backward(shape) -> dict:
@@ -3536,6 +3474,7 @@ def time_k6_backward(shape) -> dict:
     forward's convention); the fp32 CUDA-core rate's bound printed
     beside."""
     import torch
+    from repro_torch.analysis import kernel_costs as costs
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_backward_plain
     dev = torch.device(DEV)
@@ -3547,9 +3486,10 @@ def time_k6_backward(shape) -> dict:
     fwd = _time_ms(lambda: ops._launch_forward(x, dt, bm, cm, a, q), 20, 5)
     plain = _time_ms(lambda: ssd_scan_backward_plain(x, dt, bm, cm, a, dy,
                                                      q_chunk=q), 3, 1)
-    nbytes, flops, fp32_op = _k6_bwd_work(*shape, 2)
-    bound, by = _bound_at(nbytes, flops + 2 * fp32_op, BF16_FLOPS_PER_S)
-    b32, by32 = _bound_at(nbytes, flops, FP32_FLOPS_PER_S)
+    nbytes, flops, fp32_op = costs.k6_bwd_work(*shape, 2)
+    bound, by = costs.bound_at(nbytes, flops + 2 * fp32_op,
+                               costs.PEAK_FLOPS_BF16)
+    b32, by32 = costs.bound_at(nbytes, flops, costs.PEAK_FLOPS_FP32)
     print(f"[time] ssd_scan_bwd (B,H,S,P,N,Q)={shape} bf16: {ms:.5f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s of fp32 FMA), plain {plain:.5f} "
           f"ms, the forward {fwd:.5f} ms; bound {bound:.5f} ms ({by}, bf16 "
@@ -3560,9 +3500,10 @@ def time_k6_backward(shape) -> dict:
             "library_ms": None}
 
 
-def train_phase() -> list:
+def train_phase() -> tuple[list, dict]:
     """Phase 15: training on the card. Returns the JSON rows of K4's and
-    K6's backward."""
+    K6's backward, and the card's peak and median step wall of (b)'s
+    granite-3-2b and (f)'s mamba2-780m for phase 17."""
     import gc
     import shutil
     import torch
@@ -3609,6 +3550,8 @@ def train_phase() -> list:
     wall = time.perf_counter() - t_start
     print(f"[train] phase 15 wall {wall:.1f} s")
     torch.cuda.empty_cache()
+    measured = {"granite": {k: full[k] for k in ("peak", "step_s")},
+                "mamba2": {k: ssm["ssm"][k] for k in ("peak", "step_s")}}
     return [{"name": "flash_attention_bwd", "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/kernel.cu",
              "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
@@ -3618,7 +3561,7 @@ def train_phase() -> list:
              "source": "src/repro_torch/kernels/ssd_scan/kernel.cu",
              "replaces": "src/repro/kernels/ssd_scan/kernel.py:71",
              "launches": ssm["ssm"]["launches"].get("ssd_scan_bwd", 0),
-             "max_abs_err": err6, **row6}]
+             "max_abs_err": err6, **row6}], measured
 
 
 # ----------------------------------------------------------- phase 16
@@ -3735,10 +3678,207 @@ def distributed_phase() -> None:
     print(f"[dist] phase 16 wall {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------- phase 17
+# The dry run (repro_torch.launch.dryrun) on the card's machine, in a
+# process of its own (a process has one default group: a fake group of 1,
+# 256 or 512 ranks takes its place there), beside (c) in this process:
+# (a) granite-3-2b's phase 15 step (b) and mamba2-780m's (f) traced on
+# fake CUDA tensors over a (1, 1) fake mesh, through K4-K6's fake kernels:
+# the predicted peak per card within DRY_PEAK_RTOL of what phase 15
+# allocated at most, and the traced FLOPs over phase 15's median step wall
+# as a share of the bf16 tensor rate; (b) the reference test's four cells
+# (tests/test_distributed.py:130) on the production meshes, 256 and 512
+# fake ranks, every row ok; (c) methylseq at SMALL_SCALE serially through
+# the per-model loop (fused=False) and the fused path on the card, counters
+# zeroed before each: integer choices and failures equal, allocations
+# within ALLOC_RTOL, K1 and K2 once per model call of the loop.
+DRY_PEAK_RTOL = 0.25
+DRY_CELLS = ["--arch", "granite-3-2b", "--shape", "train_4k,decode_32k",
+             "--mesh", "both"]
+DRY_TIMEOUT = 900
+
+
+def _dry_worker(arg: str) -> int:
+    """Phase 17 (a) and (b), in the dry-run process; exit 1 on a fault."""
+    import logging
+
+    from repro_torch.analysis.kernel_costs import PEAK_FLOPS_BF16
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import scaled_config
+    # DTensor warns at every two-axis redistribution
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    measured = json.loads(arg)
+    t_start = time.perf_counter()
+    ok = True
+    steps = {"granite": (get_config(TRAIN_ARCH), 8, 256),
+             "mamba2": (scaled_config(get_config(SSM_ARGV[1]), SSM_ARGV[3]),
+                        int(SSM_ARGV[7]), int(SSM_ARGV[9]))}
+    for name, (cfg, batch, seq) in steps.items():
+        t0 = time.perf_counter()
+        with dryrun.fake_world(1):
+            mesh = make_test_mesh(1, 1, device_type=DEV)
+            got = dryrun.trace_cell(cfg, ShapeConfig("phase15", seq, batch,
+                                                     "train"), mesh,
+                                    device=DEV)
+        mem, m = got["memory"], measured[name]
+        meas = m["peak"] / 1024**3
+        rel = abs(mem["peak_gb"] - meas) / meas
+        rate = got["flops"] / m["step_s"]
+        print(f"[dry a] {cfg.name} {batch} x {seq}, remat {cfg.remat}, "
+              f"AdamW, {cfg.compute_dtype} on a (1, 1) fake {DEV} mesh: "
+              f"predicted peak {mem['peak_gb']:.3f} GiB (arguments "
+              f"{mem['argument_gb']:.3f}, temporaries {mem['temp_gb']:.3f}), "
+              f"phase 15's card peak {meas:.3f} GiB: {rel:.3f} apart (tol "
+              f"{DRY_PEAK_RTOL}); {got['flops']:.4e} FLOP a step over the "
+              f"median wall {m['step_s']:.4f} s = {rate / 1e12:.1f} TFLOP/s, "
+              f"{rate / PEAK_FLOPS_BF16:.4f} of {PEAK_FLOPS_BF16 / 1e12:.0f}"
+              f" TFLOP/s; collectives "
+              f"{got['collectives']['total_bytes']} B; traced in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        ok = ok and rel <= DRY_PEAK_RTOL
+    out = REPO / "build" / "phase17" / "dry.jsonl"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    try:
+        dryrun.main(DRY_CELLS + ["--device", DEV, "--out", str(out)])
+    except SystemExit:
+        ok = False
+    rows = [json.loads(line) for line in open(out)] if out.exists() else []
+    for r in rows:
+        if r["status"] != "ok":
+            print(f"[dry b] {r['arch']} {r['shape']} {r['mesh']}: "
+                  f"{r['status']} {r.get('error', '')}\n"
+                  f"{r.get('traceback', '')}")
+            continue
+        rt, c = r["roofline"], r["cost"]
+        print(f"[dry b] {r['arch']} {r['shape']} on {r['chips']} ranks "
+              f"({r['mesh']}): ok, bottleneck {rt['bottleneck']} (compute "
+              f"{rt['compute_s']:.4e} s, memory {rt['memory_s']:.4e} s, "
+              f"collective {rt['collective_s']:.4e} s), peak "
+              f"{r['memory']['peak_gb']:.2f} GiB a card, {c['flops']:.4e} "
+              f"FLOP, {c['collective_bytes']:.4e} collective bytes; traced "
+              f"in {r['trace_s']} s")
+    ok = ok and len(rows) == 4 and all(r["status"] == "ok" for r in rows)
+    print(f"[dry] (a) and (b) wall {time.perf_counter() - t_start:.1f} s "
+          f"((b) {time.perf_counter() - t0:.1f} s)")
+    return 0 if ok else 1
+
+
+def loop_vs_fused() -> dict:
+    """Phase 17 (c): the per-model loop against the fused path on the
+    card. Returns the K1 and K2 shapes the loop launched."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    runs = {}
+    for fused in (True, False):
+        calls = {"_predict_loop": 0, "_observe_loop": 0}
+
+        def on_method(m, fused=fused, calls=calls):
+            # the predictor reads its flag at each call and holds no
+            # state yet: the loop from the first task on
+            m.predictor.fused = fused
+            for name in calls:
+                f = getattr(m.predictor, name)
+
+                def counted(*a, f=f, name=name):
+                    calls[name] += 1
+                    return f(*a)
+                setattr(m.predictor, name, counted)
+        shapes, restore = _recording_shapes()
+        reset_launch_counts()
+        try:
+            res, decs, wall, _ = _replay(SMALL_SCALE, DEV, "sizey",
+                                         on_method)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        launches = dict(KERNEL_LAUNCHES)
+        runs[fused] = (res, decs, wall, launches, calls, shapes)
+        n = len(res.outcomes)
+        print(f"[loop c] fused={fused}: methylseq scale={SMALL_SCALE}, "
+              f"{n} tasks, wastage_gbh {res.wastage_gbh!r}, failures "
+              f"{res.n_failures}, wall {wall:.3f} s ({n / wall:.2f} "
+              f"tasks/s); launches K1 {launches.get('ensemble_mlp', 0)}, "
+              f"K2 {launches.get('knn_predict', 0)}; loop calls {calls}")
+    (rf, df, *_), (rl, dl, _w, launches, calls, shapes) = runs[True], \
+        runs[False]
+    if len(df) != len(dl):
+        _fail("phase 17 (c): the loop and the fused path took different "
+              "numbers of decisions")
+    mism, worst = 0, 0.0
+    for (a, _), (b, _) in zip(df, dl):
+        if a.source != b.source:
+            _fail("phase 17 (c): the loop and the fused path disagree on "
+                  "preset vs model")
+        if a.source == "model":
+            mism += (a.offset_idx != b.offset_idx
+                     or int(np.argmax(a.raq)) != int(np.argmax(b.raq)))
+            worst = max(worst, abs(a.allocation_gb - b.allocation_gb)
+                        / abs(a.allocation_gb))
+    model_calls = sum(calls.values())
+    print(f"[loop c] {len(dl)} decisions: integer mismatches {mism} (tol 0), "
+          f"failures fused {rf.n_failures} loop {rl.n_failures}, max alloc "
+          f"rel diff {worst:.3e} (tol {ALLOC_RTOL:g}); K1 and K2 launches "
+          f"{launches.get('ensemble_mlp', 0)} and "
+          f"{launches.get('knn_predict', 0)}, model calls of the loop "
+          f"{model_calls} ({calls['_predict_loop']} predicts, "
+          f"{calls['_observe_loop']} observes)")
+    if mism or rf.n_failures != rl.n_failures or worst > ALLOC_RTOL:
+        _fail("phase 17 (c): the loop and the fused path disagree")
+    if not calls["_predict_loop"] or any(
+            launches.get(k, 0) != model_calls
+            for k in ("ensemble_mlp", "knn_predict")):
+        _fail("phase 17 (c): K1 and K2 did not launch once per model call "
+              "of the loop")
+    return shapes
+
+
+def check_loop_shapes(shapes) -> dict:
+    """K1 and K2 at every shape phase 17 (c) launched that phase 3 did not
+    check, held to their plain versions as in phase 3. Returns the
+    largest differences per kernel."""
+    k1 = sorted(sh for sh in shapes["ensemble_mlp"] if sh not in K1_SHAPES)
+    k2 = sorted(sh for sh in shapes["knn_predict"] if sh not in K2_SHAPES)
+    print(f"[loop c] shapes launched: K1 {sorted(shapes['ensemble_mlp'])}, "
+          f"K2 {sorted(shapes['knn_predict'])}; not checked before, checked "
+          f"now: K1 {k1}, K2 {k2}")
+    return check_kernels(k1, k2) if k1 or k2 else {}
+
+
+def dryrun_phase(measured: dict) -> dict:
+    """Phase 17: (a) and (b) in the dry-run process while (c) runs here.
+    Returns the K1 and K2 shapes (c) launched."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--dry",
+         json.dumps(measured)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        shapes = loop_vs_fused()
+    finally:
+        try:
+            out, _ = proc.communicate(timeout=DRY_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        print(out, end="")
+    print(f"[dry] phase 17 wall {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        _fail(f"phase 17: the dry run failed (exit {proc.returncode})")
+    return shapes
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--worker"]:
         return _worker_main(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--dry"]:
+        return _dry_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU",
               file=sys.stderr)
@@ -3754,9 +3894,10 @@ def main() -> int:
     t_start = time.perf_counter()
     build_kernels()
     if sys.argv[1:2] == ["--train-only"]:
-        # phases 1, 2, 15 and 16 alone, for work on the training slice
-        rows = train_phase()
+        # phases 1, 2, 15, 16 and 17 alone, for work on the training slice
+        rows, measured = train_phase()
         distributed_phase()
+        check_loop_shapes(dryrun_phase(measured))
         print(json.dumps({"kernels": rows}))
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -3875,9 +4016,16 @@ def main() -> int:
     ]
     kernels += lm_phases()
     # phase 15: training on the card, K4's backward
-    kernels += train_phase()
+    rows, measured = train_phase()
+    kernels += rows
     # phase 16: the distributed layer on a 1-device mesh
     distributed_phase()
+    # phase 17: the dry run beside the per-model loop; every K1 and K2
+    # shape the loop launched that phase 3 did not check is checked now
+    errors = check_loop_shapes(dryrun_phase(measured))
+    for row in kernels:
+        if row["name"] in errors:
+            row["max_abs_err"] = max(row["max_abs_err"], errors[row["name"]])
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -28,7 +28,13 @@ does; each dispatch launches the two kernels once. ``TRACE_COUNTS`` counts
 the distinct shape signatures a dispatch has met, the reference's compile
 count (O(log history) per pool: buffers double and batches are bucketed).
 
-The reference's legacy per-model loop (``fused=False``) is not ported yet.
+``SizeyPredictor(fused=False)`` keeps the reference's pre-fusion per-model
+loop, a numerical reference and benchmark baseline: a prediction runs each
+model's predict on its own (the MLP's launches K1, the k-NN's K2: N
+launches) and one combine (RAQ, gate and offset recomputed over the whole
+pool, re-uploaded from the host); an observe fits each model on its own
+and refreshes the in-sample predictions through the host. As in the
+reference, the loop counts no dispatch in ``DISPATCH_COUNTS``.
 """
 from __future__ import annotations
 
@@ -159,17 +165,65 @@ def _decision_cache_core(cfg: SizeyConfig, ttf: float, insample, ys,
     return acc, alpha, offset, off_idx
 
 
+def _apply_gate(strategy: str, beta: float, model_preds, acc, alpha_eff):
+    """The task-DEPENDENT half: ES from the current predictions, RAQ, and
+    the gated aggregate (Eq. 2-4), over the last axis."""
+    raq = raq_scores(acc, efficiency_scores(model_preds), alpha_eff)
+    weights = gate_weights(raq, strategy, beta)
+    return (model_preds * weights).sum(-1), raq, weights
+
+
+def _combine_core(cfg: SizeyConfig, ttf: float, model_preds, insample, ys,
+                  runtimes, mask, log_agg, log_actual, log_runtime, log_mask,
+                  log_model_preds):
+    """RAQ -> gating -> offset (Eq. 1-4 + §II-E) recomputed inline: the
+    per-model loop's combine. The fused path splits it into
+    ``_decision_cache_core`` (at observe) and ``_apply_gate`` (at
+    predict), so the two paths compute the same numbers."""
+    acc, alpha, offset, off_idx = _decision_cache_core(
+        cfg, ttf, insample, ys, runtimes, mask, log_agg, log_actual,
+        log_runtime, log_mask, log_model_preds)
+    agg, raq, weights = _apply_gate(cfg.strategy, cfg.beta, model_preds, acc,
+                                    alpha)
+    return agg, raq, weights, offset, off_idx
+
+
+# ------------------------------------------------------------------ legacy
+# The per-model helpers of the pre-fusion loop (fused=False): one model at
+# a time, each predict a launch of its kernel.
+def _fit(model: str, cfg: SizeyConfig, xs, ys, mask, rng):
+    return MODEL_MODULES[model].fit(xs, ys, mask, rng, cfg)
+
+
+def _update(model: str, cfg: SizeyConfig, state, xs, ys, mask, new_idx: int,
+            rng):
+    return MODEL_MODULES[model].update(state, xs, ys, mask, new_idx, rng, cfg)
+
+
+def _predict_batch(model: str, cfg: SizeyConfig, state,
+                   xb: torch.Tensor) -> torch.Tensor:
+    """One model over a (K, d) feature block -> (K,)."""
+    if model == "knn":
+        return MODEL_MODULES[model].predict_batch(state, xb, k=cfg.knn_k)
+    return MODEL_MODULES[model].predict_batch(state, xb)
+
+
+def _predict(model: str, cfg: SizeyConfig, state, x: torch.Tensor):
+    """One model at one (d,) feature vector -> a 0-d prediction."""
+    return _predict_batch(model, cfg, state, x[None])[0]
+
+
+def _via_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied to the host and back: the loop's re-upload of the
+    pool on every call (the seed implementation's cost model)."""
+    return t.cpu().to(t.device)
+
+
 def _pool_model_preds(models: tuple[str, ...], cfg: SizeyConfig, states,
                       xb: torch.Tensor) -> torch.Tensor:
     """All models' predictions over a (K, d) feature block -> (N, K)."""
-    cols = []
-    for i, m in enumerate(models):
-        if m == "knn":
-            cols.append(MODEL_MODULES[m].predict_batch(states[i], xb,
-                                                       k=cfg.knn_k))
-        else:
-            cols.append(MODEL_MODULES[m].predict_batch(states[i], xb))
-    return torch.stack(cols)
+    return torch.stack([_predict_batch(m, cfg, states[i], xb)
+                        for i, m in enumerate(models)])
 
 
 def _decide(models, cfg: SizeyConfig, states, xc: torch.Tensor, cache):
@@ -181,9 +235,8 @@ def _decide(models, cfg: SizeyConfig, states, xc: torch.Tensor, cache):
     acc, alpha_eff, offset, off_idx = cache
     xb, caps = xc[:, :-1], xc[:, -1]
     p = _pool_model_preds(models, cfg, states, xb).T            # (K, N)
-    raq = raq_scores(acc[None, :], efficiency_scores(p), alpha_eff)
-    weights = gate_weights(raq, cfg.strategy, cfg.beta)
-    agg = (p * weights).sum(-1)
+    agg, raq, weights = _apply_gate(cfg.strategy, cfg.beta, p, acc,
+                                    alpha_eff)
     alloc = torch.minimum((agg + offset).clamp_min(cfg.min_alloc_gb), caps)
     k = xc.shape[0]
     head = torch.stack([alloc, agg, offset.expand(k),
@@ -203,17 +256,13 @@ def _batch_bucket(k: int) -> int:
 class SizeyPredictor:
     """Online multi-model memory predictor (the paper's contribution),
     on ``device`` (CUDA by default; ``device="cpu"`` runs the plain PyTorch
-    versions of the kernels)."""
+    versions of the kernels). ``fused=True`` (default) runs the
+    single-dispatch decision loop; ``fused=False`` the per-model loop."""
 
     def __init__(self, cfg: SizeyConfig | None = None,
                  db: ProvenanceDB | None = None, *, n_features: int = 1,
                  ttf: float = 1.0, default_machine_cap_gb: float = 128.0,
                  fused: bool = True, device=None):
-        if not fused:
-            raise NotImplementedError(
-                "fused=False (the reference's per-model loop) is not "
-                "ported yet: it comes with the benchmark slice that ports "
-                "benchmarks/predictor_bench.py, its only user")
         self.cfg = cfg or SizeyConfig()
         self.n_features = n_features
         self.models = tuple(self.cfg.model_classes)
@@ -226,6 +275,7 @@ class SizeyPredictor:
         self.device = self.db.device
         self.ttf = float(ttf)
         self.default_machine_cap_gb = default_machine_cap_gb
+        self.fused = fused
         # per-pool model states: key -> tuple of states in self.models order
         self.states: dict[tuple[str, str], tuple] = {}
         # per-pool decision cache (acc, alpha_eff, offset, offset_idx)
@@ -251,6 +301,9 @@ class SizeyPredictor:
         if pool.count < self.cfg.min_history or key not in self.states:
             return self._preset_decision(task_type, machine, feats,
                                          user_preset_gb, cap_gb)
+        if not self.fused:
+            return self._predict_loop(key, pool, feats, user_preset_gb,
+                                      cap_gb)
         return self._predict_pool(
             key, pool, np.asarray([feats], np.float32),
             np.asarray([cap_gb], np.float32), [user_preset_gb])[0]
@@ -277,6 +330,10 @@ class SizeyPredictor:
                     out[i] = self._preset_decision(key[0], key[1],
                                                    featrows[j], presets[j],
                                                    float(caps[j]))
+            elif not self.fused:
+                for j, i in enumerate(idxs):
+                    out[i] = self._predict_loop(key, pool, featrows[j],
+                                                presets[j], float(caps[j]))
             else:
                 xb = np.asarray(featrows, np.float32)
                 for i, d in zip(idxs, self._predict_pool(key, pool, xb, caps,
@@ -325,6 +382,31 @@ class SizeyPredictor:
                 offset_idx=int(row[3])))
         return decisions
 
+    def _predict_loop(self, key, pool, feats, user_preset_gb: float,
+                      cap_gb: float) -> SizingDecision:
+        """Pre-fusion reference: one predict per model (each a launch of
+        its kernel on the card) and a combine over the whole pool,
+        re-uploaded from the host on every prediction."""
+        x = torch.tensor(feats, dtype=torch.float32, device=self.device)
+        preds = torch.stack([_predict(m, self.cfg, self.states[key][i], x)
+                             for i, m in enumerate(self.models)])
+        agg, raq, weights, offset, off_idx = _combine_core(
+            self.cfg, self.ttf, preds, *map(_via_host, (
+                pool.insample_preds, pool.ys, pool.runtimes, pool.mask,
+                pool.log_agg, pool.log_actual, pool.log_runtime,
+                pool.log_mask, pool.log_model_preds)))
+        alloc = float(np.clip(float(agg) + float(offset),
+                              self.cfg.min_alloc_gb, cap_gb))
+        raq = raq.cpu().numpy()
+        self.model_select_counts[int(np.argmax(raq))] += 1
+        return SizingDecision(key[0], key[1], tuple(feats), "model", alloc,
+                              user_preset_gb, cap_gb,
+                              model_preds=preds.cpu().numpy(), raq=raq,
+                              weights=weights.cpu().numpy(),
+                              agg_pred_gb=float(agg),
+                              offset_gb=float(offset),
+                              offset_idx=int(off_idx))
+
     # ------------------------------------------------------------- failure
     def retry_allocation(self, decision: SizingDecision, attempt: int,
                          last_alloc_gb: float) -> float:
@@ -352,7 +434,10 @@ class SizeyPredictor:
         t0 = time.perf_counter()
         serial = self._fit_serial.get(key, 0)
         seed = (stable_hash(f"{key}") + serial + self.cfg.seed) % (2**31)
-        self._maybe_refit(key, pool, seed)
+        if not self.fused:
+            self._observe_loop(key, pool, seed)
+        else:
+            self._maybe_refit(key, pool, seed)
         self._fit_serial[key] = serial + 1
         self.train_times_s.append(time.perf_counter() - t0)
 
@@ -361,9 +446,9 @@ class SizeyPredictor:
         (``observations``: (decision, peak_mem_gb, runtime_h, attempts,
         workflow) tuples in completion order). In full-retrain mode the
         refit is seeded as the last of the sequential fits, so the result
-        is that of observing one by one; incremental mode observes one by
-        one."""
-        if self.cfg.incremental:
+        is that of observing one by one; incremental mode and the per-model
+        loop observe one by one."""
+        if not self.fused or self.cfg.incremental:
             for decision, peak, rt, attempts, workflow in observations:
                 self.observe(decision, peak, rt, attempts, workflow)
             return
@@ -400,7 +485,8 @@ class SizeyPredictor:
         resumes warm, with the seed of the original's last fit; under the
         amortized-refit schedule the journaled fit horizon is replayed and
         one refresh runs over the full buffers (see the reference)."""
-        stride = not self.cfg.incremental and self.cfg.refit_growth > 0.0
+        stride = (self.fused and not self.cfg.incremental
+                  and self.cfg.refit_growth > 0.0)
         for key, pool in self.db.pools.items():
             if pool.count < self.cfg.min_history or key in self.states:
                 continue
@@ -409,7 +495,9 @@ class SizeyPredictor:
             c_f = self._last_fit_count(key, pool) if stride else pool.count
             seed = (stable_hash(f"{key}") + (c_f - self.cfg.min_history)
                     + self.cfg.seed) % (2**31)
-            if c_f < pool.count:
+            if not self.fused:
+                self._observe_loop(key, pool, seed)
+            elif c_f < pool.count:
                 trunc = torch.zeros(pool.cap, dtype=torch.float32,
                                     device=self.device)
                 trunc[:c_f] = 1.0
@@ -503,3 +591,22 @@ class SizeyPredictor:
             self.states[key] = states
             pool.insample_preds = insample
             _block(self.device)
+
+    def _observe_loop(self, key, pool, seed: int) -> None:
+        """Pre-fusion reference: a fit (or update) per model on the pool
+        re-uploaded from the host, then the in-sample refresh stacked on
+        the host, one predict per model over the buffer."""
+        xs, ys, mask = map(_via_host, (pool.xs, pool.ys, pool.mask))
+        rng = prng.prng_key(seed)
+        if key not in self.states or not self.cfg.incremental:
+            states = tuple(_fit(m, self.cfg, xs, ys, mask, rng)
+                           for m in self.models)
+        else:
+            states = tuple(_update(m, self.cfg, self.states[key][i], xs, ys,
+                                   mask, pool.count - 1, rng)
+                           for i, m in enumerate(self.models))
+        self.states[key] = states
+        pool.insample_preds = torch.stack([
+            _predict_batch(m, self.cfg, states[i], xs).cpu()
+            for i, m in enumerate(self.models)]).to(self.device)
+        _block(self.device)

@@ -11,13 +11,23 @@ kernel splits the positions over a cluster of up to 8 blocks per (KV head,
 sequence), each serving all the KV head's query heads; ``split_plan``
 fixes the split count and span from the shapes and the SM count, never
 from pos.
+
+The launch is a registered torch op (``torch.ops.repro_torch.
+flash_decode``): its real implementation is the launch, its fake
+implementation allocates the output and counts no launch, so a decode
+step traced on fake tensors (``launch.dryrun``) goes through K5 without a
+card; its FLOP formula counts ``analysis.kernel_costs``' products over
+every cache position (a formula sees shapes, not ``pos``: a dry run's
+decode step reads a full cache).
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import KERNEL_LAUNCHES
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_decode.ref import flash_decode_plain
@@ -58,7 +68,7 @@ def _check_cuda(q, k_cache, v_cache, pos):
         if c.device != dev or c.dtype != q.dtype or c.stride(3) != 1:
             raise ValueError("flash_decode takes caches of the query's type "
                              "on its device with unit stride over D")
-        if c.data_ptr() % 16 or any(st % per16 for st in c.stride()[:3]):
+        if any(st % per16 for st in c.stride()[:3]):
             raise ValueError("flash_decode reads the caches in 16-byte "
                              "chunks: rows must be 16-byte aligned")
     if not (isinstance(pos, torch.Tensor) and pos.device == dev
@@ -98,16 +108,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None):
-    """q (B, 1, H, D); caches (B, S_max, Hkv, D); pos the last live cache
-    position -> (B, 1, H, D) in q's type: attention of the token over the
-    positions 0..pos. ``scale`` defaults to D ** -0.5."""
-    _check(q, k_cache, v_cache)
+def _launch(q, k_cache, v_cache, pos, scale):
+    """K5 on the card."""
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("flash_decode reads the caches in 16-byte chunks: "
+                         "rows must be 16-byte aligned")
     b, _, h, d = q.shape
-    scale = d ** -0.5 if scale is None else float(scale)
-    if q.device.type == "cpu":
-        return flash_decode_plain(q, k_cache, v_cache, pos, scale=scale)
-    _check_cuda(q, k_cache, v_cache, pos)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -124,3 +130,37 @@ def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None):
     _build.check(lib, err, NAME)
     KERNEL_LAUNCHES[NAME] += 1
     return out
+
+
+# a CUDA kernel and a fake kernel through ``torch.library.Library`` (its
+# Python dispatch costs less host time a call than ``custom_op``'s: see
+# ``kernels/flash_attention/ops.py``)
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_decode(Tensor q, Tensor k_cache, Tensor v_cache, "
+            "Tensor pos, float scale) -> Tensor")
+_LIB.impl("flash_decode", _launch, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_decode")
+def _(q, k_cache, v_cache, pos, scale):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode)
+def _flops(q_shape, k_shape, v_shape, pos_shape, scale, *, out_shape=None,
+           **kw):
+    b, _, h, d = q_shape
+    return kernel_costs.k5_work(b, h, k_shape[2], d, k_shape[1], 2)[1]
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None):
+    """q (B, 1, H, D); caches (B, S_max, Hkv, D); pos the last live cache
+    position -> (B, 1, H, D) in q's type: attention of the token over the
+    positions 0..pos. ``scale`` defaults to D ** -0.5."""
+    _check(q, k_cache, v_cache)
+    b, _, h, d = q.shape
+    scale = d ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, pos, scale=scale)
+    _check_cuda(q, k_cache, v_cache, pos)
+    return torch.ops.repro_torch.flash_decode(q, k_cache, v_cache, pos, scale)

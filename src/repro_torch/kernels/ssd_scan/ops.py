@@ -17,11 +17,21 @@ over heads and chunks), which returns dx, dB and dC in the inputs' type
 and ddt and da in fp32, and takes a gradient of the final state or none.
 On the CPU the plain version's own autograd runs. ``KERNEL_LAUNCHES``
 counts ``ssd_scan`` (every forward) and ``ssd_scan_bwd`` apart.
+
+Both launches are registered torch ops (``torch.ops.repro_torch.ssd_scan``
+and ``ssd_scan_bwd``): the real implementation is the launch, the fake
+one allocates the launch's outputs and scratch (the backward's chunk-entry
+states among them) with their shapes and types and counts no launch, so
+a step traced on fake tensors (``launch.dryrun``) goes through K6 without
+a card; their FLOP formulas count ``analysis.kernel_costs``' products,
+each once.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import KERNEL_LAUNCHES
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
@@ -64,8 +74,7 @@ def _check_cuda(x, dt, bmat, cmat, a, q_chunk):
         raise ValueError("ssd_scan takes x with unit stride over P")
     per16 = 16 // x.element_size()      # values per 16-byte load
     for t in (x, bmat, cmat):
-        if t.data_ptr() % 16 or t.shape[-1] % per16 or any(
-                st % per16 for st in t.stride()[:-1]):
+        if t.shape[-1] % per16 or any(st % per16 for st in t.stride()[:-1]):
             raise ValueError("ssd_scan reads x, B and C in 16-byte chunks: "
                              "their rows must be 16-byte aligned")
     for t in (dt, a):
@@ -82,8 +91,15 @@ def _check_cuda(x, dt, bmat, cmat, a, q_chunk):
         raise ValueError("ssd_scan takes at most 65535 sequences")
 
 
+def _check_aligned(x, bmat, cmat):
+    if any(t.data_ptr() % 16 for t in (x, bmat, cmat)):
+        raise ValueError("ssd_scan reads x, B and C in 16-byte chunks: "
+                         "their rows must be 16-byte aligned")
+
+
 def _launch_forward(x, dt, bmat, cmat, a, q_chunk):
     """K6 on the card: (y, final state), both fp32."""
+    _check_aligned(x, bmat, cmat)
     b, s, h, p = x.shape
     n = bmat.shape[2]
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
@@ -105,11 +121,10 @@ def _launch_forward(x, dt, bmat, cmat, a, q_chunk):
     return y, final
 
 
-def backward_args(x, dt, bmat, cmat, a, dy, dfinal, q_chunk):
-    """The outputs (dx, ddt, dB, dC, da), and the arguments of the C
-    function ``ssd_scan_bwd`` before the stream (its scratch allocated
-    here): dy fp32 contiguous (B, S, H, P), ``dfinal`` fp32 contiguous
-    (B, H, P, N) or None."""
+def backward_buffers(x, bmat, q_chunk):
+    """The outputs (dx, ddt, dB, dC, da) of K6's backward and its fp32
+    scratch: the chunk-entry states (B, H, chunks, P, N), per-head dB and
+    dC (B, S, H, N) and per-chunk da (B, H, chunks)."""
     b, s, h, p = x.shape
     n = bmat.shape[2]
     nc = -(-s // q_chunk)
@@ -123,6 +138,17 @@ def backward_args(x, dt, bmat, cmat, a, dy, dfinal, q_chunk):
                torch.empty((b, s, h, n), **f32),
                torch.empty((b, s, h, n), **f32),
                torch.empty((b, h, nc), **f32))
+    return outs, scratch
+
+
+def backward_args(x, dt, bmat, cmat, a, dy, dfinal, q_chunk):
+    """The outputs (dx, ddt, dB, dC, da), and the arguments of the C
+    function ``ssd_scan_bwd`` before the stream (its scratch allocated
+    here): dy fp32 contiguous (B, S, H, P), ``dfinal`` fp32 contiguous
+    (B, H, P, N) or None."""
+    b, s, h, p = x.shape
+    n = bmat.shape[2]
+    outs, scratch = backward_buffers(x, bmat, q_chunk)
     ptrs = (x, dt, bmat, cmat, a, dy)
     args = (DTYPES[x.dtype], *(t.data_ptr() for t in ptrs),
             None if dfinal is None else dfinal.data_ptr(),
@@ -134,6 +160,7 @@ def backward_args(x, dt, bmat, cmat, a, dy, dfinal, q_chunk):
 
 def _launch_backward(x, dt, bmat, cmat, a, dy, dfinal, q_chunk):
     """K6's backward on the card: (dx, ddt, dB, dC, da)."""
+    _check_aligned(x, bmat, cmat)
     b, s, h, _ = x.shape
     if dy.shape != x.shape:
         raise ValueError(f"ssd_scan's dy {tuple(dy.shape)} is not x's "
@@ -155,12 +182,56 @@ def _launch_backward(x, dt, bmat, cmat, a, dy, dfinal, q_chunk):
     return outs
 
 
+# ------------------------------------------------------- registered ops
+# a CUDA kernel and a fake kernel each, through ``torch.library.Library``
+# (its Python dispatch costs less host time a call than ``custom_op``'s:
+# see ``kernels/flash_attention/ops.py``)
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssd_scan(Tensor x, Tensor dt, Tensor bmat, Tensor cmat, "
+            "Tensor a, int q_chunk) -> (Tensor, Tensor)")
+_LIB.define("ssd_scan_bwd(Tensor x, Tensor dt, Tensor bmat, Tensor cmat, "
+            "Tensor a, Tensor dy, Tensor? dfinal, int q_chunk) -> (Tensor, "
+            "Tensor, Tensor, Tensor, Tensor)")
+_LIB.impl("ssd_scan", _launch_forward, "CUDA")
+_LIB.impl("ssd_scan_bwd", _launch_backward, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::ssd_scan")
+def _(x, dt, bmat, cmat, a, q_chunk):
+    b, s, h, p = x.shape
+    f32 = {"dtype": torch.float32, "device": x.device}
+    return (torch.empty((b, s, h, p), **f32),
+            torch.empty((b, h, p, bmat.shape[2]), **f32))
+
+
+@torch.library.register_fake("repro_torch::ssd_scan_bwd")
+def _(x, dt, bmat, cmat, a, dy, dfinal, q_chunk):
+    dy = dy.to(torch.float32).contiguous()  # noqa: F841 (the launch's)
+    outs, scratch = backward_buffers(x, bmat, q_chunk)  # noqa: F841
+    return outs
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _forward_flops(x_shape, dt_shape, b_shape, c_shape, a_shape, q_chunk, *,
+                   out_shape=None, **kw):
+    b, s, h, p = x_shape
+    return kernel_costs.k6_work(b, h, s, p, b_shape[2], q_chunk, 2)[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _backward_flops(x_shape, dt_shape, b_shape, c_shape, a_shape, dy_shape,
+                    dfinal_shape, q_chunk, *, out_shape=None, **kw):
+    b, s, h, p = x_shape
+    return kernel_costs.k6_bwd_work(b, h, s, p, b_shape[2], q_chunk, 2)[1]
+
+
 class SsdScan(torch.autograd.Function):
     """K6 with its hand-written backward, on CUDA tensors."""
 
     @staticmethod
     def forward(ctx, x, dt, bmat, cmat, a, q_chunk):
-        y, final = _launch_forward(x, dt, bmat, cmat, a, q_chunk)
+        y, final = torch.ops.repro_torch.ssd_scan(x, dt, bmat, cmat, a,
+                                                  q_chunk)
         ctx.save_for_backward(x, dt, bmat, cmat, a)
         ctx.q_chunk = q_chunk
         ctx.set_materialize_grads(False)
@@ -171,8 +242,8 @@ class SsdScan(torch.autograd.Function):
         x, dt, bmat, cmat, a = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        grads = _launch_backward(x, dt, bmat, cmat, a, dy, dfinal,
-                                 ctx.q_chunk)
+        grads = torch.ops.repro_torch.ssd_scan_bwd(x, dt, bmat, cmat, a, dy,
+                                                   dfinal, ctx.q_chunk)
         return (*grads, None)
 
 
@@ -189,4 +260,4 @@ def ssd_scan(x, dt, bmat, cmat, a, *, q_chunk: int = 128):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, bmat, cmat, a)):
         return SsdScan.apply(x, dt, bmat, cmat, a, q_chunk)
-    return _launch_forward(x, dt, bmat, cmat, a, q_chunk)
+    return torch.ops.repro_torch.ssd_scan(x, dt, bmat, cmat, a, q_chunk)

@@ -180,8 +180,14 @@ def test_warm_start_from_a_reference_checkpoint(tmp_path):
 
 
 def test_legacy_loop_and_foreign_devices_are_refused():
-    with pytest.raises(NotImplementedError, match="per-model loop"):
-        TP.SizeyPredictor(fused=False, device="cpu")
+    # the legacy per-model loop is built and decides as the reference's
+    # loop does (tests/test_torch_fused_predictor.py holds it further)
+    kw = {"mlp_train_steps": 60}
+    wl = _workload(10, seed=4)
+    _assert_same_decisions(
+        _drive(JP.SizeyPredictor(JConfig(**kw), fused=False), wl),
+        _drive(TP.SizeyPredictor(SizeyConfig(**kw), fused=False,
+                                 device="cpu"), wl))
     with pytest.raises(ValueError):
         TP.SizeyPredictor(db=ProvenanceDB(device="cpu"), device="meta")
 

@@ -126,7 +126,10 @@ def test_the_port_imports_neither_jax_nor_the_reference():
         "        'repro_torch.workflow.journal', 'repro_torch.core.risk',\n"
         "        'repro_torch.core.risk.bands', 'repro_torch.obs.quality',\n"
         "        'repro_torch.obs.risk', 'repro_torch.data.ingest',\n"
-        "        'repro_torch.serving.scheduler_service'} <= set(mods)\n"
+        "        'repro_torch.serving.scheduler_service',\n"
+        "        'repro_torch.analysis', 'repro_torch.analysis.roofline',\n"
+        "        'repro_torch.launch.inputs',\n"
+        "        'repro_torch.launch.dryrun'} <= set(mods)\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
@@ -167,9 +170,16 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 
 def test_options_of_later_slices_say_so():
     # the risk slice's options construct, and with them come the engine's
-    # hooks of that slice; the legacy per-model loop still names its slice
-    with pytest.raises(NotImplementedError, match="slice"):
-        SizeyPredictor(fused=False, device="cpu")
+    # hooks of that slice; the legacy per-model loop is built and decides
+    from repro_torch.core.config import SizeyConfig
+    loop = SizeyPredictor(SizeyConfig(mlp_train_steps=20), fused=False,
+                          device="cpu")
+    assert not loop.fused
+    rng = np.random.default_rng(0)
+    for x in rng.uniform(0.5, 8.0, 8):
+        d = loop.predict("t", "m", (float(x),), 32.0)
+        loop.observe(d, 1.0 + 0.4 * float(x) ** 2, 0.5)
+    assert d.source == "model" and d.allocation_gb > 0
     for kw in ({"risk": True}, {"risk": True, "failure_strategy": "auto"},
                {"quality": True}):
         m = SizeyMethod(device="cpu", **kw)

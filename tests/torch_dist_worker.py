@@ -154,6 +154,101 @@ def gpipe(rank, world, out):
     print(f"OK rank {rank}: largest difference {err!r}")
 
 
+def collectives(rank, world, out):
+    """analysis.collectives' CollectiveCounter on a (2, 2) ("data",
+    "model") mesh: each rank writes what it counted over one collective
+    of each kind, a DTensor redistribution and a point-to-point exchange
+    (to ``out``/collectives_<rank>.json) for the test to hold against its
+    own count."""
+    import json
+
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.analysis.collectives import CollectiveCounter
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(2, 2, device_type="cpu")
+    data = mesh["data"]
+    x = torch.arange(24, dtype=torch.float32).reshape(6, 4) + rank
+    with CollectiveCounter() as c:
+        g = funcol.all_gather_tensor(x, 0, data)                 # (12, 4)
+        r = funcol.all_reduce(x.double(), "sum", dist.group.WORLD)
+        s = funcol.reduce_scatter_tensor(x, "sum", 0, data)      # (3, 4)
+        a = funcol.all_to_all_single(x[:4].contiguous(), None, None, data)
+        d = DTensor.from_local(x, mesh, (Shard(0), Replicate()),
+                               run_check=False)
+        full = d.redistribute(mesh, (Replicate(), Replicate()))  # (12, 4)
+        peer = rank ^ 1
+        if rank % 2 == 0:
+            funcol.wait_tensor(torch.ops._c10d_functional.isend(
+                x[:2].contiguous(), peer, 0, dist.group.WORLD.group_name))
+            recv = torch.ops._c10d_functional.irecv(
+                torch.empty(5, 4, dtype=torch.int16), peer, 0,
+                dist.group.WORLD.group_name)
+        else:
+            recv = torch.ops._c10d_functional.irecv(
+                torch.empty(2, 4), peer, 0, dist.group.WORLD.group_name)
+            funcol.wait_tensor(torch.ops._c10d_functional.isend(
+                torch.zeros(5, 4, dtype=torch.int16), peer, 0,
+                dist.group.WORLD.group_name))
+        funcol.wait_tensor(recv)
+        for t in (g, r, s, a, full.to_local()):
+            t.sum().item()
+    with open(f"{out}/collectives_{rank}.json", "w") as f:
+        json.dump(c.result(), f)
+    print(f"OK rank {rank}: {c.result()}")
+
+
+def serve_one_rank(rank, world, out):
+    """launch.dryrun's sharded prefill and decode step on a one-rank
+    (1, 1) mesh, bitwise the unsharded steps, from the same reduced
+    zamba2-7b (attention, Mamba2 and the cache) and granite-3-2b."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+                                                  param_specs)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.utils.misc import tree_flatten_with_path, tree_map
+    mesh = make_test_mesh(1, 1, device_type="cpu")
+
+    def full(tree):
+        _, leaves = tree_flatten_with_path(tree)
+        return [t.full_tensor() if hasattr(t, "full_tensor") else t
+                for t in leaves]
+    for arch in ("zamba2-7b", "granite-3-2b"):
+        cfg = get_config(arch).reduced()
+        params = build_model(cfg).init(0, device="cpu")
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab, (4, 24))
+        batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+        step = torch.from_numpy(tokens[:, :1].astype(np.int32))
+        logits, cache = prefill(params, batch, cfg)
+        want = [logits, *full(cache)]
+        # decode from a cache with room for the new position
+        _, cache = prefill(params, batch, cfg, max_seq=32)
+        inputs = {"tokens": step, "cache": tree_map(torch.clone, cache)}
+        logits2, cache = decode_step(params, cache, step, cfg)
+        want += [logits2, *full(cache)]
+        with axis_rules(mesh):
+            dp = distribute(params, mesh, param_specs(params, mesh))
+            specs = dryrun.serve_specs(cfg, "prefill", mesh, batch)
+            got_l, got_c = dryrun.serve_step(
+                cfg, "prefill", mesh, dp,
+                distribute(batch, mesh, specs["inputs"]))
+            got = [got_l.full_tensor(), *full(got_c)]
+            specs = dryrun.serve_specs(cfg, "decode", mesh, inputs)
+            got_l, got_c = dryrun.serve_step(
+                cfg, "decode", mesh, dp,
+                distribute(inputs, mesh, specs["inputs"]))
+            got += [got_l.full_tensor(), *full(got_c)]
+        assert len(got) == len(want)
+        for a, b in zip(want, got):
+            assert a.shape == b.shape and torch.equal(a, b), arch
+        print(f"OK {arch}: prefill and decode bitwise over {len(want)} "
+              f"tensors")
+
+
 if __name__ == "__main__":
     check, rank, world, store, out = sys.argv[1:6]
     rank, world = int(rank), int(world)
