@@ -8,7 +8,9 @@ Phases (any failure exits non-zero, without the final result line):
   2. build the CUDA kernels from the sources in the checkout (one nvcc per
      source, all at once) and print the build time and ptxas report, and
      count K4's wgmma (HGMMA) and TMA instructions and K6's tensor-core
-     (HMMA) and TMA instructions in their machine code;
+     (HMMA) and TMA instructions in their machine code, and the HMMA of
+     each bf16 backward kernel function on its own (failing where one has
+     none), with its registers, spills and dynamic shared memory;
   3. hold each kernel against its plain PyTorch version on the card (the
      segment-DP and k-NN kernels bit for bit, over profile kinds, M, G and
      k, with the segment DP also at the edges of its tiling plan, and over
@@ -98,7 +100,8 @@ Phases (any failure exits non-zero, without the final result line):
      by Sizey; mamba2-780m at full width and depth and zamba2-7b at full
      width cut in depth, K6's forward and backward counted; card vs CPU at
      the reduced configs; phi3.5-moe and internvl2-26b cut in depth; both
-     backward kernels timed.
+     backward kernels timed at every training shape, and the two models'
+     step wall and tokens/s.
  16. the distributed layer on a 1-device nccl mesh: the sharded train
      step bitwise the unsharded one, compressed_psum over the group
      bitwise the one-device round trip, the elastic controller unchanged.
@@ -318,19 +321,87 @@ def build_kernels():
     # K4's bf16 path must run on Hopper's warpgroup products and K6's on
     # the tensor cores, both fed by TMA: count the instructions in the
     # built libraries' machine code
+    sass = {}
     for name, mma, what in (("flash_attention", "HGMMA", "wgmma"),
                             ("ssd_scan", "HMMA", "mma.sync")):
-        sass = subprocess.run([str(pathlib.Path(_build.nvcc_path()).parent
-                                   / "cuobjdump"), "-sass",
-                               str(_build.lib_path(name))],
-                              capture_output=True, text=True,
-                              timeout=120).stdout
-        counts = {op: sass.count(op) for op in (mma, "UTMALDG", "SYNCS")}
+        sass[name] = subprocess.run(
+            [str(pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"),
+             "-sass", str(_build.lib_path(name))], capture_output=True,
+            text=True, timeout=120).stdout
+        counts = {op: sass[name].count(op)
+                  for op in (mma, "UTMALDG", "SYNCS")}
         print(f"[build] {name} SASS: {counts[mma]} {mma} ({what}), "
               f"{counts['UTMALDG']} UTMALDG (TMA loads), {counts['SYNCS']} "
               f"SYNCS (mbarrier) instructions")
         if not counts[mma] or not counts["UTMALDG"]:
             _fail(f"{name}'s library issues no {what} or no TMA load")
+    check_backward_route(sass, _build)
+
+
+# The bf16 backward kernels that run products, each of which must issue
+# tensor-core instructions in its own machine code; the elementwise K6
+# kernels (the passing, the sum over heads) are listed with their counts
+BWD_MMA_KERNELS = {
+    "flash_attention": ("attention_bwd_dq_mma_kernel",
+                        "attention_bwd_dkdv_mma_kernel"),
+    "ssd_scan": ("ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel"),
+}
+BWD_PLAIN_KERNELS = {"ssd_scan": ("ssd_bwd_pass_kernel",
+                                  "ssd_scan_bwd_sum_kernel")}
+
+
+def _by_function(text: str, head: str) -> dict:
+    """Split cuobjdump's SASS (head "Function : ") or ptxas's report (head
+    "Compiling entry function '") into {mangled name: its lines}."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if head in line:
+            cur = line.split(head, 1)[1].split("'")[0].strip()
+            out[cur] = []
+        elif cur is not None:
+            out[cur].append(line)
+    return out
+
+
+def check_backward_route(sass: dict, build) -> None:
+    """Phase 2 for the backward kernels: HMMA and HGMMA counted in each
+    bf16 backward kernel function's own machine code (every template
+    instance), failing if one has none; each one's registers, spills and
+    dynamic shared memory (ptxas, the kernel's own plan) printed."""
+    for lib_name, kernels in BWD_MMA_KERNELS.items():
+        funcs = _by_function(sass[lib_name], "Function : ")
+        ptx = _by_function(build.BUILD_LOG.get(lib_name, ""),
+                           "Compiling entry function '")
+        for kern in kernels + BWD_PLAIN_KERNELS.get(lib_name, ()):
+            found = {f: body for f, body in funcs.items() if kern in f}
+            if not found:
+                _fail(f"{kern}: no such function in {lib_name}'s SASS")
+            mma = sorted(sum(ln.count("HMMA") + ln.count("HGMMA")
+                             for ln in body) for body in found.values())
+            print(f"[build] {kern}: {len(found)} instance(s), HMMA + HGMMA "
+                  f"per instance {mma[0]}..{mma[-1]}")
+            if kern in kernels and mma[0] == 0:
+                _fail(f"{kern}: a bf16 backward kernel with no tensor-core "
+                      f"instruction")
+            for f, lines in sorted(ptx.items()):
+                if kern not in f:
+                    continue
+                regs = [ln.split(":", 1)[1].strip() for ln in lines
+                        if "Used" in ln and "registers" in ln]
+                spill = [ln.strip() for ln in lines if "spill" in ln]
+                print(f"[build]   {f}: {regs[0] if regs else '?'}; "
+                      f"{spill[0] if spill else '?'}")
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_bwd_smem
+    print("[build] K4 bf16 backward dynamic shared memory (bytes), dQ / "
+          "dK-dV at D = 16..128: " + ", ".join(
+              f"{16 * nk}: {fn(16 * nk, 0)}/{fn(16 * nk, 1)}"
+              for nk in range(1, 9)))
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_bwd_smem
+    print("[build] K6 bf16 backward dynamic shared memory (bytes), state / "
+          "chunk kernel at N <= 64 and N <= 128: "
+          f"{fn(64, 0)}/{fn(64, 1)} and {fn(128, 0)}/{fn(128, 1)}")
 
 
 # ----------------------------------------------------------- phase 3
@@ -3416,7 +3487,7 @@ def train_moe_vlm() -> dict:
 
 
 def time_k4_backward(shape) -> dict:
-    """K4's backward (its two launches) at a training shape in bf16, causal,
+    """K4's backward (two kernel launches) at a training shape in bf16, causal,
     beside the plain backward and scaled_dot_product_attention's backward:
     the device time (torch.profiler) of the kernels its backward runs,
     the autograd graph of one forward kept and walked again each call."""
@@ -3466,7 +3537,7 @@ def time_k4_backward(shape) -> dict:
 
 
 def time_k6_backward(shape) -> dict:
-    """K6's backward (its two launches) at a training shape in bf16 on the
+    """K6's backward (four kernel launches in bf16) at a training shape on the
     model's strided slices, beside the plain backward (fp32) and the
     forward at the same shape; no PyTorch call computes an SSD scan's
     gradient, so no library time. Bound: the bytes, or the products at
@@ -3491,7 +3562,8 @@ def time_k6_backward(shape) -> dict:
                                costs.PEAK_FLOPS_BF16)
     b32, by32 = costs.bound_at(nbytes, flops, costs.PEAK_FLOPS_FP32)
     print(f"[time] ssd_scan_bwd (B,H,S,P,N,Q)={shape} bf16: {ms:.5f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s of fp32 FMA), plain {plain:.5f} "
+          f"({flops / ms / 1e9:.1f} TFLOP/s of the products it needs), "
+          f"plain {plain:.5f} "
           f"ms, the forward {fwd:.5f} ms; bound {bound:.5f} ms ({by}, bf16 "
           f"tensor rate in three passes), {b32:.5f} ms ({by32}) at the fp32 "
           f"rate; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; library: "
@@ -3546,8 +3618,12 @@ def train_phase() -> tuple[list, dict]:
     for s in sorted(launched - {k4s}):
         time_k4_backward(s)
     row6 = time_k6_backward(K6_TRAIN_SHAPES[0])
-    time_k6_backward(K6_TRAIN_SHAPES[1])
+    row6z = time_k6_backward(K6_TRAIN_SHAPES[1])
     wall = time.perf_counter() - t_start
+    print(f"[train] step wall (median): granite-3-2b {full['step_s']:.4f} s "
+          f"({8 * 256 / full['step_s']:.1f} tokens/s), mamba2-780m "
+          f"{ssm['ssm']['step_s']:.4f} s "
+          f"({8 * 1024 / ssm['ssm']['step_s']:.1f} tokens/s)")
     print(f"[train] phase 15 wall {wall:.1f} s")
     torch.cuda.empty_cache()
     measured = {"granite": {k: full[k] for k in ("peak", "step_s")},
@@ -3561,7 +3637,12 @@ def train_phase() -> tuple[list, dict]:
              "source": "src/repro_torch/kernels/ssd_scan/kernel.cu",
              "replaces": "src/repro/kernels/ssd_scan/kernel.py:71",
              "launches": ssm["ssm"]["launches"].get("ssd_scan_bwd", 0),
-             "max_abs_err": err6, **row6}], measured
+             "max_abs_err": err6, **row6},
+            {"name": "ssd_scan_bwd_zamba2", "route": "cuda",
+             "source": "src/repro_torch/kernels/ssd_scan/kernel.cu",
+             "replaces": "src/repro/kernels/ssd_scan/kernel.py:71",
+             "launches": ssm["hybrid"]["launches"].get("ssd_scan_bwd", 0),
+             "max_abs_err": err6, **row6z}], measured
 
 
 # ----------------------------------------------------------- phase 16

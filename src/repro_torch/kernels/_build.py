@@ -38,6 +38,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures: every function returns the launch's cudaError_t as an int
+# (the *_smem queries a size in bytes)
 SIGNATURES = {
     "ensemble_mlp": {
         # x, w1, b1, w2, b2, out, M, T, d, h, stream
@@ -78,6 +79,9 @@ SIGNATURES = {
         + (_F, _I, _I, _P),
         # map_out, ptr, dims[4], byte strides[3], box[4]
         "flash_attention_tensor_map": (_P,) * 5,
+        # D, 0 (dQ) or 1 (dK/dV): the bf16 backward kernel's dynamic shared
+        # memory in bytes (a size, not an error code)
+        "flash_attention_bwd_smem": (_I, _I),
     },
     "flash_decode": {
         # dtype, q, k_cache, v_cache, pos, out, B, H, Hkv, D, S_max,
@@ -91,10 +95,13 @@ SIGNATURES = {
         # x strides (B, S, H), B strides (B, S), C strides (B, S), stream
         "ssd_scan_fwd": (_I,) + (_P,) * 7 + (_I,) * 6 + (_L,) * 7 + (_P,),
         # dtype, x, dt, B, C, a, dy, dfinal (or null), the scratch prevs,
-        # dB and dC partials and da partials, dx, ddt, dB, dC, da, B, S, H,
-        # P, N, Q, x strides (B, S, H), B strides (B, S), C strides (B, S),
-        # stream
-        "ssd_scan_bwd": (_I,) + (_P,) * 16 + (_I,) * 6 + (_L,) * 7 + (_P,),
+        # dstates (bf16; null for fp32), dB and dC partials and da
+        # partials, dx, ddt, dB, dC, da, B, S, H, P, N, Q, x strides (B, S,
+        # H), B strides (B, S), C strides (B, S), stream
+        "ssd_scan_bwd": (_I,) + (_P,) * 17 + (_I,) * 6 + (_L,) * 7 + (_P,),
+        # N, 0 (each chunk's state) or 1 (each chunk's gradient): the bf16
+        # backward kernel's dynamic shared memory in bytes (a size)
+        "ssd_scan_bwd_smem": (_I, _I),
     },
 }
 

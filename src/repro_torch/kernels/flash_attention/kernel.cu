@@ -81,16 +81,9 @@ constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
 }
 // p rounded to T and back: the TPU kernel's p.astype(v.dtype) before P.V
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -102,15 +95,6 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
   f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z);
   f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* f,
-                                       __nv_bfloat16) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 // Stage rows r0..r0+63 of a (S x D) slab (row stride ld elements) in shared
@@ -817,14 +801,45 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 // sequence): it walks the G query heads of its group and, for each, the
 // query tiles from the diagonal on, accumulating dK and dV in fp32. Both
 // recompute the scores and p. Keys past kv_len get zero dK and dV.
-// Math in fp32 FMA on CUDA cores for both types (bf16 is widened on load),
-// 256 threads as 16 x 16, each thread a 4 x 4 block of a score tile and a
-// 4 x (D / 16) block of an output: the same tiling as the fp32 forward.
 // What bounds it on an H100: 2.5 times the forward's products (Q.K^T and
 // dO.V^T recomputed, dV, dK and dQ); at granite's training shape (B = 8,
-// S = 256, H = 32, Hkv = 8, D = 64) the bf16 tensor rate bounds it, and
-// this design runs at the fp32 CUDA-core rate, so it is slow against that
-// bound (PERF.md gives its time).
+// S = 256, H = 32, Hkv = 8, D = 64, bf16) 5.39 GFLOP, 0.0055 ms at the
+// bf16 tensor rate, against 0.0126 ms for its bytes: so bytes, and the
+// short causal rows leave the card little work a block.
+//
+// fp32 runs in fp32 FMA on CUDA cores (the tensor cores would round to
+// TF32): 256 threads as 16 x 16, each thread a 4 x 4 block of a score tile
+// and a 4 x (D / 16) block of an output, the tiles staged transposed in
+// shared memory as fp32, as the fp32 forward does.
+//
+// bf16 runs its five products on the tensor cores, mma.sync m16n8k16 (bf16
+// operands, fp32 accumulators) fed by ldmatrix, 4 warps of 16 rows a
+// group. mma.sync and not wgmma: the backward takes its operands in four
+// orientations (K and Q as the B operand of a product over D and, through
+// ldmatrix's transpose, over positions), which ldmatrix reads from one
+// row-major tile each, where wgmma would need a descriptor layout per
+// orientation; and at these shapes the causal rows are short, so the
+// products are a fraction of a block's time. Tiles stay bf16 in shared
+// memory (64 rows of 128-byte lines, 64 columns a line, each 16-byte unit
+// XOR-swizzled by the row's low three bits, so ldmatrix reads 8 rows
+// without bank conflicts) and are brought by cp.async into a two-stage
+// ring: the next tile's copy is in flight while this tile's products run.
+// p and dS never leave registers: the score accumulators' layout is the A
+// operand's, so p is rounded to bf16 there (the plain version's p.to(v's
+// type)) for dV += P^T dO, and dS is rounded to bf16 for dQ += dS K and
+// dK += dS^T Q (a rounding point the plain backward, which keeps dS in
+// fp32, does not have: ~2^-9 of each term; ref.py's
+// flash_attention_backward_rounded rounds where this kernel does).
+//   dQ: a block of 128 threads per (64-row query tile, head, sequence);
+//   warp w owns rows 16 w ..; the grid's z walks the query tiles in
+//   falling order of work, so the longest causal rows start first.
+//   dK, dV: a block of 256 threads per (64-key tile, KV head, sequence),
+//   two groups of 4 warps; warp w of a group owns keys 16 w ..; the
+//   block's (query head, query tile) items from the diagonal on are dealt
+//   to the groups in turn, each group with its own ring and named barrier,
+//   and at the end group 1's dK and dV accumulators are added to group 0's
+//   through shared memory (a fixed order). The grid's z is the key tile,
+//   so the heaviest tiles (the first, under a causal mask) start first.
 constexpr int kBwdRows = 64;   // query rows or keys per tile
 
 // Stage lse and Delta of rows q0 .. q0 + 63 of head h into shared memory.
@@ -840,14 +855,15 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ lse,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ o,
-                        const T* __restrict__ dout,
+attention_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ o,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
-                        float* __restrict__ delta, T* __restrict__ dq, int S,
-                        int H, int Hkv, int D, float scale, int causal,
+                        float* __restrict__ delta, float* __restrict__ dq,
+                        int S, int H, int Hkv, int D, float scale, int causal,
                         int kv_len) {
   extern __shared__ float4 smem4[];
   float* sQt = reinterpret_cast<float*>(smem4);   // [D][kTS] Q^T
@@ -871,9 +887,9 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        static_cast<size_t>(kvh) * D;
   const size_t base = (static_cast<size_t>(b) * H + h) * S;
 
-  stage<T, true>(q + qoff, row_q, q0, S, D, sQt);
-  stage<T, true>(dout + qoff, row_q, q0, S, D, sDOt);
-  stage<T, true>(o + qoff, row_q, q0, S, D, sKt);
+  stage<float, true>(q + qoff, row_q, q0, S, D, sQt);
+  stage<float, true>(dout + qoff, row_q, q0, S, D, sDOt);
+  stage<float, true>(o + qoff, row_q, q0, S, D, sKt);
   __syncthreads();
   if (tid < kBwdRows) {
     // Delta of row q0 + tid, summed over D in order
@@ -901,8 +917,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();   // the last tile's dS.K is done with sKt and sDSt
-    stage<T, true>(k + kvoff, row_kv, k0, S, D, sKt);
-    stage<T, true>(v + kvoff, row_kv, k0, S, D, sVt);
+    stage<float, true>(k + kvoff, row_kv, k0, S, D, sKt);
+    stage<float, true>(v + kvoff, row_kv, k0, S, D, sVt);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -954,27 +970,27 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqb = dq + qoff;
+  float* dqb = dq + qoff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      if (j < nd) dqb[row * row_q + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+      if (j < nd) dqb[row * row_q + tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const T* __restrict__ dout,
+attention_bwd_dkdv_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int S,
-                          int H, int Hkv, int D, float scale, int causal,
-                          int kv_len) {
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int S, int H, int Hkv, int D, float scale,
+                          int causal, int kv_len) {
   extern __shared__ float4 smem4[];
   float* sKt = reinterpret_cast<float*>(smem4);   // [D][kTS] K^T
   float* sVt = sKt + D * kTS;                      // [D][kTS] V^T
@@ -1004,8 +1020,8 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < 8; ++j) ak[i][j] = av[i][j] = 0.0f;
 
   if (k0 < limit) {
-    stage<T, true>(k + kvoff, row_kv, k0, S, D, sKt);
-    stage<T, true>(v + kvoff, row_kv, k0, S, D, sVt);
+    stage<float, true>(k + kvoff, row_kv, k0, S, D, sKt);
+    stage<float, true>(v + kvoff, row_kv, k0, S, D, sVt);
     for (int g = 0; g < G; ++g) {
       const int h = kvh * G + g;
       const size_t qoff = static_cast<size_t>(b) * S * row_q +
@@ -1014,8 +1030,8 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int q0 = causal ? k0 : 0; q0 < S; q0 += kBwdRows) {
         __syncthreads();   // the last tile's products are done with sQt,
                            // sDOt, sP, sDS and the row stats
-        stage<T, true>(q + qoff, row_q, q0, S, D, sQt);
-        stage<T, true>(dout + qoff, row_q, q0, S, D, sDOt);
+        stage<float, true>(q + qoff, row_q, q0, S, D, sQt);
+        stage<float, true>(dout + qoff, row_q, q0, S, D, sDOt);
         stage_rows(lse, delta, base, q0, S, sLse, sDelta);
         __syncthreads();
 
@@ -1050,7 +1066,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int r = tx * 4 + j, row = q0 + r;
             const bool live = row < S && key < limit && (!causal || row >= key);
             const float p = live ? expf(s[i][j] * scale - sLse[r]) : 0.0f;
-            sP[r * kTS + ty * 4 + i] = round_to<T>(p);
+            sP[r * kTS + ty * 4 + i] = p;
             sDS[r * kTS + ty * 4 + i] = p * (dp[i][j] - sDelta[r]);
           }
         }
@@ -1078,8 +1094,8 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkb = dk + kvoff;
-  T* dvb = dv + kvoff;
+  float* dkb = dk + kvoff;
+  float* dvb = dv + kvoff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty * 4 + i;
@@ -1087,8 +1103,8 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       if (j < nd) {
-        dkb[key * row_kv + tx + 16 * j] = from_f<T>(ak[i][j] * scale);
-        dvb[key * row_kv + tx + 16 * j] = from_f<T>(av[i][j]);
+        dkb[key * row_kv + tx + 16 * j] = ak[i][j] * scale;
+        dvb[key * row_kv + tx + 16 * j] = av[i][j];
       }
   }
 }
@@ -1102,45 +1118,571 @@ size_t bwd_dkdv_smem(int D) {
                           2 * static_cast<size_t>(kBQ) * kTS + 2 * kBwdRows);
 }
 
-template <typename T>
-int launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                  const void* dout, const void* lse, void* delta, void* dq,
-                  int B, int S, int H, int Hkv, int D, float scale,
-                  int causal, int kv_len, cudaStream_t stream) {
+// ---- PTX wrappers of the bf16 backward
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most one of this thread's copy groups is in flight
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, unsigned* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, unsigned* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// d += a.b, a 16 x 16 (row), b 16 x 8 (col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// the 128 threads of dK/dV's group `grp` (named barrier 1 + grp)
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + grp) : "memory");
+}
+// ---- end PTX wrappers
+
+constexpr int kMmaWarps = 4;                  // warps of a group, 16 rows each
+constexpr int kMmaThreads = 32 * kMmaWarps;   // dQ's block, a dK/dV group
+constexpr int kMmaGroups = 2;                 // dK/dV: groups of a block
+constexpr float kLog2e = 1.4426950408889634f;
+
+// byte offset of (row, col) in a tile of 128-byte rows, 64 columns per `sub`
+// bytes, each 16-byte unit XOR-swizzled by the row's low three bits
+__device__ __forceinline__ uint32_t toff(int row, int col, int sub) {
+  return (col >> 6) * sub + row * 128 + ((((col >> 3) ^ row) & 7) << 4) +
+         (col & 7) * 2;
+}
+
+// the low and high bf16 of a 32-bit word, as floats
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// cp.async rows r0 .. r0 + 63 of D bf16 columns (row stride ld elements)
+// into a tile at dst; rows past S are zeros. `nthr` threads, `t` this one's
+// index among them.
+template <int kNk>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src, size_t ld,
+                                          int r0, int S, int t, int nthr) {
+  constexpr int kUnits = 2 * kNk;   // 16-byte units a row
+  constexpr int kSub = kBwdRows * 128;
+  for (int i = t; i < kBwdRows * kUnits; i += nthr) {
+    const int r = i / kUnits, u = i % kUnits;
+    const bool valid = r0 + r < S;
+    cp_async16(dst + toff(r, 8 * u, kSub),
+               src + (valid ? (r0 + r) * ld + 8 * u : 0), valid);
+  }
+}
+
+// The bytes of a 64-row tile of D (= 16 kNk) bf16 columns
+template <int kNk>
+struct BwdTile {
+  static constexpr int kSub = kBwdRows * 128;
+  static constexpr int kBytes = ((kNk + 3) / 4) * kSub;
+};
+
+// dQ and Delta, bf16, on the tensor cores. Shared memory: Q, dO, then a
+// two-stage ring of (K, V) tiles.
+template <int kNk>
+__global__ void __launch_bounds__(kMmaThreads)
+attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const __nv_bfloat16* __restrict__ o,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dq, int S, int H,
+                            int Hkv, int D, float scale, int causal,
+                            int kv_len) {
+  using L = BwdTile<kNk>;
+  constexpr int kSub = L::kSub, kT = L::kBytes;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t sQ = smem_u32(smem_raw), sDO = sQ + kT;
+  auto sK = [&](int st) { return sQ + (2 + 2 * st) * kT; };
+  auto sV = [&](int st) { return sQ + (3 + 2 * st) * kT; };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;     // fragment row, column pair
+  const int lr = lane & 7, lm = lane >> 3;    // ldmatrix row, matrix
+  // z walks the query tiles in falling order of work
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBwdRows;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (H / Hkv);
+  const size_t row_q = static_cast<size_t>(H) * D;
+  const size_t row_kv = static_cast<size_t>(Hkv) * D;
+  const size_t qoff = static_cast<size_t>(b) * S * row_q +
+                      static_cast<size_t>(h) * D;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * S * row_kv +
+                            static_cast<size_t>(kvh) * D;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * S * row_kv +
+                            static_cast<size_t>(kvh) * D;
+  const size_t base = (static_cast<size_t>(b) * H + h) * S;
+  const int limit = min(kv_len, S);
+  const int kv_end = causal ? min(limit, q0 + kBwdRows) : limit;
+  const int n_tiles = (kv_end + kBwdRows - 1) / kBwdRows;
+
+  // Q, dO, K and V's first tiles, and O in the second stage's K slot (free
+  // until the first iteration refills it)
+  load_tile<kNk>(sQ, q + qoff, row_q, q0, S, tid, kMmaThreads);
+  load_tile<kNk>(sDO, dout + qoff, row_q, q0, S, tid, kMmaThreads);
+  load_tile<kNk>(sK(1), o + qoff, row_q, q0, S, tid, kMmaThreads);
+  load_tile<kNk>(sK(0), kb, row_kv, 0, S, tid, kMmaThreads);
+  load_tile<kNk>(sV(0), vb, row_kv, 0, S, tid, kMmaThreads);
+  cp_async_commit();
+  cp_async_wait_0();
+  __syncthreads();
+
+  // Delta = rowsum(dO * O) of this warp's 16 rows: lanes 2 r and 2 r + 1
+  // sum the two halves of row r's columns in order, then each other's (a
+  // fixed order); each lane keeps its fragment rows' Delta and lse, the
+  // latter pre-scaled to base 2
+  const int w0 = q0 + 16 * warp;
+  float dlt[2], lse2[2];
+  {
+    const int r = 16 * warp + (lane >> 1), c0 = (lane & 1) * 8 * kNk;
+    float sum = 0.0f;
+#pragma unroll
+    for (int c = c0; c < c0 + 8 * kNk; c += 2) {
+      const uint32_t off = toff(r, c, kSub);
+      const unsigned dv = *reinterpret_cast<const unsigned*>(smem_raw + (sDO - sQ) + off);
+      const unsigned ov = *reinterpret_cast<const unsigned*>(smem_raw + (sK(1) - sQ) + off);
+      sum = fmaf(bf16_lo(dv), bf16_lo(ov), fmaf(bf16_hi(dv), bf16_hi(ov), sum));
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (q0 + r < S && (lane & 1) == 0) delta[base + q0 + r] = sum;
+    dlt[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
+    dlt[1] = __shfl_sync(0xffffffffu, sum, 2 * (g + 8));
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = w0 + g + 8 * hr;
+    lse2[hr] = row < S ? lse[base + row] * kLog2e : 0.0f;
+  }
+  __syncthreads();   // O's slot is refilled by the first iteration
+  const float sl = scale * kLog2e;
+
+  // dq[2 np + j][e]: row w0 + g + 8 (e >> 1), column 16 np + 8 j + 2 t4 +
+  // (e & 1)
+  float acc[2 * kNk][4];
+#pragma unroll
+  for (int j = 0; j < 2 * kNk; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i & 1, k0 = i * kBwdRows;
+    if (i + 1 < n_tiles) {
+      load_tile<kNk>(sK(st ^ 1), kb, row_kv, k0 + kBwdRows, S, tid,
+                     kMmaThreads);
+      load_tile<kNk>(sV(st ^ 1), vb, row_kv, k0 + kBwdRows, S, tid,
+                     kMmaThreads);
+    }
+    cp_async_commit();
+    cp_async_wait_1();   // tile i (and Q, dO) landed
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T, 16 x 64 a warp: s[j][e] is row w0 + g +
+    // 8 (e >> 1), key k0 + 8 j + 2 t4 + (e & 1)
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < kNk; ++kt) {
+      unsigned qa[4], da[4];
+      const uint32_t oa = toff(16 * warp + lr + 8 * (lm & 1),
+                               16 * kt + 8 * (lm >> 1), kSub);
+      ldsm_x4(sQ + oa, qa);
+      ldsm_x4(sDO + oa, da);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned kf[4], vf[4];
+        const uint32_t ob = toff(16 * np + lr + 8 * (lm >> 1),
+                                 16 * kt + 8 * (lm & 1), kSub);
+        ldsm_x4(sK(st) + ob, kf);
+        ldsm_x4(sV(st) + ob, vf);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+        mma_bf16(dp[2 * np], da, vf[0], vf[1]);
+        mma_bf16(dp[2 * np + 1], da, vf[2], vf[3]);
+      }
+    }
+    // dS = p (dP - Delta), rounded to bf16 as the A operand of dS K
+    unsigned dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = w0 + g + 8 * (e >> 1);
+        const int col = k0 + 8 * j + 2 * t4 + (e & 1);
+        const bool live =
+            row < S && col < limit && (!causal || col <= row);
+        const float p = live ? ex2(fmaf(s[j][e], sl, -lse2[e >> 1])) : 0.0f;
+        s[j][e] = p * (dp[j][e] - dlt[e >> 1]);
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      dsa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      dsa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      dsa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      dsa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    // dQ += dS K: K read transposed (keys are the product's depth)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < kNk; ++np) {
+        unsigned kf[4];
+        ldsm_x4_t(sK(st) + toff(16 * kk + lr + 8 * (lm & 1),
+                                16 * np + 8 * (lm >> 1), kSub),
+                  kf);
+        mma_bf16(acc[2 * np], dsa[kk], kf[0], kf[1]);
+        mma_bf16(acc[2 * np + 1], dsa[kk], kf[2], kf[3]);
+      }
+    __syncthreads();   // every warp is done with stage st before its refill
+  }
+
+  __nv_bfloat16* dqb = dq + qoff;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = w0 + g + 8 * hr;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 2 * kNk; ++j)
+      *reinterpret_cast<unsigned*>(dqb + row * row_q + 8 * j + 2 * t4) =
+          pack_bf16(acc[j][2 * hr] * scale, acc[j][2 * hr + 1] * scale);
+  }
+}
+
+// dK and dV, bf16, on the tensor cores. Shared memory: K, V, then per
+// group a two-stage ring of (Q, dO) tiles, then per group and stage the
+// tile's 64 lse and 64 Delta values.
+template <int kNk>
+struct DkdvPlan {
+  static constexpr int kT = BwdTile<kNk>::kBytes;
+  static constexpr int kRing = 4 * kT;   // a group's two stages of Q, dO
+  static constexpr int kRows = 2 * kT + kMmaGroups * kRing;
+  static constexpr int kBytes = kRows + kMmaGroups * 2 * 2 * kBwdRows * 4;
+};
+
+template <int kNk>
+__global__ void __launch_bounds__(kMmaGroups * kMmaThreads, 1)
+attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int S, int H,
+                              int Hkv, int D, float scale, int causal,
+                              int kv_len) {
+  using L = DkdvPlan<kNk>;
+  constexpr int kSub = BwdTile<kNk>::kSub, kT = L::kT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t sK = smem_u32(smem_raw), sV = sK + kT;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = warp / kMmaWarps, wg = warp % kMmaWarps;
+  const int gt = tid % kMmaThreads;            // thread index in its group
+  const int g = lane >> 2, t4 = lane & 3;
+  const int lr = lane & 7, lm = lane >> 3;
+  const uint32_t ring = sK + 2 * kT + grp * L::kRing;
+  auto sQ = [&](int st) { return ring + 2 * st * kT; };
+  auto sDO = [&](int st) { return ring + (2 * st + 1) * kT; };
+  // a stage's lse (x log2 e, below) and Delta of its 64 rows
+  float* const rows = reinterpret_cast<float*>(smem_raw + L::kRows) +
+                      grp * 2 * 2 * kBwdRows;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kBwdRows;   // z = 0 first: the heaviest tile
+  const int G = H / Hkv;
+  const size_t row_q = static_cast<size_t>(H) * D;
+  const size_t row_kv = static_cast<size_t>(Hkv) * D;
+  const size_t kvoff = static_cast<size_t>(b) * S * row_kv +
+                       static_cast<size_t>(kvh) * D;
+  const int limit = min(kv_len, S);
+  const int qt0 = causal ? k0 / kBwdRows : 0;
+  const int n_qt = (S + kBwdRows - 1) / kBwdRows;
+  // the block's items (query head g, query tile qt), g major; none when
+  // every key of the tile is past kv_len (its dK and dV are zero)
+  const int n_items = k0 < limit ? G * (n_qt - qt0) : 0;
+
+  load_tile<kNk>(sK, k + kvoff, row_kv, k0, S, tid, 2 * kMmaThreads);
+  load_tile<kNk>(sV, v + kvoff, row_kv, k0, S, tid, 2 * kMmaThreads);
+  cp_async_commit();
+  cp_async_wait_0();
+  __syncthreads();
+
+  // item it of this group into stage st: Q, dO, lse and Delta
+  auto load_item = [&](int it, int st) {
+    const int hh = kvh * G + it / (n_qt - qt0);
+    const int q0 = (qt0 + it % (n_qt - qt0)) * kBwdRows;
+    const size_t qoff = static_cast<size_t>(b) * S * row_q +
+                        static_cast<size_t>(hh) * D;
+    const size_t base = (static_cast<size_t>(b) * H + hh) * S;
+    load_tile<kNk>(sQ(st), q + qoff, row_q, q0, S, gt, kMmaThreads);
+    load_tile<kNk>(sDO(st), dout + qoff, row_q, q0, S, gt, kMmaThreads);
+    const int r = gt % kBwdRows, row = q0 + r;
+    const bool valid = row < S;
+    const float* src = gt < kBwdRows ? lse : delta;
+    cp_async4(smem_u32(rows + (2 * st + gt / kBwdRows) * kBwdRows + r),
+              src + (valid ? base + row : 0), valid);
+  };
+
+  // dk[2 np + j][e], dv likewise: key k0 + 16 wg + g + 8 (e >> 1), column
+  // 16 np + 8 j + 2 t4 + (e & 1)
+  float dka[2 * kNk][4], dva[2 * kNk][4];
+#pragma unroll
+  for (int j = 0; j < 2 * kNk; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
+  const float sl = scale * kLog2e;
+  const int key0 = k0 + 16 * wg;
+
+  if (grp < n_items) load_item(grp, 0);
+  cp_async_commit();
+  for (int it = grp, j = 0; it < n_items; it += kMmaGroups, ++j) {
+    const int st = j & 1;
+    if (it + kMmaGroups < n_items) load_item(it + kMmaGroups, st ^ 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    group_sync(grp);
+    const int q0 = (qt0 + it % (n_qt - qt0)) * kBwdRows;
+    const float* const sl2 = rows + 2 * st * kBwdRows;   // lse
+    const float* const sdl = sl2 + kBwdRows;             // Delta
+    // two halves of 32 query rows, so that the scores stay few registers
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      const int c0 = q0 + 32 * hf;
+      if (c0 >= S || (causal && c0 + 31 < key0)) continue;   // all masked
+      // S^T = K Q^T and dP^T = V dO^T, 16 keys x 32 rows a warp: s[j][e]
+      // is key key0 + g + 8 (e >> 1), row c0 + 8 j + 2 t4 + (e & 1)
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
+#pragma unroll
+      for (int kt = 0; kt < kNk; ++kt) {
+        unsigned ka[4], va[4];
+        const uint32_t oa = toff(16 * wg + lr + 8 * (lm & 1),
+                                 16 * kt + 8 * (lm >> 1), kSub);
+        ldsm_x4(sK + oa, ka);
+        ldsm_x4(sV + oa, va);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          unsigned qf[4], of[4];
+          const uint32_t ob = toff(32 * hf + 16 * np + lr + 8 * (lm >> 1),
+                                   16 * kt + 8 * (lm & 1), kSub);
+          ldsm_x4(sQ(st) + ob, qf);
+          ldsm_x4(sDO(st) + ob, of);
+          mma_bf16(s[2 * np], ka, qf[0], qf[1]);
+          mma_bf16(s[2 * np + 1], ka, qf[2], qf[3]);
+          mma_bf16(dp[2 * np], va, of[0], of[1]);
+          mma_bf16(dp[2 * np + 1], va, of[2], of[3]);
+        }
+      }
+      // P^T rounded to bf16 and dS^T = P^T (dP^T - Delta) rounded to bf16,
+      // as A operands over the 32 rows
+      unsigned pa[2][4], dsa[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + g + 8 * (e >> 1);
+          const int r = 32 * hf + 8 * jj + 2 * t4 + (e & 1), row = q0 + r;
+          const bool live =
+              row < S && key < limit && (!causal || key <= row);
+          const float p =
+              live ? ex2(fmaf(s[jj][e], sl, -sl2[r] * kLog2e)) : 0.0f;
+          s[jj][e] = p;
+          dp[jj][e] = p * (dp[jj][e] - sdl[r]);
+        }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        dsa[kk][0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+        dsa[kk][1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+        dsa[kk][2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+        dsa[kk][3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+      }
+      // dV += P^T dO and dK += dS^T Q, dO and Q read transposed
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int np = 0; np < kNk; ++np) {
+          unsigned of[4], qf[4];
+          const uint32_t ob = toff(32 * hf + 16 * kk + lr + 8 * (lm & 1),
+                                   16 * np + 8 * (lm >> 1), kSub);
+          ldsm_x4_t(sDO(st) + ob, of);
+          ldsm_x4_t(sQ(st) + ob, qf);
+          mma_bf16(dva[2 * np], pa[kk], of[0], of[1]);
+          mma_bf16(dva[2 * np + 1], pa[kk], of[2], of[3]);
+          mma_bf16(dka[2 * np], dsa[kk], qf[0], qf[1]);
+          mma_bf16(dka[2 * np + 1], dsa[kk], qf[2], qf[3]);
+        }
+    }
+    group_sync(grp);   // the group is done with stage st before its refill
+  }
+
+  // group 1's sums added to group 0's in shared memory (group 1's ring,
+  // 4 kT >= 2 x 128 threads x 16 kNk floats), then group 0 writes
+  __syncthreads();
+  float* const part = reinterpret_cast<float*>(smem_raw + 2 * kT +
+                                               L::kRing);
+  if (grp == 1) {
+#pragma unroll
+    for (int j = 0; j < 2 * kNk; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        part[(4 * j + e) * kMmaThreads + gt] = dka[j][e];
+        part[(8 * kNk + 4 * j + e) * kMmaThreads + gt] = dva[j][e];
+      }
+  }
+  __syncthreads();
+  if (grp == 0) {
+    __nv_bfloat16* dkb = dk + kvoff;
+    __nv_bfloat16* dvb = dv + kvoff;
+#pragma unroll
+    for (int j = 0; j < 2 * kNk; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dka[j][e] += part[(4 * j + e) * kMmaThreads + gt];
+        dva[j][e] += part[(8 * kNk + 4 * j + e) * kMmaThreads + gt];
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int key = key0 + g + 8 * hr;
+      if (key >= S) continue;
+#pragma unroll
+      for (int j = 0; j < 2 * kNk; ++j) {
+        const size_t off = key * row_kv + 8 * j + 2 * t4;
+        *reinterpret_cast<unsigned*>(dkb + off) = pack_bf16(
+            dka[j][2 * hr] * scale, dka[j][2 * hr + 1] * scale);
+        *reinterpret_cast<unsigned*>(dvb + off) =
+            pack_bf16(dva[j][2 * hr], dva[j][2 * hr + 1]);
+      }
+    }
+  }
+}
+
+int launch_bwd_dq_f32(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const void* lse,
+                      void* delta, void* dq, int B, int S, int H, int Hkv,
+                      int D, float scale, int causal, int kv_len,
+                      cudaStream_t stream) {
   static int opted[kMaxDevices];
   const int smem = static_cast<int>(bwd_dq_smem(D));
   cudaError_t err = opt_in_smem(
-      reinterpret_cast<const void*>(attention_bwd_dq_kernel<T>), opted, smem);
+      reinterpret_cast<const void*>(attention_bwd_dq_kernel), opted, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBwdRows - 1) / kBwdRows, H, B);
-  attention_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<T*>(dq), S, H, Hkv, D, scale,
+  attention_bwd_dq_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<float*>(dq), S, H, Hkv, D,
+      scale, causal, kv_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd_dkdv_f32(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dk, void* dv, int B, int S, int H, int Hkv,
+                        int D, float scale, int causal, int kv_len,
+                        cudaStream_t stream) {
+  static int opted[kMaxDevices];
+  const int smem = static_cast<int>(bwd_dkdv_smem(D));
+  cudaError_t err = opt_in_smem(
+      reinterpret_cast<const void*>(attention_bwd_dkdv_kernel), opted, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kBwdRows - 1) / kBwdRows, Hkv, B);
+  attention_bwd_dkdv_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), S, H, Hkv, D, scale,
       causal, kv_len);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_bwd_dkdv(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    void* dk, void* dv, int B, int S, int H, int Hkv, int D,
-                    float scale, int causal, int kv_len,
-                    cudaStream_t stream) {
+using bf16_t = __nv_bfloat16;
+
+template <int kNk>
+int launch_bwd_dq_mma(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const void* lse,
+                      void* delta, void* dq, int B, int S, int H, int Hkv,
+                      int D, float scale, int causal, int kv_len,
+                      cudaStream_t stream) {
   static int opted[kMaxDevices];
-  const int smem = static_cast<int>(bwd_dkdv_smem(D));
+  constexpr int smem = 6 * BwdTile<kNk>::kBytes;
   cudaError_t err = opt_in_smem(
-      reinterpret_cast<const void*>(attention_bwd_dkdv_kernel<T>), opted,
+      reinterpret_cast<const void*>(attention_bwd_dq_mma_kernel<kNk>), opted,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBwdRows - 1) / kBwdRows, Hkv, B);
-  attention_bwd_dkdv_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, D, scale, causal,
-      kv_len);
+  const dim3 grid(H, B, (S + kBwdRows - 1) / kBwdRows);
+  attention_bwd_dq_mma_kernel<kNk><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), static_cast<const bf16_t*>(o),
+      static_cast<const bf16_t*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<bf16_t*>(dq), S, H, Hkv, D,
+      scale, causal, kv_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kNk>
+int launch_bwd_dkdv_mma(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dk, void* dv, int B, int S, int H, int Hkv,
+                        int D, float scale, int causal, int kv_len,
+                        cudaStream_t stream) {
+  static int opted[kMaxDevices];
+  constexpr int smem = DkdvPlan<kNk>::kBytes;
+  cudaError_t err = opt_in_smem(
+      reinterpret_cast<const void*>(attention_bwd_dkdv_mma_kernel<kNk>),
+      opted, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(Hkv, B, (S + kBwdRows - 1) / kBwdRows);
+  attention_bwd_dkdv_mma_kernel<kNk>
+      <<<grid, kMmaGroups * kMmaThreads, smem, stream>>>(
+          static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+          static_cast<const bf16_t*>(v), static_cast<const bf16_t*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<bf16_t*>(dk), static_cast<bf16_t*>(dv), S, H, Hkv, D,
+          scale, causal, kv_len);
   return static_cast<int>(cudaGetLastError());
 }
 // ---- end backward
@@ -1242,7 +1784,7 @@ extern "C" int flash_attention_lse_f32(const void* q, const void* k,
 // dk, dv (B, S, Hkv, D), all contiguous in one type and 16-byte aligned; lse
 // and delta (B, H, S) fp32. D % 16 == 0, D <= 128. bwd_dq writes Delta to
 // delta and dq; bwd_dkdv, launched after it on the same stream, reads delta
-// and writes dk and dv.
+// and writes dk and dv. One kernel launch each.
 extern "C" int flash_attention_bwd_dq(int dtype, const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
@@ -1250,14 +1792,21 @@ extern "C" int flash_attention_bwd_dq(int dtype, const void* q, const void* k,
                                       int H, int Hkv, int D, float scale,
                                       int causal, int kv_len,
                                       cudaStream_t stream) {
-  if (D % 16 != 0 || D > kMaxD || H % Hkv != 0 || dtype < 0 || dtype > 1)
+  if (D % 16 != 0 || D < 16 || D > kMaxD || H % Hkv != 0 || dtype < 0 ||
+      dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dtype == 0
-             ? launch_bwd_dq<float>(q, k, v, o, dout, lse, delta, dq, B, S, H,
-                                    Hkv, D, scale, causal, kv_len, stream)
-             : launch_bwd_dq<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq,
-                                            B, S, H, Hkv, D, scale, causal,
-                                            kv_len, stream);
+  if (dtype == 0)
+    return launch_bwd_dq_f32(q, k, v, o, dout, lse, delta, dq, B, S, H, Hkv,
+                             D, scale, causal, kv_len, stream);
+  using Launch = int (*)(const void*, const void*, const void*, const void*,
+                         const void*, const void*, void*, void*, int, int,
+                         int, int, int, float, int, int, cudaStream_t);
+  static const Launch by_nk[8] = {
+      launch_bwd_dq_mma<1>, launch_bwd_dq_mma<2>, launch_bwd_dq_mma<3>,
+      launch_bwd_dq_mma<4>, launch_bwd_dq_mma<5>, launch_bwd_dq_mma<6>,
+      launch_bwd_dq_mma<7>, launch_bwd_dq_mma<8>};
+  return by_nk[D / 16 - 1](q, k, v, o, dout, lse, delta, dq, B, S, H, Hkv, D,
+                           scale, causal, kv_len, stream);
 }
 
 extern "C" int flash_attention_bwd_dkdv(int dtype, const void* q,
@@ -1267,14 +1816,36 @@ extern "C" int flash_attention_bwd_dkdv(int dtype, const void* q,
                                         int B, int S, int H, int Hkv, int D,
                                         float scale, int causal, int kv_len,
                                         cudaStream_t stream) {
-  if (D % 16 != 0 || D > kMaxD || H % Hkv != 0 || dtype < 0 || dtype > 1)
+  if (D % 16 != 0 || D < 16 || D > kMaxD || H % Hkv != 0 || dtype < 0 ||
+      dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dtype == 0
-             ? launch_bwd_dkdv<float>(q, k, v, dout, lse, delta, dk, dv, B, S,
-                                      H, Hkv, D, scale, causal, kv_len, stream)
-             : launch_bwd_dkdv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk,
-                                              dv, B, S, H, Hkv, D, scale,
-                                              causal, kv_len, stream);
+  if (dtype == 0)
+    return launch_bwd_dkdv_f32(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                               Hkv, D, scale, causal, kv_len, stream);
+  using Launch = int (*)(const void*, const void*, const void*, const void*,
+                         const void*, const void*, void*, void*, int, int,
+                         int, int, int, float, int, int, cudaStream_t);
+  static const Launch by_nk[8] = {
+      launch_bwd_dkdv_mma<1>, launch_bwd_dkdv_mma<2>, launch_bwd_dkdv_mma<3>,
+      launch_bwd_dkdv_mma<4>, launch_bwd_dkdv_mma<5>, launch_bwd_dkdv_mma<6>,
+      launch_bwd_dkdv_mma<7>, launch_bwd_dkdv_mma<8>};
+  return by_nk[D / 16 - 1](q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
+                           scale, causal, kv_len, stream);
+}
+
+// The dynamic shared memory of the bf16 backward kernel at D: which 0 is
+// dQ's, 1 dK/dV's (bytes; 0 for a D the kernels do not take).
+extern "C" int flash_attention_bwd_smem(int D, int which) {
+  if (D % 16 != 0 || D < 16 || D > kMaxD) return 0;
+  static const int dq[8] = {
+      6 * BwdTile<1>::kBytes, 6 * BwdTile<2>::kBytes, 6 * BwdTile<3>::kBytes,
+      6 * BwdTile<4>::kBytes, 6 * BwdTile<5>::kBytes, 6 * BwdTile<6>::kBytes,
+      6 * BwdTile<7>::kBytes, 6 * BwdTile<8>::kBytes};
+  static const int dkdv[8] = {
+      DkdvPlan<1>::kBytes, DkdvPlan<2>::kBytes, DkdvPlan<3>::kBytes,
+      DkdvPlan<4>::kBytes, DkdvPlan<5>::kBytes, DkdvPlan<6>::kBytes,
+      DkdvPlan<7>::kBytes, DkdvPlan<8>::kBytes};
+  return which == 0 ? dq[D / 16 - 1] : dkdv[D / 16 - 1];
 }
 
 extern "C" const char* kernel_error_string(int err) {

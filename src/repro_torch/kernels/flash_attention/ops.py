@@ -16,7 +16,9 @@ Training: when grad mode is on and q, k or v requires a gradient, the call
 goes through ``FlashAttention`` (a ``torch.autograd.Function``). On the
 card its forward launches K4's variant that also writes each row's
 log-sum-exp, and its backward the two backward kernels of ``kernel.cu``
-(dQ with Delta = rowsum(dO * O), then dK and dV); without a gradient the
+(dQ with Delta = rowsum(dO * O), then dK and dV; bf16 on the tensor cores
+with dS rounded to bf16, ``ref.flash_attention_backward_rounded``, fp32
+in fp32 FMA); without a gradient the
 launch is the serving one, unchanged. On the CPU the plain version's own
 autograd runs. ``KERNEL_LAUNCHES`` counts the four launches apart:
 ``flash_attention`` (no gradient), ``flash_attention_lse``,
@@ -170,7 +172,10 @@ def _launch_forward(q, k, v, causal, scale, kv_len, lse=None):
 
 
 def _launch_backward(q, k, v, o, dout, lse, causal, scale, kv_len):
-    """K4's backward on the card: (dq, dk, dv) in the inputs' type."""
+    """K4's backward on the card: (dq, dk, dv) in the inputs' type. Two
+    CUDA launches, dQ (with Delta) then dK and dV, each counted once in
+    ``KERNEL_LAUNCHES`` under its own name; bf16 runs on the tensor cores,
+    fp32 on the CUDA cores."""
     if dout.data_ptr() % 16:
         dout = dout.clone()
     b, s, h, d = q.shape

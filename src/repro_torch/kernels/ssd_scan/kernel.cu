@@ -401,6 +401,12 @@ __device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -816,9 +822,10 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
 // K6's backward: the VJP of the scan above (the reference takes it by
 // autodiff of src/repro/models/ssm.py::_ssd_chunked; the TPU kernel has
 // none). Its chunked form is mamba_ssm's ssd_combined backward (state
-// passing, chunk state, chunk scan). One block per (head, sequence), 256
-// threads as 16 x 16, in fp32 FMA on the CUDA cores for both input types
-// (x, B and C are read in their own type and widened).
+// passing, chunk state, chunk scan). fp32 runs ssd_scan_bwd_kernel below:
+// one block per (head, sequence), 256 threads as 16 x 16, in fp32 FMA on
+// the CUDA cores (the tensor cores would round to TF32). bf16 runs the
+// chunk-parallel kernels on the tensor cores further down (ssd_bwd_*).
 //
 // First a forward walk over the chunks recomputes each chunk's entry state
 // and writes it to device scratch (B, H, chunks, P, N) fp32: the forward
@@ -843,20 +850,16 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap tx,
 //
 // What bounds it on an H100: at mamba2-780m's training shape (B = 8, S =
 // 1024, H = 48, P = 64, N = 128, Q = 128, bf16) the products it needs are
-// 51.8 GFLOP over the causal pairs, 0.77 ms at the fp32 CUDA-core rate,
-// against 0.064 ms for its 213 MB of bytes: so operations. This kernel
-// computes the whole (t, k) square in fp32 FMA, the simple design; the
-// tensor cores, as the forward uses them, are the way to its bound.
+// 51.8 GFLOP over the causal pairs, 0.77 ms at the fp32 CUDA-core rate and
+// 0.157 ms at the bf16 tensor rate with each fp32 operand in three passes,
+// against 0.064 ms for its 213 MB of bytes: so operations. The fp32 kernel
+// computes the whole (t, k) square in fp32 FMA, the simple design.
 // Shared memory holds x, dy, the Q x Q matrix (M, then D o L), dS and
 // 32-column tiles of B, C and prev (212 KB at that shape, one block an
 // SM); each product is register-blocked (8 x 8, 8 x 4 or 8 x 2 a thread)
 // as the fp32 forward's are.
 constexpr int kBwdNT = 32;   // state columns a tile of B, C and prev
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -864,13 +867,12 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
 
 // Stage rows 0..Q-1 of W columns (row stride ld elements) as floats in
 // dst[r * dld + j]; zeros at rows >= nv and columns >= lim.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* src, long long ld,
+__device__ __forceinline__ void stage_rows(const float* src, long long ld,
                                            int nv, int Q, int W, int lim,
                                            float* dst, int dld) {
   for (int i = threadIdx.x; i < Q * W; i += kThreads) {
     const int r = i / W, j = i % W;
-    dst[r * dld + j] = (r < nv && j < lim) ? to_float(src[r * ld + j]) : 0.0f;
+    dst[r * dld + j] = (r < nv && j < lim) ? src[r * ld + j] : 0.0f;
   }
 }
 
@@ -883,12 +885,13 @@ struct BwdArgs {
   const float* a;       // (H,)
   const float* dy;      // (B, S, H, P)
   const float* dfinal;  // (B, H, P, N) or null
-  float* prevs;         // scratch (B, H, chunks, P, N)
+  float* prevs;         // scratch (B, H, chunks, P, N): chunk-entry states
+  float* dstates;       // bf16 only: scratch (B, H, chunks, P, N), dS
   T* dx;                // (B, S, H, P)
   float* ddt;           // (B, S, H)
   float* dbp;           // partials (B, S, H, N)
   float* dcp;           // partials (B, S, H, N)
-  float* dap;           // partials (B, H, chunks)
+  float* dap;           // partials (B, H, chunks); bf16: cum_end first
   int S, H, P, N, Q;
   long long x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss;
 };
@@ -899,9 +902,8 @@ size_t bwd_smem_bytes(int P, int N, int Q) {
                           2 * q * t1 + p * t1 + 6 * q + kThreads);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_bwd_kernel(const BwdArgs<T> g) {
+ssd_scan_bwd_kernel(const BwdArgs<float> g) {
   extern __shared__ float4 smem4[];
   const int S = g.S, H = g.H, P = g.P, N = g.N, Q = g.Q;
   const int P1 = P + 1, N1 = N + 1, Q1 = Q + 1, T1 = kBwdNT + 1;
@@ -928,9 +930,9 @@ ssd_scan_bwd_kernel(const BwdArgs<T> g) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int nc = (S + Q - 1) / Q;
   const float ah = g.a[h];
-  const T* xb = g.x + b * g.x_sb + h * g.x_sh;
-  const T* bb = g.bm + b * g.b_sb;
-  const T* cb = g.cm + b * g.c_sb;
+  const float* xb = g.x + b * g.x_sb + h * g.x_sh;
+  const float* bb = g.bm + b * g.b_sb;
+  const float* cb = g.cm + b * g.c_sb;
   const float* dtb = g.dt + static_cast<size_t>(b) * S * H + h;
   const float* dyb = g.dy + (static_cast<size_t>(b) * S * H + h) * P;
   const long long dy_ld = static_cast<long long>(H) * P;
@@ -1366,9 +1368,8 @@ ssd_scan_bwd_kernel(const BwdArgs<T> g) {
         if (p < P) {
           rx[i] = fmaf(dxs[i][j], sX[qi[i] * P1 + p], rx[i]);
           if (k < nv)
-            store_as(g.dx + ((static_cast<size_t>(b) * S + c0 + k) * H + h) * P +
-                         p,
-                     dxs[i][j] * sDt[k]);
+            g.dx[((static_cast<size_t>(b) * S + c0 + k) * H + h) * P + p] =
+                dxs[i][j] * sDt[k];
         }
       }
       if (k < Q) sPartA[k * 16 + tx] = rx[i];
@@ -1414,6 +1415,878 @@ ssd_scan_bwd_sum_kernel(const float* __restrict__ dbp,
     da[hh] = s;
   }
 }
+// ---- the bf16 backward on the tensor cores
+// Chunk-parallel, as ssd_scan_backward_plain (ref.py) is written: only the
+// elementwise passing of the chunk-entry states forward and of dS backward
+// runs in order over the chunks. Four launches on the stream:
+//   (a) ssd_bwd_state_kernel, a block per (chunk, head, sequence): the
+//       chunk's own state sum_t x_t (w_t dt_t) B_t^T and its term of dS,
+//       sum_t exp(cum_t) dy_t C_t^T (ref.py's `into`), both (P, N) fp32 to
+//       device scratch, its cum_end, and each position's cum (the in-order
+//       sum, in ddt's place until (c) writes ddt);
+//   (b) ssd_bwd_pass_kernel, a thread per (sequence, head, p, n): turns the
+//       states into the chunk-entry states and the terms into dS, the
+//       gradient of the state leaving each chunk, in place, in the plain
+//       version's order (carry = carry * decay + term);
+//   (c) ssd_bwd_chunk_kernel, a block per (chunk, head, sequence): every
+//       (Q, Q) product of the chunk and the rest of its gradient (dx, ddt,
+//       per-head dB and dC partials, da's partial);
+//   (d) ssd_scan_bwd_sum_kernel: dB and dC summed over heads, da over
+//       sequences and chunks, in a fixed order.
+// In (c), with L[t][k] = exp(cum_t - cum_k) for k <= t, warp w owns the
+// 16-row tile w of the chunk twice: as rows t, over the key tiles k <= t,
+//   M = (C_t B_k^T) o L, D = dt_k (dy_t . x_k), rowsum(M o D), and
+//   dC_t = exp(cum_t) dy_t prev + sum_k (D o L) B_k;
+// and as columns k, over the row tiles t >= k, the same blocks transposed,
+//   colsum(M o D), dxs_k = w_k B_k dS^T + sum_t M^T dy_t and
+//   dB_k = w_k dt_k x_k dS + sum_t (D o L)^T C_t,
+// so every warp takes Q / 16 + 1 blocks, whatever its tile, and C B^T and
+// dy x^T are computed twice (once a side) rather than kept in shared
+// memory: a (Q, Q) fp32 matrix in three bf16 parts is 96 KB at Q = 128.
+// The blocks above the diagonal are skipped; L is built only where k <= t
+// (a select: exp above the diagonal may overflow). C B^T takes one bf16
+// pass, both operands being bf16 inputs. Every product with an fp32
+// operand takes three: the operand split hi + mid + lo in bf16 (split3, ~24
+// bits, fp32's own precision), and where both operands are fp32 (M^T dy,
+// dy prev) both split in two and hi.hi + hi.lo + lo.hi. x, B and C come
+// by cp.async as bf16 tiles of 128-byte rows (XOR-swizzled, as the
+// forward's TMA boxes); dy, the chunk-entry state and dS are read in fp32
+// and split into bf16 tiles on the way into shared memory, every load of
+// a thread issued before any is split.
+// What bounds it on an H100: at mamba2-780m's shape (B = 8, H = 48, S =
+// 1024, P = 64, N = 128, Q = 128) the products it needs take 0.157 ms at
+// the bf16 tensor rate with three passes an fp32 operand; this design
+// issues ~187 GFLOP of mma.sync (C B^T and dy x^T on both sides). (c)
+// holds 214 KB of shared memory, so one block of 8 warps an SM, whose
+// loads are not overlapped with its products and whose two warps a
+// scheduler issue mma.sync at about a product per 4 cycles an SM; (a)
+// fits two blocks an SM; (b) and (d) move 400 MB and 403 MB of fp32
+// scratch. PERF.md gives each launch's time.
+constexpr int kBwdTcWarps = 8;
+constexpr int kBwdTcThreads = 32 * kBwdTcWarps;
+constexpr int kSubQ = kMaxQ * 128;   // a 64-column tile of a chunk
+constexpr int kSubP = kTcP * 128;    // a 64-column tile of a state
+
+// (a)'s shared memory: x, B, C as bf16 tiles, dy in fp32 (64 floats a row,
+// each 4-float unit XOR-swizzled by row bits 1-2, so that a fragment's
+// reads of 4 rows by 8 columns take 32 banks), then dt and cum, which
+// become w dt and exp(cum) in place: 113 KB at N = 128, two blocks an SM
+template <int NT>
+struct StatePlan {
+  static constexpr int kB = kSubQ;
+  static constexpr int kC = kB + (NT / 64) * kSubQ;
+  static constexpr int kDy = kC + (NT / 64) * kSubQ;
+  static constexpr int kF = kDy + kMaxQ * kTcP * 4;
+  static constexpr int kBytes = kF + 2 * kMaxQ * 4;
+};
+// the float offset of dy's (t, p) in (a)'s tile
+__device__ __forceinline__ int dy_off(int t, int p) {
+  return t * kTcP + (p ^ (((t >> 1) & 3) << 3));
+}
+
+// (c)'s shared memory: x, B, C, dy's hi/mid/lo, prev's hi/lo and dS's
+// hi/mid/lo as bf16 tiles, then the per-row floats (dt, cum, exp(cum),
+// w, and the row sums rs, yo, cs, U, rx) and a reduction buffer
+template <int NT>
+struct ChunkPlan {
+  static constexpr int kB = kSubQ;
+  static constexpr int kC = kB + (NT / 64) * kSubQ;
+  static constexpr int kDy = kC + (NT / 64) * kSubQ;
+  static constexpr int kPv = kDy + 3 * kSubQ;
+  static constexpr int kPvTile = (NT / 64) * kSubP;
+  static constexpr int kDs = kPv + 2 * kPvTile;
+  static constexpr int kF = kDs + 3 * kPvTile;
+  static constexpr int kBytes = kF + (9 * kMaxQ + kBwdTcThreads) * 4;
+};
+
+// cp.async of rows 0 .. rows - 1 of a bf16 chunk tile (row stride ld
+// elements, `units` 16-byte units a row) into a tile of 128-byte rows at
+// dst; units at rows >= nv or columns >= lim are zeros
+__device__ __forceinline__ void load_bf16_tile(unsigned dst,
+                                               const __nv_bfloat16* src,
+                                               long long ld, int rows,
+                                               int units, int nv, int lim,
+                                               int sub) {
+  for (int i = threadIdx.x; i < rows * units; i += kBwdTcThreads) {
+    const int r = i / units, u = i % units;
+    const bool valid = r < nv && 8 * u < lim;
+    cp_async16(dst + toff(r, 8 * u, sub), src + (valid ? r * ld + 8 * u : 0),
+               valid);
+  }
+}
+
+// a thread's share of dy's fp32 rows in (c): kMaxQ x 64 values in units of
+// 8, over 256 threads
+constexpr int kSplitIter = 4;   // kMaxQ x 64 or kTcP x 128 values, 256 threads
+
+// dt of the chunk (rows >= nv read as 0), then, by thread 0, cum =
+// cumsum(dt a) in order, rounding each product and sum as the forward's
+// scan_dt does; leaves cum_end = cum[QT - 1] in the return value (all
+// threads, after the barrier)
+__device__ __forceinline__ float chunk_cum(const float* dtb, int H, int nv,
+                                           int QT, float ah, float* sDt,
+                                           float* sCum) {
+  for (int r = threadIdx.x; r < kMaxQ; r += kBwdTcThreads)
+    sDt[r] = r < nv ? dtb[static_cast<size_t>(r) * H] : 0.0f;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float run = 0.0f;
+    for (int r = 0; r < QT; ++r) {
+      run = __fadd_rn(run, __fmul_rn(sDt[r], ah));
+      sCum[r] = run;
+    }
+  }
+  __syncthreads();
+  return sCum[QT - 1];
+}
+
+// the sum over the 4 lanes of a fragment row (a fixed order)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// A fragment of a 16 x 16 block from its two accumulator n-tiles acc[0..1]
+// (rows g, g + 8; columns 2 t4 (+ 8)), split in three bf16 parts
+__device__ __forceinline__ void acc_to_a3(float (*acc)[4],
+                                          unsigned* hi, unsigned* mid,
+                                          unsigned* lo) {
+  split3(acc[0][0], acc[0][1], hi[0], mid[0], lo[0]);
+  split3(acc[0][2], acc[0][3], hi[1], mid[1], lo[1]);
+  split3(acc[1][0], acc[1][1], hi[2], mid[2], lo[2]);
+  split3(acc[1][2], acc[1][3], hi[3], mid[3], lo[3]);
+}
+
+// the sum over a warp's lanes, every lane the same total (a fixed order)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// the same, split in two (hi, and the bf16 of what hi leaves over)
+__device__ __forceinline__ void acc_to_a2(float (*acc)[4], unsigned* hi,
+                                          unsigned* lo) {
+  const float v[4][2] = {{acc[0][0], acc[0][1]}, {acc[0][2], acc[0][3]},
+                         {acc[1][0], acc[1][1]}, {acc[1][2], acc[1][3]}};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = pack_bf16x2(v[i][0], v[i][1]);
+    lo[i] = pack_bf16x2(v[i][0] - bf16_lo(hi[i]), v[i][1] - bf16_hi(hi[i]));
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kBwdTcThreads, 2)
+ssd_bwd_state_kernel(const BwdArgs<__nv_bfloat16> g) {
+  using L = StatePlan<NT>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const unsigned sbase = smem_u32(smem);
+  float* const sDy = reinterpret_cast<float*>(smem + L::kDy);
+  float* const sDt = reinterpret_cast<float*>(smem + L::kF);
+  float* const sCum = sDt + kMaxQ;
+  float* const sWdt = sDt;   // w dt over dt, exp(cum) over cum (below)
+  float* const sE = sCum;
+  const int S = g.S, H = g.H, P = g.P, N = g.N, Q = g.Q;
+  // x = head * chunks + chunk (no limit of 65535 heads), y = sequence
+  const int nc = (S + Q - 1) / Q;
+  const int c = blockIdx.x % nc, h = blockIdx.x / nc, b = blockIdx.y;
+  const int c0 = c * Q, nv = min(Q, S - c0);
+  const int QT = (Q + 15) & ~15, MT = QT / 16, PT = (P + 15) & ~15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int lr = lane & 7, lm = lane >> 3;
+
+  load_bf16_tile(sbase, g.x + b * g.x_sb + c0 * g.x_ss + h * g.x_sh,
+                 g.x_ss, QT, 8, nv, P, kSubQ);
+  load_bf16_tile(sbase + L::kB, g.bm + b * g.b_sb + c0 * g.b_ss, g.b_ss, QT,
+                 NT / 8, nv, N, kSubQ);
+  load_bf16_tile(sbase + L::kC, g.cm + b * g.c_sb + c0 * g.c_ss, g.c_ss, QT,
+                 NT / 8, nv, N, kSubQ);
+  // dy (fp32) rows as 16-byte units of 4, zeros past nv and P
+  const float* dyb = g.dy + (static_cast<size_t>(b) * S + c0) * H * P +
+                     static_cast<size_t>(h) * P;
+  const long long dy_ld = static_cast<long long>(H) * P;
+  for (int i = tid; i < QT * (PT / 4); i += kBwdTcThreads) {
+    const int r = i / (PT / 4), u = i % (PT / 4);
+    const bool valid = r < nv && 4 * u < P;
+    cp_async16(sbase + L::kDy + 4 * dy_off(r, 4 * u),
+               dyb + (valid ? r * dy_ld + 4 * u : 0), valid);
+  }
+  cp_async_commit();
+  const float cend = chunk_cum(g.dt + (static_cast<size_t>(b) * S + c0) * H +
+                                   h,
+                               H, nv, QT, g.a[h], sDt, sCum);
+  __syncthreads();   // every thread has read cum_end before cum's rows change
+  if (tid == 0) g.dap[(static_cast<size_t>(b) * H + h) * nc + c] = cend;
+  // each position's cum, for (c), in ddt's place (which (c) overwrites
+  // with ddt, row by row, in the same block); then w dt and exp(cum) in
+  // place, each thread its own rows
+  for (int r = tid; r < kMaxQ; r += kBwdTcThreads) {
+    const float cr = sCum[r], dr = sDt[r];
+    if (r < nv) g.ddt[(static_cast<size_t>(b) * S + c0 + r) * H + h] = cr;
+    sWdt[r] = r < QT ? exp_ftz(cend - cr) * dr : 0.0f;
+    sE[r] = r < QT ? exp_ftz(cr) : 0.0f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // warp w: state rows 16 pm + gq (+ 8), columns n0 + 8 j + 2 t4
+  const int pm = warp & 3, n0 = (warp >> 2) * (NT / 2);
+  if (16 * pm >= PT) return;
+  float st[NT / 16][4], into[NT / 16][4];
+#pragma unroll
+  for (int j = 0; j < NT / 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[j][e] = into[j][e] = 0.0f;
+  const unsigned oXs = toff(lr + 8 * (lm >> 1), 16 * pm + 8 * (lm & 1), kSubQ);
+  const unsigned oBs = toff(lr + 8 * (lm & 1), n0 + 8 * (lm >> 1), kSubQ);
+  for (int kt = 0; kt < MT; ++kt) {
+    const int t0 = 16 * kt;
+    // (x w dt)^T, x read transposed; (dy exp(cum))^T from fp32
+    unsigned xa[4], xh[4], xm[4], xl[4], yh[4], ym[4], yl[4];
+    ldsm_x4_t(sbase + oXs + t0 * 128, xa);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = t0 + 2 * t4 + 8 * (i >> 1), p = 16 * pm + gq + 8 * (i & 1);
+      split3(bf16_lo(xa[i]) * sWdt[t], bf16_hi(xa[i]) * sWdt[t + 1], xh[i],
+             xm[i], xl[i]);
+      split3(sDy[dy_off(t, p)] * sE[t], sDy[dy_off(t + 1, p)] * sE[t + 1],
+             yh[i], ym[i], yl[i]);
+    }
+#pragma unroll
+    for (int jj = 0; jj < NT / 32; ++jj) {
+      unsigned bf[4], cf[4];
+      const unsigned off = toff_add(oBs, 2 * jj, kSubQ) + t0 * 128;
+      ldsm_x4_t(sbase + L::kB + off, bf);
+      ldsm_x4_t(sbase + L::kC + off, cf);
+      mma_sum3(st[2 * jj], xh, bf[0], bf[1], xm, bf[0], bf[1], xl, bf[0],
+               bf[1]);
+      mma_sum3(st[2 * jj + 1], xh, bf[2], bf[3], xm, bf[2], bf[3], xl, bf[2],
+               bf[3]);
+      mma_sum3(into[2 * jj], yh, cf[0], cf[1], ym, cf[0], cf[1], yl, cf[0],
+               cf[1]);
+      mma_sum3(into[2 * jj + 1], yh, cf[2], cf[3], ym, cf[2], cf[3], yl,
+               cf[2], cf[3]);
+    }
+  }
+  const size_t so = ((static_cast<size_t>(b) * H + h) * nc + c) * P * N;
+#pragma unroll
+  for (int j = 0; j < NT / 16; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int p = 16 * pm + gq + 8 * hr, n = n0 + 8 * j + 2 * t4;
+      if (p < P && n < N) {
+        *reinterpret_cast<float2*>(g.prevs + so + p * N + n) =
+            make_float2(st[j][2 * hr], st[j][2 * hr + 1]);
+        *reinterpret_cast<float2*>(g.dstates + so + p * N + n) =
+            make_float2(into[j][2 * hr], into[j][2 * hr + 1]);
+      }
+    }
+}
+
+// (b): states -> chunk-entry states, terms -> dS, in place; decay =
+// exp(cum_end) of each chunk, from (a). A thread takes 4 neighbouring
+// elements (P N is a multiple of 8) and the chunks kPassBatch at a time,
+// every load of a batch issued before its stores, so that it waits for
+// memory once a batch and not once a chunk.
+constexpr int kPassBatch = 8;
+
+__device__ __forceinline__ float4 fma4(float4 c, float d, float4 t) {
+  return make_float4(c.x * d + t.x, c.y * d + t.y, c.z * d + t.z,
+                     c.w * d + t.w);
+}
+
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_pass_kernel(float* __restrict__ states, float* __restrict__ dstates,
+                    const float* __restrict__ dfinal,
+                    const float* __restrict__ cend, long long BH, int PN,
+                    int nc) {
+  const int pn4 = PN / 4;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= BH * pn4) return;
+  const long long bh = i / pn4;
+  const int e = static_cast<int>(i % pn4);
+  float4* const sp = reinterpret_cast<float4*>(states + bh * nc * PN) + e;
+  float4* const dp = reinterpret_cast<float4*>(dstates + bh * nc * PN) + e;
+  const float* const ce = cend + bh * nc;
+  float4 carry = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int c0 = 0; c0 < nc; c0 += kPassBatch) {
+    float4 term[kPassBatch];
+    float dec[kPassBatch];
+#pragma unroll
+    for (int j = 0; j < kPassBatch; ++j)
+      if (c0 + j < nc) {
+        term[j] = sp[static_cast<size_t>(c0 + j) * pn4];
+        dec[j] = expf(ce[c0 + j]);
+      }
+#pragma unroll
+    for (int j = 0; j < kPassBatch; ++j)
+      if (c0 + j < nc) {
+        sp[static_cast<size_t>(c0 + j) * pn4] = carry;
+        carry = fma4(carry, dec[j], term[j]);
+      }
+  }
+  float4 dcarry = dfinal != nullptr
+                      ? reinterpret_cast<const float4*>(dfinal + bh * PN)[e]
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int c1 = nc - 1; c1 >= 0; c1 -= kPassBatch) {
+    float4 term[kPassBatch];
+    float dec[kPassBatch];
+#pragma unroll
+    for (int j = 0; j < kPassBatch; ++j)
+      if (c1 - j >= 0) {
+        term[j] = dp[static_cast<size_t>(c1 - j) * pn4];
+        dec[j] = expf(ce[c1 - j]);
+      }
+#pragma unroll
+    for (int j = 0; j < kPassBatch; ++j)
+      if (c1 - j >= 0) {
+        dp[static_cast<size_t>(c1 - j) * pn4] = dcarry;
+        dcarry = fma4(dcarry, dec[j], term[j]);
+      }
+  }
+}
+
+// dy's rows (hi/mid/lo), the chunk-entry state's (hi/lo) and dS's
+// (hi/mid/lo) into their bf16 tiles, every load of a thread issued before
+// any is split; returns this thread's share of <dS, prev>
+template <int NT>
+__device__ __forceinline__ float load_chunk_fp32(
+    unsigned char* smem, unsigned sDy, unsigned sPv, unsigned sDs,
+    int pv_tile, const float* dy, long long dy_ld, int QT, int nv, int P,
+    const float* prev, const float* ds, int N) {
+  constexpr int kSU = NT / 32;   // state units a thread (64 rows x NT / 8)
+  const int tid = threadIdx.x;
+  float yv[kSplitIter][8], pv[kSU][8], dv[kSU][8];
+#pragma unroll
+  for (int it = 0; it < kSplitIter; ++it) {
+    const int i = tid + it * kBwdTcThreads, r = i / 8, u = i % 8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) yv[it][e] = 0.0f;
+    if (r < QT && r < nv && 8 * u < P) {
+      const float4* s4 = reinterpret_cast<const float4*>(dy + r * dy_ld + 8 * u);
+      const float4 a = s4[0], b = s4[1];
+      yv[it][0] = a.x; yv[it][1] = a.y; yv[it][2] = a.z; yv[it][3] = a.w;
+      yv[it][4] = b.x; yv[it][5] = b.y; yv[it][6] = b.z; yv[it][7] = b.w;
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kSU; ++it) {
+    const int i = tid + it * kBwdTcThreads, r = i / (NT / 8), u = i % (NT / 8);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) pv[it][e] = dv[it][e] = 0.0f;
+    if (r < P && 8 * u < N) {
+      const float4* p4 = reinterpret_cast<const float4*>(prev + r * N + 8 * u);
+      const float4* d4 = reinterpret_cast<const float4*>(ds + r * N + 8 * u);
+      const float4 a = p4[0], b = p4[1], c = d4[0], d = d4[1];
+      pv[it][0] = a.x; pv[it][1] = a.y; pv[it][2] = a.z; pv[it][3] = a.w;
+      pv[it][4] = b.x; pv[it][5] = b.y; pv[it][6] = b.z; pv[it][7] = b.w;
+      dv[it][0] = c.x; dv[it][1] = c.y; dv[it][2] = c.z; dv[it][3] = c.w;
+      dv[it][4] = d.x; dv[it][5] = d.y; dv[it][6] = d.z; dv[it][7] = d.w;
+    }
+  }
+  const unsigned base = smem_u32(smem);
+  auto store = [&](unsigned off, const unsigned* h, int stride, int parts) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      if (q < parts)
+        *reinterpret_cast<uint4*>(smem + off - base + q * stride) =
+            make_uint4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+  };
+#pragma unroll
+  for (int it = 0; it < kSplitIter; ++it) {
+    const int i = tid + it * kBwdTcThreads, r = i / 8, u = i % 8;
+    if (r >= QT) break;
+    unsigned w[12];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split3(yv[it][2 * e], yv[it][2 * e + 1], w[e], w[4 + e], w[8 + e]);
+    store(sDy + toff(r, 8 * u, kSubQ), w, kSubQ, 3);
+  }
+  float dot = 0.0f;
+#pragma unroll
+  for (int it = 0; it < kSU; ++it) {
+    const int i = tid + it * kBwdTcThreads, r = i / (NT / 8), u = i % (NT / 8);
+    unsigned w[12];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dot = fmaf(dv[it][e], pv[it][e], dot);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split3(pv[it][2 * e], pv[it][2 * e + 1], w[e], w[4 + e], w[8 + e]);
+    store(sPv + toff(r, 8 * u, kSubP), w, pv_tile, 2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split3(dv[it][2 * e], dv[it][2 * e + 1], w[e], w[4 + e], w[8 + e]);
+    store(sDs + toff(r, 8 * u, kSubP), w, pv_tile, 3);
+  }
+  return dot;
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kBwdTcThreads, 1)
+ssd_bwd_chunk_kernel(const BwdArgs<__nv_bfloat16> g) {
+  using L = ChunkPlan<NT>;
+  constexpr int kNn = NT / 8;    // n-tiles over the state
+  constexpr int kKn = NT / 16;   // k-tiles over the state
+  extern __shared__ __align__(128) unsigned char smem[];
+  const unsigned sbase = smem_u32(smem);
+  const unsigned sX = sbase, sB = sbase + L::kB, sC = sbase + L::kC;
+  const unsigned sDy = sbase + L::kDy, sPv = sbase + L::kPv;
+  const unsigned sDs = sbase + L::kDs;
+  float* const sDt = reinterpret_cast<float*>(smem + L::kF);
+  float* const sCum = sDt + kMaxQ;
+  float* const sE = sCum + kMaxQ;
+  float* const sW = sE + kMaxQ;
+  float* const sRs = sW + kMaxQ;
+  float* const sYo = sRs + kMaxQ;
+  float* const sCs = sYo + kMaxQ;
+  float* const sU = sCs + kMaxQ;
+  float* const sRx = sU + kMaxQ;
+  float* const sRed = sRx + kMaxQ;
+  const int S = g.S, H = g.H, P = g.P, N = g.N, Q = g.Q;
+  // x = head * chunks + chunk (no limit of 65535 heads), y = sequence
+  const int nc = (S + Q - 1) / Q;
+  const int c = blockIdx.x % nc, h = blockIdx.x / nc, b = blockIdx.y;
+  const int c0 = c * Q, nv = min(Q, S - c0);
+  const int QT = (Q + 15) & ~15, MT = QT / 16, PT = (P + 15) & ~15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int lr = lane & 7, lm = lane >> 3;
+  const float ah = g.a[h];
+
+  // x, B and C (bf16), dt and cum as (a) computed it (rows >= nv: dt = 0,
+  // cum = cum_end) by cp.async; dy, the state and dS in fp32 meanwhile
+  load_bf16_tile(sX, g.x + b * g.x_sb + c0 * g.x_ss + h * g.x_sh, g.x_ss,
+                 QT, 8, nv, P, kSubQ);
+  load_bf16_tile(sB, g.bm + b * g.b_sb + c0 * g.b_ss, g.b_ss, QT, NT / 8, nv,
+                 N, kSubQ);
+  load_bf16_tile(sC, g.cm + b * g.c_sb + c0 * g.c_ss, g.c_ss, QT, NT / 8, nv,
+                 N, kSubQ);
+  {
+    const size_t row0 = (static_cast<size_t>(b) * S + c0) * H + h;
+    for (int r = tid; r < kMaxQ; r += kBwdTcThreads) {
+      cp_async4(smem_u32(sDt + r),
+                g.dt + row0 + static_cast<size_t>(min(r, nv - 1)) * H, r < nv);
+      cp_async4(smem_u32(sCum + r),
+                g.ddt + row0 + static_cast<size_t>(min(r, nv - 1)) * H, true);
+    }
+  }
+  cp_async_commit();
+  const size_t so = ((static_cast<size_t>(b) * H + h) * nc + c) * P * N;
+  sRed[tid] = load_chunk_fp32<NT>(
+      smem, sDy, sPv, sDs, L::kPvTile,
+      g.dy + (static_cast<size_t>(b) * S + c0) * H * P +
+          static_cast<size_t>(h) * P,
+      static_cast<long long>(H) * P, QT, nv, P, g.prevs + so,
+      g.dstates + so, N);
+  cp_async_wait_all();
+  __syncthreads();
+  const float cend = sCum[QT - 1];
+  for (int r = tid; r < kMaxQ; r += kBwdTcThreads) {
+    sE[r] = r < QT ? exp_ftz(sCum[r]) : 0.0f;
+    sW[r] = r < QT ? exp_ftz(cend - sCum[r]) : 0.0f;
+  }
+  __syncthreads();
+
+  const int m = warp;   // this warp's row tile (as t) and column tile (as k)
+  // ldmatrix offsets: A rows of tile m; B rows (non-trans) of a tile
+  const unsigned oA = toff(16 * m + lr + 8 * (lm & 1), 8 * (lm >> 1), kSubQ);
+  auto oBn = [&](int tile, int kt) {   // B operand, rows = n, cols = k
+    return toff(16 * tile + lr + 8 * (lm >> 1), 16 * kt + 8 * (lm & 1), kSubQ);
+  };
+  auto oBt = [&](int tile, int np, int sub) {   // B operand read transposed
+    return toff(16 * tile + lr + 8 * (lm & 1), 16 * np + 8 * (lm >> 1), sub);
+  };
+  const int pk = PT / 16;           // k-tiles over P
+  const int pp = (pk + 1) / 2;      // pairs of n-tiles over P (the last
+                                    // may run on the tiles' zero columns)
+
+  if (m < MT) {
+    // ---- rows t of tile m
+    const int ta = 16 * m + gq, tb = ta + 8;
+    float dc[kNn][4];
+#pragma unroll
+    for (int j = 0; j < kNn; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dc[j][e] = 0.0f;
+    // this tile's A fragments, loaded once: C_t over n, dy_t's three parts
+    // over p
+    unsigned cf[kKn][4], yf[3][4][4];
+#pragma unroll
+    for (int kt = 0; kt < kKn; ++kt)
+      ldsm_x4(sC + toff_add(oA, 2 * kt, kSubQ), cf[kt]);
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt)
+      if (16 * kt < PT)
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+          ldsm_x4(sDy + pass * kSubQ + toff_add(oA, 2 * kt, kSubQ),
+                  yf[pass][kt]);
+    // exp(cum_t) dy_t prev: dy hi/mid against prev hi/lo
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+      if (16 * kt >= PT) break;
+#pragma unroll
+      for (int np = 0; np < kKn; ++np) {
+        unsigned ph[4], pl[4];
+        const unsigned off = oBt(kt, np, kSubP);
+        ldsm_x4_t(sPv + off, ph);
+        ldsm_x4_t(sPv + L::kPvTile + off, pl);
+        mma_sum3(dc[2 * np], yf[0][kt], ph[0], ph[1], yf[0][kt], pl[0],
+                 pl[1], yf[1][kt], ph[0], ph[1]);
+        mma_sum3(dc[2 * np + 1], yf[0][kt], ph[2], ph[3], yf[0][kt], pl[2],
+                 pl[3], yf[1][kt], ph[2], ph[3]);
+      }
+    }
+    {
+      const float ea = sE[ta], eb = sE[tb];
+      float ya = 0.0f, yb = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kNn; ++j) {
+        dc[j][0] *= ea;
+        dc[j][1] *= ea;
+        dc[j][2] *= eb;
+        dc[j][3] *= eb;
+        const int n = 8 * j + 2 * t4;
+        const unsigned ca =
+            *reinterpret_cast<const unsigned*>(smem + L::kC + toff(ta, n, kSubQ));
+        const unsigned cb =
+            *reinterpret_cast<const unsigned*>(smem + L::kC + toff(tb, n, kSubQ));
+        ya = fmaf(bf16_lo(ca), dc[j][0], fmaf(bf16_hi(ca), dc[j][1], ya));
+        yb = fmaf(bf16_lo(cb), dc[j][2], fmaf(bf16_hi(cb), dc[j][3], yb));
+      }
+      ya = quad_sum(ya);
+      yb = quad_sum(yb);
+      if (t4 == 0) {
+        sYo[ta] = ya;
+        sYo[tb] = yb;
+      }
+    }
+    float rs[2] = {0.0f, 0.0f};
+    for (int kk = 0; kk <= m; ++kk) {
+      // G = C_t B_k^T and D' = dy_t x_k^T (dy in three passes)
+      float ga[2][4], da[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ga[j][e] = da[j][e] = 0.0f;
+#pragma unroll
+      for (int kt = 0; kt < kKn; ++kt) {
+        unsigned bf[4];
+        ldsm_x4(sB + oBn(kk, kt), bf);
+        mma_bf16(ga[0], cf[kt], bf[0], bf[1]);
+        mma_bf16(ga[1], cf[kt], bf[2], bf[3]);
+      }
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        if (16 * kt >= PT) break;
+        unsigned xf[4];
+        ldsm_x4(sX + oBn(kk, kt), xf);
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass) {
+          mma_bf16(da[0], yf[pass][kt], xf[0], xf[1]);
+          mma_bf16(da[1], yf[pass][kt], xf[2], xf[3]);
+        }
+      }
+      // M = G o L, D = D' dt_k, D o L; the row sums of M o D
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = ta + 8 * (e >> 1), k = 16 * kk + 8 * j + 2 * t4 + (e & 1);
+          const float l = k <= t ? exp_ftz(sCum[t] - sCum[k]) : 0.0f;
+          const float d = da[j][e] * sDt[k];
+          rs[e >> 1] = fmaf(ga[j][e] * l, d, rs[e >> 1]);
+          da[j][e] = d * l;
+        }
+      // dC_t += (D o L) B_k, B read transposed
+      unsigned hi[4], mid[4], lo[4];
+      acc_to_a3(da, hi, mid, lo);
+#pragma unroll
+      for (int np = 0; np < kKn; ++np) {
+        unsigned bf[4];
+        ldsm_x4_t(sB + oBt(kk, np, kSubQ), bf);
+        mma_sum3(dc[2 * np], hi, bf[0], bf[1], mid, bf[0], bf[1], lo, bf[0],
+                 bf[1]);
+        mma_sum3(dc[2 * np + 1], hi, bf[2], bf[3], mid, bf[2], bf[3], lo,
+                 bf[2], bf[3]);
+      }
+    }
+    rs[0] = quad_sum(rs[0]);
+    rs[1] = quad_sum(rs[1]);
+    if (t4 == 0) {
+      sRs[ta] = rs[0];
+      sRs[tb] = rs[1];
+    }
+    // this head's dC partial, rows < nv, columns < N
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = ta + 8 * hr;
+      if (t >= nv) continue;
+      float* const row =
+          g.dcp + ((static_cast<size_t>(b) * S + c0 + t) * H + h) * N;
+#pragma unroll
+      for (int j = 0; j < kNn; ++j)
+        if (8 * j + 2 * t4 < N)
+          *reinterpret_cast<float2*>(row + 8 * j + 2 * t4) =
+              make_float2(dc[j][2 * hr], dc[j][2 * hr + 1]);
+    }
+  }
+
+  if (m < MT) {
+    // ---- columns k of tile m
+    const int ka = 16 * m + gq, kb = ka + 8;
+    float db[kNn][4], dxs[8][4];
+#pragma unroll
+    for (int j = 0; j < kNn; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) db[j][e] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dxs[j][e] = 0.0f;
+    // this tile's A fragments, loaded once: B_k over n, x_k over p
+    unsigned bk[kKn][4], xk[4][4];
+#pragma unroll
+    for (int kt = 0; kt < kKn; ++kt)
+      ldsm_x4(sB + toff_add(oA, 2 * kt, kSubQ), bk[kt]);
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt)
+      if (16 * kt < PT) ldsm_x4(sX + toff_add(oA, 2 * kt, kSubQ), xk[kt]);
+    // w_k dt_k x_k dS: x against dS's three parts, dS read transposed
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+      if (16 * kt >= PT) break;
+      const unsigned* xf = xk[kt];
+#pragma unroll
+      for (int np = 0; np < kKn; ++np) {
+        unsigned s0[4], s1[4], s2[4];
+        const unsigned off = oBt(kt, np, kSubP);
+        ldsm_x4_t(sDs + off, s0);
+        ldsm_x4_t(sDs + L::kPvTile + off, s1);
+        ldsm_x4_t(sDs + 2 * L::kPvTile + off, s2);
+        mma_sum3(db[2 * np], xf, s0[0], s0[1], xf, s1[0], s1[1], xf, s2[0],
+                 s2[1]);
+        mma_sum3(db[2 * np + 1], xf, s0[2], s0[3], xf, s1[2], s1[3], xf,
+                 s2[2], s2[3]);
+      }
+    }
+    {
+      const float wa = sW[ka] * sDt[ka], wb = sW[kb] * sDt[kb];
+      float ua = 0.0f, ub = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kNn; ++j) {
+        db[j][0] *= wa;
+        db[j][1] *= wa;
+        db[j][2] *= wb;
+        db[j][3] *= wb;
+        const int n = 8 * j + 2 * t4;
+        const unsigned ba =
+            *reinterpret_cast<const unsigned*>(smem + L::kB + toff(ka, n, kSubQ));
+        const unsigned bb =
+            *reinterpret_cast<const unsigned*>(smem + L::kB + toff(kb, n, kSubQ));
+        ua = fmaf(bf16_lo(ba), db[j][0], fmaf(bf16_hi(ba), db[j][1], ua));
+        ub = fmaf(bf16_lo(bb), db[j][2], fmaf(bf16_hi(bb), db[j][3], ub));
+      }
+      ua = quad_sum(ua);
+      ub = quad_sum(ub);
+      if (t4 == 0) {
+        sU[ka] = ua;
+        sU[kb] = ub;
+      }
+    }
+    // w_k B_k dS^T: B against dS's three parts, dS rows as the B operand
+#pragma unroll
+    for (int kt = 0; kt < kKn; ++kt) {
+      const unsigned* bf = bk[kt];
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (16 * np >= PT) break;
+        unsigned s0[4], s1[4], s2[4];
+        const unsigned off =
+            toff(16 * np + lr + 8 * (lm >> 1), 16 * kt + 8 * (lm & 1), kSubP);
+        ldsm_x4(sDs + off, s0);
+        ldsm_x4(sDs + L::kPvTile + off, s1);
+        ldsm_x4(sDs + 2 * L::kPvTile + off, s2);
+        mma_sum3(dxs[2 * np], bf, s0[0], s0[1], bf, s1[0], s1[1], bf, s2[0],
+                 s2[1]);
+        mma_sum3(dxs[2 * np + 1], bf, s0[2], s0[3], bf, s1[2], s1[3], bf,
+                 s2[2], s2[3]);
+      }
+    }
+    {
+      const float wa = sW[ka], wb = sW[kb];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dxs[j][0] *= wa;
+        dxs[j][1] *= wa;
+        dxs[j][2] *= wb;
+        dxs[j][3] *= wb;
+      }
+    }
+    float cs[2] = {0.0f, 0.0f};
+    for (int tt = m; tt < MT; ++tt) {
+      // G^T = B_k C_t^T and D'^T = x_k dy_t^T (dy in three passes)
+      float ga[2][4], da[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ga[j][e] = da[j][e] = 0.0f;
+#pragma unroll
+      for (int kt = 0; kt < kKn; ++kt) {
+        unsigned cf[4];
+        ldsm_x4(sC + oBn(tt, kt), cf);
+        mma_bf16(ga[0], bk[kt], cf[0], cf[1]);
+        mma_bf16(ga[1], bk[kt], cf[2], cf[3]);
+      }
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        if (16 * kt >= PT) break;
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass) {
+          unsigned yf[4];
+          ldsm_x4(sDy + pass * kSubQ + oBn(tt, kt), yf);
+          mma_bf16(da[0], xk[kt], yf[0], yf[1]);
+          mma_bf16(da[1], xk[kt], yf[2], yf[3]);
+        }
+      }
+      // M^T, D^T o L^T; the column sums of M o D
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = ka + 8 * (e >> 1), t = 16 * tt + 8 * j + 2 * t4 + (e & 1);
+          const float l = k <= t ? exp_ftz(sCum[t] - sCum[k]) : 0.0f;
+          const float d = da[j][e] * sDt[k];
+          ga[j][e] *= l;
+          cs[e >> 1] = fmaf(ga[j][e], d, cs[e >> 1]);
+          da[j][e] = d * l;
+        }
+      // dxs_k += M^T dy_t: M^T and dy both split in two, hi.hi + hi.lo +
+      // lo.hi
+      unsigned mh[4], ml[4];
+      acc_to_a2(ga, mh, ml);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (16 * np >= PT) break;
+        unsigned yh[4], ym[4];
+        const unsigned off = oBt(tt, np, kSubQ);
+        ldsm_x4_t(sDy + off, yh);
+        ldsm_x4_t(sDy + kSubQ + off, ym);
+        mma_sum3(dxs[2 * np], mh, yh[0], yh[1], mh, ym[0], ym[1], ml, yh[0],
+                 yh[1]);
+        mma_sum3(dxs[2 * np + 1], mh, yh[2], yh[3], mh, ym[2], ym[3], ml,
+                 yh[2], yh[3]);
+      }
+      // dB_k += (D o L)^T C_t, C read transposed
+      unsigned hi[4], mid[4], lo[4];
+      acc_to_a3(da, hi, mid, lo);
+#pragma unroll
+      for (int np = 0; np < kKn; ++np) {
+        unsigned cf[4];
+        ldsm_x4_t(sC + oBt(tt, np, kSubQ), cf);
+        mma_sum3(db[2 * np], hi, cf[0], cf[1], mid, cf[0], cf[1], lo, cf[0],
+                 cf[1]);
+        mma_sum3(db[2 * np + 1], hi, cf[2], cf[3], mid, cf[2], cf[3], lo,
+                 cf[2], cf[3]);
+      }
+    }
+    cs[0] = quad_sum(cs[0]);
+    cs[1] = quad_sum(cs[1]);
+    // dx = dxs dt (rows < nv, columns < P); rx = dxs . x
+    float rx[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int k = ka + 8 * hr;
+      const float dtk = sDt[k];
+      __nv_bfloat16* const row =
+          g.dx + ((static_cast<size_t>(b) * S + c0 + k) * H + h) * P;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = 8 * j + 2 * t4;
+        if (p >= PT) break;
+        const unsigned xv =
+            *reinterpret_cast<const unsigned*>(smem + toff(k, p, kSubQ));
+        rx[hr] = fmaf(dxs[j][2 * hr], bf16_lo(xv),
+                      fmaf(dxs[j][2 * hr + 1], bf16_hi(xv), rx[hr]));
+        if (k < nv && p < P)
+          *reinterpret_cast<unsigned*>(row + p) = pack_bf16x2(
+              dxs[j][2 * hr] * dtk, dxs[j][2 * hr + 1] * dtk);
+      }
+      rx[hr] = quad_sum(rx[hr]);
+    }
+    if (t4 == 0) {
+      sCs[ka] = cs[0];
+      sCs[kb] = cs[1];
+      sRx[ka] = rx[0];
+      sRx[kb] = rx[1];
+    }
+    // this head's dB partial
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int k = ka + 8 * hr;
+      if (k >= nv) continue;
+      float* const row =
+          g.dbp + ((static_cast<size_t>(b) * S + c0 + k) * H + h) * N;
+#pragma unroll
+      for (int j = 0; j < kNn; ++j)
+        if (8 * j + 2 * t4 < N)
+          *reinterpret_cast<float2*>(row + 8 * j + 2 * t4) =
+              make_float2(db[j][2 * hr], db[j][2 * hr + 1]);
+    }
+  }
+  __syncthreads();
+
+  // warp 0: dcum, dda = its reverse cumulative sum, this chunk's da. Lane l
+  // takes rows 4 l .. 4 l + 3 from the bottom up and adds the sums of the
+  // lanes below it in the chunk (a suffix scan over the lanes, a fixed
+  // order); the chunk decay's term joins the last row.
+  if (warp == 0) {
+    float dcum[4], us = 0.0f, dsp = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * lane + i;
+      dcum[i] = r < QT ? sRs[r] - sCs[r] + sYo[r] - sU[r] : 0.0f;
+      us += r < QT ? sU[r] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBwdTcThreads / 32; ++i)
+      dsp += sRed[(kBwdTcThreads / 32) * lane + i];
+    us = warp_sum(us);
+    dsp = warp_sum(dsp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * lane + i == QT - 1) dcum[i] += us + exp_ftz(cend) * dsp;
+    const float tot = ((dcum[3] + dcum[2]) + dcum[1]) + dcum[0];
+    float suf = tot;   // the sum over lanes >= this one
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_down_sync(0xffffffffu, suf, o);
+      if (lane + o < 32) suf += v;
+    }
+    float run = __shfl_down_sync(0xffffffffu, suf, 1);
+    if (lane == 31) run = 0.0f;
+    float da = 0.0f;
+#pragma unroll
+    for (int i = 3; i >= 0; --i) {
+      const int r = 4 * lane + i;
+      run += dcum[i];
+      if (r < QT) {
+        sRs[r] = run;
+        da = fmaf(run, sDt[r], da);
+      }
+    }
+    da = warp_sum(da);
+    if (lane == 0) g.dap[(static_cast<size_t>(b) * H + h) * nc + c] = da;
+  }
+  __syncthreads();
+  for (int t = tid; t < nv; t += kBwdTcThreads)
+    g.ddt[(static_cast<size_t>(b) * S + c0 + t) * H + h] =
+        sRs[t] * ah + sRx[t];
+}
 // ---------------------------------------------------------- end backward
 
 constexpr int kMaxDevices = 64;
@@ -1455,24 +2328,63 @@ int launch_f32(const void* x, const float* dt, const void* bm, const void* cm,
 }
 
 template <typename T>
-int launch_bwd(const BwdArgs<T>& args, T* db, T* dc, float* da, int B,
-               cudaStream_t stream) {
+int launch_bwd_sum(const float* dbp, const float* dcp, const float* dap, T* db,
+                   T* dc, float* da, int B, int S, int H, int N, int Q,
+                   cudaStream_t stream) {
+  const long long total = static_cast<long long>(B) * S * N + H;
+  const int nc = (S + Q - 1) / Q;
+  ssd_scan_bwd_sum_kernel<T>
+      <<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads,
+         0, stream>>>(dbp, dcp, dap, db, dc, da, B, S, H, N, nc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd_f32(const BwdArgs<float>& args, float* db, float* dc,
+                   float* da, int B, cudaStream_t stream) {
   static int opted[kMaxDevices];
   const int smem = static_cast<int>(bwd_smem_bytes(args.P, args.N, args.Q));
   cudaError_t err = opt_in_smem(
-      reinterpret_cast<const void*>(ssd_scan_bwd_kernel<T>), opted, smem);
+      reinterpret_cast<const void*>(ssd_scan_bwd_kernel), opted, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_scan_bwd_kernel<T><<<dim3(args.H, B), kThreads, smem, stream>>>(args);
+  ssd_scan_bwd_kernel<<<dim3(args.H, B), kThreads, smem, stream>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total =
-      static_cast<long long>(B) * args.S * args.N + args.H;
+  return launch_bwd_sum(args.dbp, args.dcp, args.dap, db, dc, da, B, args.S,
+                        args.H, args.N, args.Q, stream);
+}
+
+// (a), (b), (c) and (d) of the bf16 backward, in order on the stream
+template <int NT>
+int launch_bwd_tc(const BwdArgs<__nv_bfloat16>& args, __nv_bfloat16* db,
+                  __nv_bfloat16* dc, float* da, int B, cudaStream_t stream) {
+  static int opted_a[kMaxDevices], opted_c[kMaxDevices];
+  constexpr int smem_a = StatePlan<NT>::kBytes, smem_c = ChunkPlan<NT>::kBytes;
+  cudaError_t err = opt_in_smem(
+      reinterpret_cast<const void*>(ssd_bwd_state_kernel<NT>), opted_a,
+      smem_a);
+  if (err == cudaSuccess)
+    err = opt_in_smem(reinterpret_cast<const void*>(ssd_bwd_chunk_kernel<NT>),
+                      opted_c, smem_c);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int nc = (args.S + args.Q - 1) / args.Q;
-  ssd_scan_bwd_sum_kernel<T>
-      <<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads,
-         0, stream>>>(args.dbp, args.dcp, args.dap, db, dc, da, B, args.S,
-                      args.H, args.N, nc);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid(nc * args.H, B);
+  ssd_bwd_state_kernel<NT><<<grid, kBwdTcThreads, smem_a, stream>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long bh = static_cast<long long>(B) * args.H;
+  const long long quads = bh * args.P * args.N / 4;
+  ssd_bwd_pass_kernel<<<static_cast<unsigned>((quads + kThreads - 1) /
+                                              kThreads),
+                        kThreads, 0, stream>>>(args.prevs, args.dstates,
+                                               args.dfinal, args.dap, bh,
+                                               args.P * args.N, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_chunk_kernel<NT><<<grid, kBwdTcThreads, smem_c, stream>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_bwd_sum(args.dbp, args.dcp, args.dap, db, dc, da, B, args.S,
+                        args.H, args.N, args.Q, stream);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1576,19 +2488,20 @@ extern "C" int ssd_scan_fwd(int dtype, const void* x, const float* dt,
 
 // The backward: x, dt, B, C and a as ssd_scan_fwd takes them; dy (B, S, H,
 // P) fp32 contiguous; dfinal (B, H, P, N) fp32 contiguous or null (zero).
-// Scratch: prevs (B, H, chunks, P, N), dbp and dcp (B, S, H, N), dap (B, H,
-// chunks), fp32. Writes dx (B, S, H, P), dB and dC (B, S, N) contiguous in
-// the inputs' type, ddt (B, S, H) and da (H,) fp32. Two launches on the
-// stream: the backward, then the fixed-order sum over heads.
+// Scratch, fp32: prevs (B, H, chunks, P, N), dstates (the same; bf16 only,
+// null for fp32), dbp and dcp (B, S, H, N), dap (B, H, chunks). Writes dx
+// (B, S, H, P), dB and dC (B, S, N) contiguous in the inputs' type, ddt (B,
+// S, H) and da (H,) fp32. fp32: two launches on the stream, the backward
+// then the fixed-order sum over heads; bf16: four, (a)-(d) above.
 extern "C" int ssd_scan_bwd(int dtype, const void* x, const float* dt,
                             const void* bm, const void* cm, const float* a,
                             const float* dy, const float* dfinal,
-                            float* prevs, float* dbp, float* dcp, float* dap,
-                            void* dx, float* ddt, void* db, void* dc,
-                            float* da, int B, int S, int H, int P, int N,
-                            int Q, long long x_sb, long long x_ss,
-                            long long x_sh, long long b_sb, long long b_ss,
-                            long long c_sb, long long c_ss,
+                            float* prevs, float* dstates, float* dbp,
+                            float* dcp, float* dap, void* dx, float* ddt,
+                            void* db, void* dc, float* da, int B, int S,
+                            int H, int P, int N, int Q, long long x_sb,
+                            long long x_ss, long long x_sh, long long b_sb,
+                            long long b_ss, long long c_sb, long long c_ss,
                             cudaStream_t stream) {
   if (Q < 1 || Q > kMaxQ || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
       B < 1 || S < 1 || H < 1)
@@ -1596,21 +2509,32 @@ extern "C" int ssd_scan_bwd(int dtype, const void* x, const float* dt,
   if (dtype == 0) {
     const BwdArgs<float> args{
         static_cast<const float*>(x), dt, static_cast<const float*>(bm),
-        static_cast<const float*>(cm), a, dy, dfinal, prevs,
+        static_cast<const float*>(cm), a, dy, dfinal, prevs, nullptr,
         static_cast<float*>(dx), ddt, dbp, dcp, dap, S, H, P, N, Q, x_sb,
         x_ss, x_sh, b_sb, b_ss, c_sb, c_ss};
-    return launch_bwd(args, static_cast<float*>(db), static_cast<float*>(dc),
-                      da, B, stream);
+    return launch_bwd_f32(args, static_cast<float*>(db),
+                          static_cast<float*>(dc), da, B, stream);
   }
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1 || dstates == nullptr || P % 8 != 0 || N % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   using bf16 = __nv_bfloat16;
   const BwdArgs<bf16> args{
       static_cast<const bf16*>(x), dt, static_cast<const bf16*>(bm),
-      static_cast<const bf16*>(cm), a, dy, dfinal, prevs,
+      static_cast<const bf16*>(cm), a, dy, dfinal, prevs, dstates,
       static_cast<bf16*>(dx), ddt, dbp, dcp, dap, S, H, P, N, Q, x_sb, x_ss,
       x_sh, b_sb, b_ss, c_sb, c_ss};
-  return launch_bwd(args, static_cast<bf16*>(db), static_cast<bf16*>(dc), da,
-                    B, stream);
+  if (N <= 64)
+    return launch_bwd_tc<64>(args, static_cast<bf16*>(db),
+                             static_cast<bf16*>(dc), da, B, stream);
+  return launch_bwd_tc<128>(args, static_cast<bf16*>(db),
+                            static_cast<bf16*>(dc), da, B, stream);
+}
+
+// The dynamic shared memory of the bf16 backward's kernel (a) (which 0) or
+// (c) (which 1) at N, in bytes.
+extern "C" int ssd_scan_bwd_smem(int N, int which) {
+  if (N <= 64) return which == 0 ? StatePlan<64>::kBytes : ChunkPlan<64>::kBytes;
+  return which == 0 ? StatePlan<128>::kBytes : ChunkPlan<128>::kBytes;
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -10,13 +10,18 @@ CUDA-core kernel, in bf16 the tensor-core kernel.
 
 Training: when grad mode is on and an input requires a gradient, a CUDA
 call goes through ``SsdScan`` (a ``torch.autograd.Function``). Its forward
-is the serving launch, unchanged; its backward launches K6's backward
-(``ssd_scan_bwd`` in ``kernel.cu``: the chunk-entry states recomputed,
-then the reverse walk over chunks, then a fixed-order sum of dB, dC and da
-over heads and chunks), which returns dx, dB and dC in the inputs' type
-and ddt and da in fp32, and takes a gradient of the final state or none.
-On the CPU the plain version's own autograd runs. ``KERNEL_LAUNCHES``
-counts ``ssd_scan`` (every forward) and ``ssd_scan_bwd`` apart.
+is the serving launch, unchanged; its backward calls K6's backward
+(``ssd_scan_bwd`` in ``kernel.cu``), which returns dx, dB and dC in the
+inputs' type and ddt and da in fp32, and takes a gradient of the final
+state or none. In fp32 that is two CUDA launches (one block per head and
+sequence recomputes the chunk-entry states and walks the chunks back on
+the CUDA cores, then a fixed-order sum of dB, dC and da over heads and
+chunks); in bf16 four, chunk-parallel on the tensor cores (each chunk's
+own state and dS term, the elementwise passing of states forward and of
+dS backward, each chunk's gradient, the same fixed-order sum). On the CPU
+the plain version's own autograd runs. ``KERNEL_LAUNCHES`` counts
+``ssd_scan`` (every forward) and ``ssd_scan_bwd`` (one a backward call,
+whatever its CUDA launches) apart.
 
 Both launches are registered torch ops (``torch.ops.repro_torch.ssd_scan``
 and ``ssd_scan_bwd``): the real implementation is the launch, the fake
@@ -123,8 +128,9 @@ def _launch_forward(x, dt, bmat, cmat, a, q_chunk):
 
 def backward_buffers(x, bmat, q_chunk):
     """The outputs (dx, ddt, dB, dC, da) of K6's backward and its fp32
-    scratch: the chunk-entry states (B, H, chunks, P, N), per-head dB and
-    dC (B, S, H, N) and per-chunk da (B, H, chunks)."""
+    scratch: the chunk-entry states (B, H, chunks, P, N), in bf16 also dS
+    per chunk (B, H, chunks, P, N), per-head dB and dC (B, S, H, N) and
+    per-chunk da (B, H, chunks)."""
     b, s, h, p = x.shape
     n = bmat.shape[2]
     nc = -(-s // q_chunk)
@@ -134,7 +140,10 @@ def backward_buffers(x, bmat, q_chunk):
             torch.empty((b, s, n), dtype=x.dtype, device=x.device),
             torch.empty((b, s, n), dtype=x.dtype, device=x.device),
             torch.empty((h,), **f32))
-    scratch = (torch.empty((b, h, nc, p, n), **f32),
+    states = (b, h, nc, p, n)
+    per_chunk = ((torch.empty(states, **f32),) if x.dtype == torch.float32
+                 else (torch.empty(states, **f32), torch.empty(states, **f32)))
+    scratch = (*per_chunk,
                torch.empty((b, s, h, n), **f32),
                torch.empty((b, s, h, n), **f32),
                torch.empty((b, h, nc), **f32))
@@ -150,24 +159,33 @@ def backward_args(x, dt, bmat, cmat, a, dy, dfinal, q_chunk):
     n = bmat.shape[2]
     outs, scratch = backward_buffers(x, bmat, q_chunk)
     ptrs = (x, dt, bmat, cmat, a, dy)
+    # fp32 takes no dS scratch: a null in its place
+    per_chunk = [t.data_ptr() for t in scratch[:-3]] + [None] * (
+        2 - len(scratch[:-3]))
     args = (DTYPES[x.dtype], *(t.data_ptr() for t in ptrs),
             None if dfinal is None else dfinal.data_ptr(),
-            *(t.data_ptr() for t in scratch),
+            *per_chunk, *(t.data_ptr() for t in scratch[-3:]),
             *(t.data_ptr() for t in outs), b, s, h, p, n, q_chunk,
             *x.stride()[:3], *bmat.stride()[:2], *cmat.stride()[:2])
     return outs, scratch, args
 
 
 def _launch_backward(x, dt, bmat, cmat, a, dy, dfinal, q_chunk):
-    """K6's backward on the card: (dx, ddt, dB, dC, da)."""
+    """K6's backward on the card: (dx, ddt, dB, dC, da). Two CUDA
+    launches in fp32, four in bf16; ``KERNEL_LAUNCHES["ssd_scan_bwd"]``
+    counts one a call."""
     _check_aligned(x, bmat, cmat)
     b, s, h, _ = x.shape
     if dy.shape != x.shape:
         raise ValueError(f"ssd_scan's dy {tuple(dy.shape)} is not x's "
                          f"{tuple(x.shape)}")
     dy = dy.to(torch.float32).contiguous()
+    if dy.data_ptr() % 16:      # read in 16-byte units
+        dy = dy.clone()
     if dfinal is not None:
         dfinal = dfinal.to(torch.float32).contiguous()
+        if dfinal.data_ptr() % 16:
+            dfinal = dfinal.clone()
     outs, scratch, args = backward_args(x, dt, bmat, cmat, a, dy, dfinal,
                                         q_chunk)
     if b * h == 0 or s == 0:

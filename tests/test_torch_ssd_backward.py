@@ -134,7 +134,9 @@ def test_ssd_scan_on_the_cpu_differentiates_through_the_plain_scan(dtype):
 def test_backward_arguments_fit_the_kernels_signature(dtype, fin):
     """``backward_args`` on CPU tensors (the kernel runs on the card only):
     one argument per C parameter before the stream, the strided slices'
-    strides, the outputs' shapes and types, and dfinal's null."""
+    strides, the outputs' shapes and types, dfinal's null, and the
+    scratch: the chunk-entry states, in bf16 also dS per chunk (a null in
+    its place for fp32), the per-head dB and dC and the per-chunk da."""
     b, s, h, p, n, q = 2, 200, 3, 16, 32, 64
     xbc = torch.zeros((b, s, h * p + 2 * n), dtype=dtype)
     x = xbc[..., :h * p].reshape(b, s, h, p)
@@ -148,15 +150,18 @@ def test_backward_arguments_fit_the_kernels_signature(dtype, fin):
     assert len(args) + 1 == len(sig)
     assert args[0] == ops.DTYPES[dtype]
     assert (args[7] is None) == (not fin)
-    assert args[17:23] == (b, s, h, p, n, q)
-    assert args[23:] == (*x.stride()[:3], *bm.stride()[:2],
+    assert (args[9] is None) == (dtype == torch.float32)
+    assert args[18:24] == (b, s, h, p, n, q)
+    assert args[24:] == (*x.stride()[:3], *bm.stride()[:2],
                          *cm.stride()[:2])
     assert [tuple(t.shape) for t in outs] == [(b, s, h, p), (b, s, h),
                                               (b, s, n), (b, s, n), (h,)]
     assert [t.dtype for t in outs] == [dtype, torch.float32, dtype, dtype,
                                        torch.float32]
-    assert [tuple(t.shape) for t in scratch] == [
-        (b, h, 4, p, n), (b, s, h, n), (b, s, h, n), (b, h, 4)]
+    per_chunk = [(b, h, 4, p, n)] * (1 if dtype == torch.float32 else 2)
+    assert [tuple(t.shape) for t in scratch] == per_chunk + [
+        (b, s, h, n), (b, s, h, n), (b, h, 4)]
+    assert all(t.dtype == torch.float32 for t in scratch)
 
 
 class _PlainSsdScan(torch.autograd.Function):

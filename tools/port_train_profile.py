@@ -12,7 +12,9 @@ synchronisation: the loss and gradients (forward and backward under the
 config's remat), the global-norm clip, and the optimizer update. Then it
 traces one step with ``torch.profiler`` and prints the device-busy time
 and share, and the device time of K4's forward (``flash_attention_*``
-kernels), K4's backward (``attention_bwd_*``), the matrix products
+kernels), K4's backward (``attention_bwd_*``), K6's forward
+(``ssd_scan_*kernel``) and backward (``ssd_bwd_*``, ``ssd_scan_bwd_*``),
+the matrix products
 (cuBLAS/CUTLASS GEMM kernels) and the rest (elementwise, reductions and
 copies: the casts, the norms, the loss and AdamW), each with its share of
 the step, and the kernels that take most device time. Prints the card's
@@ -33,6 +35,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
 CATEGORIES = (
     ("K4 forward", ("flash_attention_wgmma_kernel", "flash_attention_kernel")),
     ("K4 backward", ("attention_bwd_",)),
+    ("K6 forward", ("ssd_scan_tc_kernel", "ssd_scan_kernel")),
+    ("K6 backward", ("ssd_bwd_", "ssd_scan_bwd_")),
     ("GEMM", ("gemm", "Gemm", "GEMM", "sm90_xmma", "cutlass", "nvjet")),
 )
 
