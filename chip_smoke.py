@@ -31,8 +31,9 @@ Phases (any failure exits non-zero, without the final result line):
      were given in 4 and 5 is then checked as in 3, with every k;
   6. replay a small scale of both Sizey paths on the card and on the CPU
      through the port and compare the decisions;
-  7. time each kernel, its plain version and a library yardstick with CUDA
-     events, beside the least time the card could take; K1 and K2 at every
+  7. (after 13 and 18, with no other process on the card) time each
+     kernel, its plain version and a library yardstick with CUDA events,
+     beside the least time the card could take; K1 and K2 at every
      shape the replays launched and K3 at four M and at every M the
      temporal path launched, each also split into its device time
      (torch.profiler) and the host's time to issue it, with each replay's
@@ -59,22 +60,24 @@ Phases (any failure exits non-zero, without the final result line):
      with K4's achieved TFLOP/s, K5's and K6's GB/s and K6's largest
      difference from its plain version there, in bf16 and from the fp32
      kernel fed the same values (the bf16 one at most twice the fp32).
- 13. (run after 7, before 8) the cluster engine: (a) ``SizeyMethod`` and
-     (b) ``sizey_temporal`` on ``simulate_cluster`` (methylseq at scales
-     0.35 and 1.0 on 8 nodes, Poisson root arrivals, (b) with node
-     crashes), the
-     counters zeroed before each: wastage and failures within twice the
-     reference's spread, K1 and K2 once per predictor dispatch, K3 once
-     per boundary fit, predict dispatches at most waves x pools and fewer
-     than phase 4's, RESIZE waves counted; (c) a journaled peak run with
-     node crashes, bitwise its unjournaled twin, killed at 4 seeded bytes
-     of its journal before its last model-sized wave, repaired and
-     resumed, each resumed run bitwise the uninterrupted one and deciding
-     with the models again; (d) both paths on the engine at 0.05 on the
+ 13. (run after 6; 7's timings run after 13, 14 and 18) the cluster engine:
+     (a) ``SizeyMethod`` and (b) ``sizey_temporal`` on
+     ``simulate_cluster`` (methylseq at scales 0.35 and 1.0 on 8 nodes,
+     Poisson root arrivals, (b) with node crashes), the counters zeroed
+     before each: wastage and failures within twice the reference's
+     spread, K1 and K2 once per predictor dispatch, K3 once per boundary
+     fit, predict dispatches at most waves x pools and fewer than phase
+     4's, RESIZE waves counted; (c) (in a worker process beside the
+     others) a journaled peak run with node crashes, bitwise its
+     unjournaled twin, killed at 4 seeded bytes of its journal before its
+     last model-sized wave, repaired and resumed, each resumed run bitwise
+     the uninterrupted one and deciding with the models again; (d) both
+     paths on the engine at 0.05 on the
      card and on the CPU, with equal integer choices, waves, events and
      dispatches; every K1, K2 and K3 shape launched that 3-5 did not
      check is checked as in 3, and K1 and K2 are timed at them.
- 14. (run after 13) the risk-priced path: (a) ``SizeyMethod(risk=True,
+ 14. (in a worker process from after 4 to after 13 and 18, before 7)
+     the risk-priced path: (a) ``SizeyMethod(risk=True,
      failure_strategy="auto", quality=True)`` and (b)
      ``sizey_risk_temporal`` (auto) on phase 13's traffic with node
      crashes, counters zeroed before each: K1 and K2 once per dispatch, K3
@@ -116,6 +119,21 @@ Phases (any failure exits non-zero, without the final result line):
      through ``SizeyPredictor(fused=False)`` (the per-model loop) and the
      fused path on the card: integer choices equal, allocations within
      phase 6's tolerance, K1 and K2 once per model call of the loop.
+ 18. (from the build to after 13, before 7) the paper's evaluation
+     through the port (``repro_torch.workflow.paper``, the figures built
+     by ``tools/port_paper.py``) at the reference's ``--smoke`` settings,
+     scale 0.05 and ttf 1.0: the six workflows through
+     ``benchmarks/run.py``'s methods, fig9's incremental run,
+     fig10's alpha sweep, fig11's argmax runs and fig12's mag run at 0.3,
+     in worker processes (one a workflow, fig12's run on its own) beside
+     phases 3-6 and 13, joined before any kernel is timed; every figure
+     held to ``tools/port_paper_reference.json`` (the numpy baselines
+     equal, Sizey within twice the reference's spread), and so is each
+     job's wastage, time-integrated wastage, failures and runtime (the
+     incremental and argmax replays among them), K1 and K2 once per
+     predictor dispatch in every Sizey run, every K1/K2 shape launched
+     that 3-5 did not check checked as in 3, fig9's milliseconds printed
+     with the card's name and power limit, and the phase's wall.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``. Imports
@@ -1323,7 +1341,8 @@ def _cluster_drive(label: str, name: str, scale: float, arrivals, engine,
     try:
         res = ClusterEngine(trace, method, node_cap_gb=trace.machine_cap_gb,
                             journal=journal, **engine).run()
-        torch.cuda.synchronize()
+        if DEV != "cpu":
+            torch.cuda.synchronize()
     finally:
         restore()
     wall = time.perf_counter() - t0
@@ -1387,54 +1406,20 @@ def _check_waves(label: str, run: dict, serial_predicts: int,
         _fail(f"{label}: more than one sizing call a wave")
 
 
-def cluster_phase(serial_predicts: int) -> dict:
-    """Phase 13: the cluster engine on the card. (a) the peak path at
-    CLUSTER_A_SCALE and (b) the temporal path at CLUSTER_SCALE on
-    CLUSTER_NODES nodes, each held to twice the reference's spread; (c) a
+def cluster_durability(build) -> None:
+    """Phase 13 (c), in a worker process beside (a), (b) and (d): a
     journaled peak run at DUR_SCALE with node crashes, bitwise its
     unjournaled twin, killed at DUR_KILLS seeded bytes of its journal
     before its last model-sized wave, repaired and resumed, each resumed
-    run bitwise the uninterrupted one and deciding with the models again;
-    (d) both paths card vs CPU on the engine."""
+    run bitwise the uninterrupted one and deciding with the models
+    again."""
     import bisect
     import os
     import tempfile
-    from collections import Counter
 
     import numpy as np
     from repro_torch.baselines import SizeyMethod
     from repro_torch.workflow.journal import recover_run
-    t_start = time.perf_counter()
-    engine = {"n_nodes": CLUSTER_NODES, "policy": "backfill"}
-    a = _cluster_drive("cluster a", "sizey", CLUSTER_A_SCALE,
-                       CLUSTER_ARRIVALS, engine)
-    _within_spread("cluster a", a["res"].wastage_gbh, REF_C_WASTAGE_GBH,
-                   REF_C_WASTAGE_RTOL, a["res"].n_failures, REF_C_FAILURES,
-                   REF_C_FAILURES_TOL, "wastage_gbh")
-    _check_sizey_launches("cluster peak", a["launches"], a["disp"])
-    _check_waves("cluster a", a, serial_predicts)
-    b = _cluster_drive("cluster b", "sizey_temporal", CLUSTER_SCALE,
-                       CLUSTER_ARRIVALS, dict(engine, **CLUSTER_FAILS))
-    _within_spread("cluster b", b["res"].temporal_wastage_gbh,
-                   REF_CT_TW_GBH, REF_CT_TW_RTOL, b["res"].n_failures,
-                   REF_CT_FAILURES, REF_CT_FAILURES_TOL,
-                   "temporal_wastage_gbh")
-    _check_sizey_launches("cluster temporal", b["launches"], b["disp"])
-    _check_waves("cluster b", b, serial_predicts)
-    if b["launches"].get("segment_dp", 0) != b["fits"] or not b["fits"]:
-        _fail(f"segment_dp launched {b['launches'].get('segment_dp', 0)} "
-              f"times on the engine, expected one per boundary fit "
-              f"({b['fits']})")
-    c = b["res"].cluster
-    print(f"[cluster b] segment_dp once per boundary fit ({b['fits']}); "
-          f"{c.n_resizes} RESIZE events in {c.n_resize_waves} waves, "
-          f"{c.n_grow_failures} grow failures")
-    if not c.n_resizes:
-        _fail("the temporal path ran no RESIZE on the engine")
-    # (c) durability on the card
-    build = REPO / "build"
-    build.mkdir(exist_ok=True)
-    shapes = [a["shapes"], b["shapes"]]
     with tempfile.TemporaryDirectory(dir=build) as d:
         path = os.path.join(d, "run.jsonl")
         plain = _cluster_drive("cluster c", "sizey", DUR_SCALE,
@@ -1442,7 +1427,6 @@ def cluster_phase(serial_predicts: int) -> dict:
         journaled = _cluster_drive("cluster c", "sizey", DUR_SCALE,
                                    DUR_ARRIVALS, DUR_ENGINE,
                                    journal_path=path)
-        shapes += [plain["shapes"], journaled["shapes"]]
         base = journaled["res"]
         if not _sim_equal(plain["res"], base):
             _fail("the journaled run differs from the unjournaled one")
@@ -1496,16 +1480,74 @@ def cluster_phase(serial_predicts: int) -> dict:
     print(f"[cluster c] {len(cuts)} kill points resumed bitwise on {DEV} "
           f"({base.cluster.n_node_failures} node crashes and "
           f"{base.n_failures} OOM kills in the run)")
-    # (d) card vs CPU on the engine
-    card_vs_cpu("sizey", ALLOC_RTOL, WASTAGE_RTOL, engine=PARITY_ENGINE,
-                label="cluster d")
-    card_vs_cpu("sizey_temporal", T_ALLOC_RTOL, T_TW_RTOL, T_APART,
-                engine=dict(PARITY_ENGINE, **T_PARITY_FAILS),
-                label="cluster d")
-    merged = {k: sum((s[k] for s in shapes), Counter()) for k in shapes[0]}
+
+
+def cluster_phase(serial_predicts: int) -> dict:
+    """Phase 13: the cluster engine on the card. (a) the peak path at
+    CLUSTER_A_SCALE and (b) the temporal path at CLUSTER_SCALE on
+    CLUSTER_NODES nodes, each held to twice the reference's spread; (c) a
+    journaled peak run at DUR_SCALE with node crashes, bitwise its
+    unjournaled twin, killed at DUR_KILLS seeded bytes of its journal
+    before its last model-sized wave, repaired and resumed, each resumed
+    run bitwise the uninterrupted one and deciding with the models again;
+    (d) both paths card vs CPU on the engine; (c) runs in a worker
+    process (``cluster_durability``) beside the others."""
+    from collections import Counter
+    t_start = time.perf_counter()
+    shapes = {"ensemble_mlp": Counter(), "knn_predict": Counter(),
+              "segment_dp": Counter()}
+    worker = _start_worker("cluster_durability")
+    try:
+        a, b = _cluster_ab(serial_predicts)
+        # (d) card vs CPU on the engine
+        card_vs_cpu("sizey", ALLOC_RTOL, WASTAGE_RTOL, engine=PARITY_ENGINE,
+                    label="cluster d")
+        card_vs_cpu("sizey_temporal", T_ALLOC_RTOL, T_TW_RTOL, T_APART,
+                    engine=dict(PARITY_ENGINE, **T_PARITY_FAILS),
+                    label="cluster d")
+        _join_worker("cluster_durability", worker, shapes, timeout=900,
+                     phase=13)
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+    for run in (a, b):
+        for k in shapes:
+            shapes[k] += run["shapes"][k]
     wall = time.perf_counter() - t_start
     print(f"[cluster] phase 13 wall {wall:.1f} s")
-    return {"a": a, "b": b, "shapes": merged, "wall_s": wall}
+    return {"a": a, "b": b, "shapes": shapes, "wall_s": wall}
+
+
+def _cluster_ab(serial_predicts: int) -> tuple:
+    """Phase 13 (a) and (b)."""
+    engine = {"n_nodes": CLUSTER_NODES, "policy": "backfill"}
+    a = _cluster_drive("cluster a", "sizey", CLUSTER_A_SCALE,
+                       CLUSTER_ARRIVALS, engine)
+    _within_spread("cluster a", a["res"].wastage_gbh, REF_C_WASTAGE_GBH,
+                   REF_C_WASTAGE_RTOL, a["res"].n_failures, REF_C_FAILURES,
+                   REF_C_FAILURES_TOL, "wastage_gbh")
+    _check_sizey_launches("cluster peak", a["launches"], a["disp"])
+    _check_waves("cluster a", a, serial_predicts)
+    b = _cluster_drive("cluster b", "sizey_temporal", CLUSTER_SCALE,
+                       CLUSTER_ARRIVALS, dict(engine, **CLUSTER_FAILS))
+    _within_spread("cluster b", b["res"].temporal_wastage_gbh,
+                   REF_CT_TW_GBH, REF_CT_TW_RTOL, b["res"].n_failures,
+                   REF_CT_FAILURES, REF_CT_FAILURES_TOL,
+                   "temporal_wastage_gbh")
+    _check_sizey_launches("cluster temporal", b["launches"], b["disp"])
+    _check_waves("cluster b", b, serial_predicts)
+    if b["launches"].get("segment_dp", 0) != b["fits"] or not b["fits"]:
+        _fail(f"segment_dp launched {b['launches'].get('segment_dp', 0)} "
+              f"times on the engine, expected one per boundary fit "
+              f"({b['fits']})")
+    c = b["res"].cluster
+    print(f"[cluster b] segment_dp once per boundary fit ({b['fits']}); "
+          f"{c.n_resizes} RESIZE events in {c.n_resize_waves} waves, "
+          f"{c.n_grow_failures} grow failures")
+    if not c.n_resizes:
+        _fail("the temporal path ran no RESIZE on the engine")
+    return a, b
 
 
 # ----------------------------------------------------------- phase 14
@@ -1580,11 +1622,17 @@ RISK_CFG = {}
 RISK_WORKERS = ("risk_durability:risk", "risk_durability:risk_auto",
                 "service_phase", "risk_card_vs_cpu:sizey_risk",
                 "risk_card_vs_cpu:sizey_risk_temporal")
+# phase 14 itself runs in a worker beside phases 5, 6, 13 and 18 (after
+# them, the smoke took 1,275.8 s of its 1,200 s limit on one machine);
+# the longest it may still run once they are done
+RISK_TIMEOUT = 900
 WORKER_SETTINGS = ("DEV", "CLUSTER_NODES", "CLUSTER_ARRIVALS",
                    "CLUSTER_FAILS", "RISK_CFG", "RISK_CHAOS_TRACE",
                    "RISK_CHAOS_ENGINE", "RISK_CHAOS_CFG", "RISK_KILLS",
                    "RISK_SNAPSHOT", "R_E_INPUTS", "SERVICE_SCALE",
-                   "SERVICE_TENANTS", "SERVICE_COMPRESS")
+                   "SERVICE_TENANTS", "SERVICE_COMPRESS", "PAPER_SCALE",
+                   "PAPER_TTFS", "DUR_SCALE", "DUR_ARRIVALS", "DUR_ENGINE",
+                   "DUR_SNAPSHOT", "DUR_KILLS", "DUR_SEED")
 
 
 def _risk_rows(db_or_path) -> tuple[list, list]:
@@ -1968,19 +2016,30 @@ def risk_card_vs_cpu(name: str) -> None:
 
 
 def _start_worker(task: str) -> subprocess.Popen:
-    """Run one of phase 14's checks (c)-(e) in a process of its own, with
-    this process's settings of it."""
+    """Run a check (phase 14 itself or one of its checks (c)-(e), phase
+    13 (c), a group of phase 18's jobs) in a process of its own, with this
+    process's settings of it; the process is stopped when this one exits,
+    whatever ends it."""
+    import atexit
     settings = {k: globals()[k] for k in WORKER_SETTINGS}
-    return subprocess.Popen(
+    proc = subprocess.Popen(
         [sys.executable, str(REPO / "chip_smoke.py"), "--worker", task,
          json.dumps(settings)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
+    atexit.register(_stop_worker, proc)
+    return proc
+
+
+def _stop_worker(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
 
 
 def _worker_main(task: str, settings: str) -> int:
-    """A worker of phase 14: run ``task`` (``check:argument``) with the
-    parent's settings, then print the kernel shapes it launched as the
-    last line (``SHAPES`` and JSON)."""
+    """A worker: run ``task`` (``check:argument``) with the parent's
+    settings, then print the kernel shapes it launched as the last line
+    (``SHAPES`` and JSON; for phase 14, those of its own workers too)."""
     import torch
     globals().update(json.loads(settings))
     torch.set_num_threads(1)       # one core each: the host runs several
@@ -1989,7 +2048,13 @@ def _worker_main(task: str, settings: str) -> int:
     check, _, arg = task.partition(":")
     shapes, restore = _recording_shapes()
     try:
-        if check == "risk_durability":
+        if check == "paper":
+            paper_worker(int(arg))
+        elif check == "risk_phase":
+            shapes = risk_phase(int(arg))["shapes"]
+        elif check == "cluster_durability":
+            cluster_durability(build)
+        elif check == "risk_durability":
             risk_durability(build, arg)
         elif check == "service_phase":
             service_phase(build)
@@ -2003,9 +2068,11 @@ def _worker_main(task: str, settings: str) -> int:
 
 
 def _join_worker(task: str, proc: subprocess.Popen, shapes: dict,
-                 timeout: float) -> None:
+                 timeout: float, records: dict | None = None,
+                 phase: int = 14) -> None:
     """Wait for a worker, print its lines, add the kernel shapes it
-    launched to ``shapes`` and fail if it failed."""
+    launched to ``shapes`` (and the job records of a phase 18 worker to
+    ``records``) and fail if it failed."""
     out, _ = proc.communicate(timeout=timeout)
     lines = out.splitlines()
     for line in lines:
@@ -2013,10 +2080,12 @@ def _join_worker(task: str, proc: subprocess.Popen, shapes: dict,
             for k, pairs in json.loads(line[7:]).items():
                 for sh, n in pairs:
                     shapes[k][tuple(sh)] += n
+        elif line.startswith("PAPER ") and records is not None:
+            records.update(json.loads(line[6:]))
         else:
             print(line)
     if proc.returncode != 0:
-        _fail(f"phase 14 {task} failed (exit {proc.returncode})")
+        _fail(f"phase {phase} {task} failed (exit {proc.returncode})")
 
 
 def risk_phase(serial_predicts: int) -> dict:
@@ -2070,6 +2139,108 @@ def risk_phase(serial_predicts: int) -> dict:
     wall = time.perf_counter() - t_start
     print(f"[risk] phase 14 wall {wall:.1f} s")
     return {"a": a, "b": b, "shapes": shapes, "wall_s": wall}
+
+
+# ----------------------------------------------------------- phase 18
+# The paper's evaluation through the port at the reference's --smoke
+# settings, held to the reference's figures at that scale and ttf
+PAPER_SCALE = 0.05
+PAPER_TTFS = (1.0,)
+PAPER_REFERENCE = REPO / "tools" / "port_paper_reference.json"
+PAPER_TIMEOUT = 900
+
+
+def paper_groups() -> list:
+    """The jobs of phase 18 in worker groups: one a workflow, and fig12's
+    mag run at 0.3 (~1,500 tasks, the longest) on its own."""
+    from repro_torch.workflow import paper
+    jobs = paper.jobs(PAPER_SCALE, tuple(PAPER_TTFS))
+    big = [j for j in jobs if j[1] != PAPER_SCALE]
+    wfs = list(dict.fromkeys(j[0] for j in jobs))
+    return [[j for j in jobs if j[0] == wf and j not in big]
+            for wf in wfs] + [big]
+
+
+def paper_worker(group: int) -> None:
+    """A worker of phase 18: replay one group of jobs on the card, then
+    print their records (``PAPER`` and JSON)."""
+    from repro_torch.workflow import paper
+    records = {paper.job_key(*job): paper.run_job(job, DEV)
+               for job in paper_groups()[group]}
+    print("PAPER " + json.dumps(records))
+
+
+def paper_start() -> dict:
+    """Start phase 18's workers; they run beside phases 3-6 and 13."""
+    return {"t0": time.perf_counter(),
+            "procs": {f"paper:{i}": _start_worker(f"paper:{i}")
+                      for i in range(len(paper_groups()))}}
+
+
+def paper_phase(started: dict) -> dict:
+    """Phase 18: join the workers, build the figures and hold them and
+    each job's record to the reference file's at PAPER_SCALE; K1 and K2
+    once per dispatch in every Sizey run. Returns the kernel shapes the
+    phase launched."""
+    from collections import Counter
+
+    from repro_torch.workflow import paper
+    shapes = {"ensemble_mlp": Counter(), "knn_predict": Counter(),
+              "segment_dp": Counter()}
+    records: dict = {}
+    t_wait = time.perf_counter()
+    try:
+        for task, proc in started["procs"].items():
+            _join_worker(task, proc, shapes, PAPER_TIMEOUT, records, 18)
+    finally:
+        for proc in started["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    waited = time.perf_counter() - t_wait
+
+    def tagged(*a):
+        print("[paper]", *a)
+
+    tool = _port_paper()
+    out = tool.figures(records, PAPER_SCALE, tuple(PAPER_TTFS))
+    tool.print_figures(out, print=tagged)
+    ref = json.loads(PAPER_REFERENCE.read_text())["scales"][str(PAPER_SCALE)]
+    breaches = tool.compare(out, ref, print=tagged)
+    job_breaches = tool.compare_jobs(records, ref)
+    print(f"[paper] each job's {', '.join(tool.JOB_FIGURES)} held to the "
+          f"reference's replay: {len(records)} jobs, "
+          f"{len(job_breaches)} outside their limits {job_breaches}")
+    sizey = {k: r for k, r in records.items()
+             if k.split("/")[1] in paper.SIZEY}
+    for key, rec in sizey.items():
+        _check_sizey_launches(f"paper {key}", rec["launches"],
+                              rec["dispatches"])
+    print(f"[paper] K1 and K2 once per predictor dispatch in all "
+          f"{len(sizey)} Sizey runs "
+          f"({sum(r['n_tasks'] for r in sizey.values())} tasks)")
+    f9 = out["fig9"]
+    print(f"[paper] fig9 median train ms: full {f9['full_ms']:.3f}, "
+          f"incremental {f9['incremental_ms']:.3f}, reduction "
+          f"{f9['reduction_pct']:.2f} % (paper: 1090 -> 17.5 ms, 98.39 %); "
+          f"{gpu_line()}")
+    print(f"[paper] phase 18 wall {time.perf_counter() - started['t0']:.1f} "
+          f"s ({len(records)} jobs in {len(started['procs'])} workers; "
+          f"{waited:.1f} s waited for them after phase 13)")
+    if breaches or job_breaches:
+        _fail(f"phase 18: {len(breaches) + len(job_breaches)} figures "
+              f"outside the reference's limits: {breaches + job_breaches}")
+    return shapes
+
+
+def _port_paper():
+    """``tools/port_paper.py``: the figures, their printing and limits."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "port_paper", REPO / "tools" / "port_paper.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # ----------------------------------------------------------- phases 8-12
@@ -3955,6 +4126,8 @@ def dryrun_phase(measured: dict) -> dict:
 
 
 def main() -> int:
+    from collections import Counter
+
     import torch
     if sys.argv[1:2] == ["--worker"]:
         return _worker_main(*sys.argv[2:4])
@@ -3982,10 +4155,15 @@ def main() -> int:
         print(json.dumps({"kernels": rows}))
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
+    # phase 18 runs in worker processes beside phases 3-6 and 13
+    paper_started = paper_start()
     errors = check_kernels()
     errors["segment_dp"] = max(check_segment_dp(),
                                check_segment_dp(K3_EDGES))
     main = main_path()
+    # phase 14 runs in a worker process (with its own (c)-(e)) beside 5, 6,
+    # 13 and 18 from here, once phase 4's dispatch count is known
+    risk_proc = _start_worker(f"risk_phase:{main['disp']['predict_pool']}")
     temporal = temporal_path()
     ks_plus = ks_plus_path()
     # every shape the two paths launched is held against the plain version
@@ -4005,6 +4183,32 @@ def main() -> int:
                                    check_segment_dp(k3_seen))
     card_vs_cpu("sizey", ALLOC_RTOL, WASTAGE_RTOL)
     card_vs_cpu("sizey_temporal", T_ALLOC_RTOL, T_TW_RTOL, T_APART)
+    # phase 13: the cluster engine; every K1 and K2 shape it launched that
+    # the lists lack is held to its plain version and timed if not yet,
+    # and every K3 shape checked
+    cluster = cluster_phase(main["disp"]["predict_pool"])
+    c_shapes = cluster["shapes"]
+    # phase 18 (the paper's grid, in workers since the build) is joined
+    # here, before any kernel is timed; every K1 and K2 shape it launched
+    # that phases 3-5 did not check is held to its plain version as in 3
+    p_shapes = paper_phase(paper_started)
+    k1_paper = sorted(s for s in p_shapes["ensemble_mlp"]
+                      if s not in K1_SHAPES and s not in seen["ensemble_mlp"])
+    k2_paper = sorted(s for s in p_shapes["knn_predict"]
+                      if s not in K2_SHAPES and s not in seen["knn_predict"])
+    print(f"[paper] shapes launched in phase 18 that phases 3-5 did not "
+          f"check, checked now: K1 {k1_paper}, K2 {k2_paper}")
+    if k1_paper or k2_paper:
+        more = check_kernels(k1_paper, k2_paper)
+        errors = {k: max(v, more.get(k, 0.0)) for k, v in errors.items()}
+    # phase 14 (the risk-priced path, the service and the chaos cell) is
+    # joined here too, before any kernel is timed
+    r_shapes = {k: Counter() for k in p_shapes}
+    t_wait = time.perf_counter()
+    _join_worker("risk_phase", risk_proc, r_shapes, RISK_TIMEOUT)
+    print(f"[risk] {time.perf_counter() - t_wait:.1f} s waited for phase 14 "
+          f"after phase 18")
+    # phase 7
     # K1 and K2 at every shape the replays launched; their JSON rows at the
     # shape the peak path launched most; K3's is the launch-weighted mean
     # over the temporal path's shapes
@@ -4034,11 +4238,6 @@ def main() -> int:
           f"(M,T,d,h)={k1_row} (the fused predict), knn_predict "
           f"(Q,T,d)={k2_row} (peak path); segment_dp at the temporal path's "
           f"launch-weighted mean")
-    # phase 13: the cluster engine; every K1 and K2 shape it launched that
-    # the lists lack is held to its plain version and timed if not yet,
-    # and every K3 shape checked
-    cluster = cluster_phase(main["disp"]["predict_pool"])
-    c_shapes = cluster["shapes"]
     k1_new = sorted(s for s in c_shapes["ensemble_mlp"]
                     if s not in K1_SHAPES and s not in seen["ensemble_mlp"])
     k2_new = sorted(s for s in c_shapes["knn_predict"]
@@ -4057,11 +4256,8 @@ def main() -> int:
     for label in ("a", "b"):
         replay_totals(f"cluster {label}", cluster[label]["shapes"], k1_times,
                       k2_times)
-    # phase 14: the risk-priced path, the service and the chaos cell; every
-    # K1, K2 and K3 shape it launched that no earlier phase checked is held
-    # to its plain version as in phase 3
-    risk = risk_phase(main["disp"]["predict_pool"])
-    r_shapes = risk["shapes"]
+    # phase 14 (joined above): every K1, K2 and K3 shape it launched that
+    # no earlier phase checked is held to its plain version as in phase 3
     k1_more = sorted(s for s in r_shapes["ensemble_mlp"]
                      if s not in K1_SHAPES and s not in seen["ensemble_mlp"]
                      and s not in c_shapes["ensemble_mlp"])

@@ -31,6 +31,17 @@ risk-priced paths (with ``--failure-strategy auto``, the per-task crash
 handling the risk signals pick); each replay then also prints its risk
 rows (count, tau range, collapsed plans) and the strategies it chose.
 
+``--ttf`` sets the method's and the simulator's time-to-failure
+fraction, and ``--config key=value`` (repeatable) overrides a field of the
+Sizey methods' ``SizeyConfig`` (``incremental=True``, ``strategy=argmax``,
+``alpha=0.25``): the configurations of the paper's fig9-fig11. Every
+replay also prints its predictor's ``model_select_counts`` (fig11) and,
+with ``--log-pool TASK_TYPE``, fig12's early and late median relative
+error of that pool's raw aggregate prediction. ``--json PATH`` writes the
+unmoved replay's and each moved replay's figures
+(``repro_torch.workflow.paper.summarize``) for
+``tools/port_paper_reference.py``.
+
 ``--cluster N`` replays on the event-driven cluster engine instead of the
 serial simulator (``simulate_cluster`` on N homogeneous nodes at the
 trace's machine cap, ``--policy``, with root arrivals at
@@ -42,7 +53,8 @@ printed too.
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/port_tolerance.py \
         [--workflow methylseq] [--scale 0.05] [--method sizey] \
         [--failure-strategy auto] [--risk-min-samples 2 --risk-window 64] \
-        [--seed 0] [--machine-cap 64] \
+        [--seed 0] [--machine-cap 64] [--ttf 0.5] \
+        [--config incremental=True] [--log-pool prokka] [--json OUT] \
         [--cluster 8 [--policy backfill] [--arrival-rate 30] \
         [--fail-rate 0.01 --fail-seed 7]] [--samples 4] \
         [--apart POOL] [--port]
@@ -63,7 +75,9 @@ import numpy as np
 def replay(workflow: str, scale: float, method_name: str = "sizey",
            port: bool = False, engine: dict | None = None,
            failure_strategy: str | None = None,
-           trace_kw: dict | None = None, risk_kw: dict | None = None):
+           trace_kw: dict | None = None, risk_kw: dict | None = None,
+           ttf: float = 1.0, config: dict | None = None,
+           log_pool: str = "prokka"):
     """One replay: its result, its decisions (one per segment on the
     temporal path, as ``(task_type, source, allocation_gb, offset_idx,
     best model)`` tuples), each decision's boundaries and the predict
@@ -71,7 +85,10 @@ def replay(workflow: str, scale: float, method_name: str = "sizey",
     (``n_nodes``, ``policy``, ``arrival_rate_per_h``,
     ``fail_rate_per_node_h``, ``fail_seed``); None replays serially.
     ``trace_kw`` goes to ``generate_workflow`` (``seed``,
-    ``machine_cap_gb``), ``risk_kw`` to a risk method's ``RiskConfig``.
+    ``machine_cap_gb``), ``risk_kw`` to a risk method's ``RiskConfig``,
+    ``config`` to the method's ``SizeyConfig``; ``ttf`` is the method's and
+    the simulator's. The paper figures of the replay ride the result
+    (``res.paper``), fig12's of the ``log_pool`` task type.
     A risk-priced method's risk rows and chosen
     strategies are printed, and its risk rows ride the result
     (``res.risk_rows``)."""
@@ -90,13 +107,15 @@ def replay(workflow: str, scale: float, method_name: str = "sizey",
         from repro_torch.workflow import (generate_workflow, simulate,
                                           simulate_cluster)
         torch.set_num_threads(1)   # thousands of tiny ops: one thread wins
-        method = make_method(method_name, device="cpu", **strat)
+        method = make_method(method_name, ttf=ttf, device="cpu", **strat,
+                             **(config or {}))
     else:
         from repro.baselines import make_method
         from repro.core.predictor import DISPATCH_COUNTS
         from repro.workflow import (generate_workflow, simulate,
                                     simulate_cluster)
-        method = make_method(method_name, **strat)
+        method = make_method(method_name, ttf=ttf, **strat,
+                             **(config or {}))
     strategies = _count_strategies(method)
     decisions, bounds = [], []
 
@@ -129,16 +148,19 @@ def replay(workflow: str, scale: float, method_name: str = "sizey",
     before = DISPATCH_COUNTS["predict_pool"]
     if engine is None:
         res = simulate(generate_workflow(workflow, scale=scale,
-                                         **(trace_kw or {})), method)
+                                         **(trace_kw or {})), method,
+                       ttf=ttf)
     else:
         kw = dict(engine)
         trace = generate_workflow(
             workflow, scale=scale,
             arrival_rate_per_h=kw.pop("arrival_rate_per_h", None),
             **(trace_kw or {}))
-        res = simulate_cluster(trace, method,
+        res = simulate_cluster(trace, method, ttf=ttf,
                                node_cap_gb=trace.machine_cap_gb, **kw)
     res.risk_rows = method.predictor.db.aux.get("risk", [])
+    from repro_torch.workflow.paper import summarize
+    res.paper = summarize(res, method, log_pool)
     if method.risk is not None:
         print(f"  {'port' if port else 'reference'} {method_name}: "
               f"{risk_summary(method)}; strategies {dict(strategies)}",
@@ -212,7 +234,9 @@ def reference_fit_departures(workflow: str, scale: float,
                              method_name: str = "sizey_temporal",
                              failure_strategy: str | None = None,
                              trace_kw: dict | None = None,
-                             risk_kw: dict | None = None):
+                             risk_kw: dict | None = None,
+                             ttf: float = 1.0, config: dict | None = None,
+                             log_pool: str = "prokka"):
     """Replay the reference's temporal path recording every boundary fit;
     return the number of fits and of those where its jitted fit departs
     from its numpy oracle."""
@@ -230,7 +254,7 @@ def reference_fit_departures(workflow: str, scale: float,
     try:
         replay(workflow, scale, method_name, engine=engine,
                failure_strategy=failure_strategy, trace_kw=trace_kw,
-               risk_kw=risk_kw)
+               risk_kw=risk_kw, ttf=ttf, config=config, log_pool=log_pool)
     finally:
         tp.fit_boundaries = fit
     departs = sum(not np.array_equal(fit_cuts(P, k), fit_cuts_ref(P, k))
@@ -239,7 +263,8 @@ def reference_fit_departures(workflow: str, scale: float,
 
 
 def _moved_replay(sample, workflow, scale, method_name, engine,
-                  failure_strategy=None, trace_kw=None, risk_kw=None):
+                  failure_strategy=None, trace_kw=None, risk_kw=None,
+                  ttf=1.0, config=None, log_pool="prokka"):
     """One replay of the reference with the MLP init moved (``sample``)."""
     import repro.core.models.mlp as mlp
     import repro.core.predictor as predictor
@@ -252,7 +277,8 @@ def _moved_replay(sample, workflow, scale, method_name, engine,
         res, d1, b1, _n = replay(workflow, scale, method_name,
                                  engine=engine,
                                  failure_strategy=failure_strategy,
-                                 trace_kw=trace_kw, risk_kw=risk_kw)
+                                 trace_kw=trace_kw, risk_kw=risk_kw,
+                                 ttf=ttf, config=config, log_pool=log_pool)
     finally:
         mlp._init_params = init
     return _summary(res), d1, b1
@@ -262,7 +288,35 @@ def _summary(res):
     """What the comparison reads of a SimResult."""
     return {"wastage_gbh": res.wastage_gbh,
             "temporal_wastage_gbh": res.temporal_wastage_gbh,
-            "n_failures": res.n_failures, "risk_rows": res.risk_rows}
+            "n_failures": res.n_failures, "risk_rows": res.risk_rows,
+            "paper": res.paper}
+
+
+def _config(pairs) -> dict:
+    """``key=value`` overrides of SizeyConfig, values read as Python
+    literals where they parse (``True``, ``0.25``) and as strings else."""
+    import ast
+    out = {}
+    for pair in pairs:
+        key, _, value = pair.partition("=")
+        try:
+            out[key] = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            out[key] = value
+    return out
+
+
+def paper_line(label: str, fig: dict, log_pool: str | None) -> str:
+    """A replay's fig11 counts and, for ``log_pool``, fig12's errors."""
+    line = (f"{label}: model_select_counts "
+            f"{fig.get('model_select_counts')} ({fig.get('models')})")
+    if log_pool is not None:
+        f12 = fig.get("fig12")
+        line += ("; no log for " + log_pool if f12 is None else
+                 f"; {log_pool} log n={f12['n']} early median rel err "
+                 f"{f12['early_median_rel_err']!r}, late "
+                 f"{f12['late_median_rel_err']!r}")
+    return line
 
 
 def main() -> None:
@@ -305,6 +359,18 @@ def main() -> None:
     ap.add_argument("--fail-rate", type=float, default=0.0,
                     help="node crashes a node-hour (cluster only)")
     ap.add_argument("--fail-seed", type=int, default=0)
+    ap.add_argument("--ttf", type=float, default=1.0,
+                    help="the method's and the simulator's time-to-failure "
+                         "fraction")
+    ap.add_argument("--config", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="a SizeyConfig override (incremental=True, "
+                         "strategy=argmax, alpha=0.25); repeatable")
+    ap.add_argument("--log-pool", default=None, metavar="TASK_TYPE",
+                    help="print fig12's early and late median errors of "
+                         "this pool's log")
+    ap.add_argument("--json", default=None, metavar="PATH",
+                    help="write each replay's paper figures here")
     args = ap.parse_args()
     engine = None
     if args.cluster:
@@ -320,13 +386,16 @@ def main() -> None:
     rkw = {k: v for k, v in (("min_samples", args.risk_min_samples),
                              ("window", args.risk_window)) if v is not None}
     temporal = args.method in ("sizey_temporal", "sizey_risk_temporal")
+    pkw = {"ttf": args.ttf, "config": _config(args.config),
+           "log_pool": args.log_pool or "prokka"}
     base, d0, b0, n_predict = replay(args.workflow, args.scale, args.method,
                                      engine=engine, failure_strategy=fs,
-                                     trace_kw=tkw, risk_kw=rkw)
+                                     trace_kw=tkw, risk_kw=rkw, **pkw)
     where = "serial" if engine is None else (
         f"cluster {engine}, waves={base.cluster.n_waves}, "
         f"makespan_h={base.cluster.makespan_h!r}")
     print(f"reference {args.method} {args.workflow} scale={args.scale} "
+          f"ttf={args.ttf} config={pkw['config']} "
           f"({where}): {len(base.outcomes)} tasks, "
           f"wastage_gbh={base.wastage_gbh!r}, "
           f"temporal_wastage_gbh={base.temporal_wastage_gbh!r}, "
@@ -336,17 +405,23 @@ def main() -> None:
     if temporal:
         n, departs = reference_fit_departures(args.workflow, args.scale,
                                               engine, args.method, fs, tkw,
-                                              rkw)
+                                              rkw, **pkw)
         print(f"reference boundary fits: {n}; its jitted fit departs from "
               f"its numpy oracle on {departs}", flush=True)
     base = _summary(base)
+    print(paper_line("reference", base["paper"], args.log_pool), flush=True)
+    papers = [base["paper"]]
     worst_alloc = worst_apart = worst_waste = 0.0
     # the temporal path is judged on the time-integrated wastage
     metric = "temporal_wastage_gbh" if temporal else "wastage_gbh"
     wastes, fails, moved = [base[metric]], [base["n_failures"]], []
     for sample in range(args.samples):
         res, d1, b1 = _moved_replay(sample, args.workflow, args.scale,
-                                    args.method, engine, fs, tkw, rkw)
+                                    args.method, engine, fs, tkw, rkw,
+                                    **pkw)
+        papers.append(res["paper"])
+        print(paper_line(move_label(sample), res["paper"], args.log_pool),
+              flush=True)
         alloc, apart, waste, ints = compare(move_label(sample), base, d0,
                                             b0, res, d1, b1, metric,
                                             args.apart)
@@ -365,13 +440,24 @@ def main() -> None:
               f"{min(wastes)!r}..{max(wastes)!r}, n_failures "
               f"{min(fails)}..{max(fails)}, integer choices moved "
               f"{min(moved)}..{max(moved)}")
+    if args.json:
+        import json
+        import pathlib
+        path = pathlib.Path(args.json)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps({
+            "workflow": args.workflow, "scale": args.scale,
+            "method": args.method, "ttf": args.ttf, "config": pkw["config"],
+            "samples": args.samples, "base": papers[0],
+            "moves": papers[1:]}))
     if args.port:
         res, d1, b1, _n = replay(args.workflow, args.scale, args.method,
                                  port=True, engine=engine,
                                  failure_strategy=fs, trace_kw=tkw,
-                                 risk_kw=rkw)
+                                 risk_kw=rkw, **pkw)
         compare("port on the CPU", base, d0, b0, _summary(res), d1, b1,
                 metric, args.apart)
+        print(paper_line("port on the CPU", res.paper, args.log_pool))
 
 
 def compare(label: str, base, d0, b0, res, d1, b1, metric: str,
