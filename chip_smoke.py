@@ -107,18 +107,27 @@ Phases (any failure exits non-zero, without the final result line):
      step wall and tokens/s.
  16. the distributed layer on a 1-device nccl mesh: the sharded train
      step bitwise the unsharded one, compressed_psum over the group
-     bitwise the one-device round trip, the elastic controller unchanged.
+     bitwise the one-device round trip, the elastic controller unchanged;
+     (b) two processes on the card, a (1, 2) gloo mesh: the reduced
+     granite-3-2b and mamba2-780m steps tensor-parallel over "model"
+     within the CPU tests' limits of the one-device step, K4's and K6's
+     launches per rank the one-device step's.
  17. (last) the dry run (``repro_torch.launch.dryrun``) in a process of
      its own: (a) phase 15's granite-3-2b and mamba2-780m steps traced on
      fake CUDA tensors over a (1, 1) fake mesh, through K4-K6's fake
      kernels, the predicted peak per card within 25 % of phase 15's
      ``max_memory_allocated`` and the traced FLOPs over the measured step
-     wall printed as a share of the bf16 tensor rate; (b) the reference
-     test's four cells (granite-3-2b, train_4k and decode_32k) on 256 and
-     512 fake ranks, every row ok; beside them (c) methylseq 0.05 serially
-     through ``SizeyPredictor(fused=False)`` (the per-model loop) and the
-     fused path on the card: integer choices equal, allocations within
-     phase 6's tolerance, K1 and K2 once per model call of the loop.
+     wall printed as a share of the bf16 tensor rate; (b) in processes
+     beside it, every train cell (each architecture at train_4k) and the
+     reference test's decode cells (granite-3-2b, decode_32k) on 256 and
+     512 fake ranks, every row ok, each train cell's peak per card, FLOPs
+     and collective bytes printed beside those before the step became
+     tensor-parallel (``results/dryrun_train_zero3.jsonl``), grok-1-314b's
+     peak on 256 ranks more than 10 times lower; beside them (c) methylseq
+     0.05 serially through ``SizeyPredictor(fused=False)`` (the per-model
+     loop) and the fused path on the card: integer choices equal,
+     allocations within phase 6's tolerance, K1 and K2 once per model call
+     of the loop.
  18. (from the build to after 13, before 7) the paper's evaluation
      through the port (``repro_torch.workflow.paper``, the figures built
      by ``tools/port_paper.py``) at the reference's ``--smoke`` settings,
@@ -142,6 +151,7 @@ nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -3205,21 +3215,33 @@ def _param_probe(params):
     return torch.cat(parts)
 
 
-def _check_train_launches(label, watch, n_layers, remat_factor,
-                          n_ssm: int = 0):
+def _launches_want(n_layers, remat_factor, n_ssm, steps) -> dict:
     """K4's training forward once per attention layer per step
     (remat_factor times: 2 under remat "block"), each backward kernel
     once; the serving forward never. K6's forward (the same launch with a
     gradient or without) remat_factor times per Mamba2 layer per step, its
     backward once."""
-    steps = watch.steps
-    got = {n: watch.launches.get(n, 0) for n in TRAIN_KERNELS}
-    want = {"flash_attention": 0,
+    return {"flash_attention": 0,
             "flash_attention_lse": remat_factor * n_layers * steps,
             "flash_attention_bwd_dq": n_layers * steps,
             "flash_attention_bwd_dkdv": n_layers * steps,
             "ssd_scan": remat_factor * n_ssm * steps,
             "ssd_scan_bwd": n_ssm * steps}
+
+
+def _train_launches(cfg) -> dict:
+    """``_launches_want`` of one loss-and-gradient call of ``cfg``."""
+    return _launches_want(cfg.n_attn_layers(),
+                          2 if cfg.remat in ("block", "dots") else 1,
+                          cfg.n_ssm_layers(), 1)
+
+
+def _check_train_launches(label, watch, n_layers, remat_factor,
+                          n_ssm: int = 0):
+    """The launches of ``watch``'s steps: ``_launches_want``."""
+    steps = watch.steps
+    got = {n: watch.launches.get(n, 0) for n in TRAIN_KERNELS}
+    want = _launches_want(n_layers, remat_factor, n_ssm, steps)
     print(f"[train {label}] {steps} steps x {n_layers} attention layers "
           f"and {n_ssm} Mamba2 layers: launches {got}")
     if got != want or not steps:
@@ -3824,15 +3846,60 @@ def train_phase() -> tuple[list, dict]:
 # axis_rules (ZeRO-3 over DTensors, the loss and gradients through
 # local_map, so K4 and its backward run on the local tensors) against the
 # unsharded step; compressed_psum over the group against the one-device
-# round trip; ElasticController over the one-device fleet. No multi-GPU
-# number is measured here.
+# round trip; ElasticController over the one-device fleet. (b) tensor
+# parallelism on the one card: two processes, a (1, 2) ("data", "model")
+# mesh over a gloo group (NCCL refuses two ranks on one device; the
+# installed torch's gloo carries all-reduce, reduce-scatter and all-to-all
+# of CUDA tensors but crashed in all-gather into a tensor, and a (1, 2)
+# mesh gathers nothing), each rank running granite-3-2b's and
+# mamba2-780m's train steps tensor-parallel over "model" (K4 and K6 on the
+# rank's heads) against the one-device step on the card from the same
+# parameters and tokens: first reduced, in fp32, from the inputs of
+# tests/test_torch_tp.py and at its limits (torch_dist_worker.tp_limits
+# and adamw_moves: gradients 1e-6 and parameters 0.05 lr, or twice the
+# JAX reference's own spread where larger, for the parameters only near
+# AdamW's eps); then at full width and their configured bf16 compute and
+# remat, cut in depth to DIST_TP_LAYERS, batch 8 x 256 as phase 15 (b).
+# Limits there, phase 15's bf16 policy: the loss, the
+# gradient norm and every gradient within DIST_TP_TOL of the largest
+# (K4_BWD_TOL's bf16 limit: the gradients are rounded to bf16, and a row-
+# parallel product rounds each rank's partial sum where one device rounds
+# the whole); the parameters after AdamW within 0.05 lr where both
+# steps' gradients exceed AdamW's eps x 1e3 and agree in sign (the first
+# update g / (|g| + eps) is then the sign within 1e-3, so a rank that
+# updates the wrong shard or the wrong way shows) or are both 0 (the
+# embedding's rows of tokens not in the batch); the others, whose update
+# a gradient's bf16 rounding may flip, counted and reported. Launches
+# per rank, both runs: phase 15's count (_train_launches) for the loss
+# and gradients, equal to the one-device call's. No multi-GPU number is
+# measured here.
 DIST_BATCH, DIST_SEQ = 4, 64
+DIST_TP_ARCHS = ("granite-3-2b", "mamba2-780m")
+DIST_TP_LAYERS, DIST_TP_BATCH, DIST_TP_SEQ, DIST_TP_LR = 2, 8, 256, 3e-4
+DIST_TP_TOL = K4_BWD_TOL["bfloat16"]
+ADAMW_NEAR_EPS = 1e3 * 1e-8
+DIST_TP_TIMEOUT = 300
+# (b) then holds K4 (B, S, H, Hkv, D) and K6 (B, H, S, P, N, Q), forward and
+# backward, to their plain versions at the per-rank head counts that the
+# production meshes' 16 "model" ranks give the train cells
+# (distributed.tp.head_split): 2 query heads on 1 KV head (granite-3-2b at
+# D 64; minitron-8b, phi3.5-moe, yi-9b at 128), 3 on 1 (internvl2-26b,
+# grok-1-314b), 2 and 3 on as many (qwen1.5-32b), 2 on 2 (zamba2-7b at
+# 112, musicgen-large at 64); Mamba2's 3 (mamba2-780m) and 7 (zamba2-7b)
+# heads, at their P and N; and at the shapes of (b)'s own steps on each of
+# its 2 ranks: granite-3-2b's 16 query heads on 4 KV heads, mamba2-780m's
+# 24 heads
+TP_K4_SHAPES = [(1, 512, 2, 1, 64), (1, 512, 2, 1, 128), (1, 512, 3, 1, 128),
+                (1, 512, 2, 2, 128), (1, 512, 3, 3, 128), (1, 512, 2, 2, 112),
+                (1, 512, 2, 2, 64), (DIST_TP_BATCH, DIST_TP_SEQ, 16, 4, 64)]
+TP_K6_SHAPES = [(1, 3, 512, 64, 128, 128), (1, 7, 512, 64, 64, 128),
+                (DIST_TP_BATCH, 24, DIST_TP_SEQ, 64, 128, 128)]
 
 
-def distributed_phase() -> None:
+def distributed_phase() -> dict:
     """Phase 16: the sharded step, compressed_psum and the elastic
     controller on a 1-device nccl mesh, each bitwise its one-device
-    counterpart."""
+    counterpart; then (b) (``tp_phase``, whose errors it returns)."""
     import shutil
     import numpy as np
     import torch
@@ -3927,26 +3994,238 @@ def distributed_phase() -> None:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    err = tp_phase()
     print(f"[dist] phase 16 wall {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def tp_phase() -> dict:
+    """Phase 16 (b): the two ranks of the (1, 2) gloo mesh, each a process
+    on the card, then K4 and K6 at the per-rank head counts of the
+    production meshes; fails if any does. Returns the largest absolute
+    difference per kernel row."""
+    import atexit
+    import shutil
+    t0 = time.perf_counter()
+    tmp = REPO / "build" / "phase16b"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--tp-rank", str(r),
+         str(tmp / "store")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    for proc in procs:
+        atexit.register(_stop_worker, proc)
+    outs = []
+    for proc in procs:
+        try:
+            outs.append(proc.communicate(timeout=DIST_TP_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                _stop_worker(p)
+            _fail("phase 16 (b): a rank did not finish in time")
+    shutil.rmtree(tmp, ignore_errors=True)
+    for r, (proc, out) in enumerate(zip(procs, outs)):
+        print("".join(f"[dist b] rank {r}: {line}\n"
+                      for line in out.splitlines()
+                      if line.strip() and not line.startswith(" ")
+                      and "Warning" not in line),
+              end="")
+        if proc.returncode != 0:
+            _fail(f"phase 16 (b): rank {r} failed (exit {proc.returncode})")
+    err = check_lm_kernels(TP_K4_SHAPES, [], TP_K6_SHAPES, label="dist b")
+    err["flash_attention_bwd"] = check_k4_backward(TP_K4_SHAPES,
+                                                   label="dist b bwd")
+    err["ssd_scan_bwd"] = check_k6_backward(TP_K6_SHAPES, label="dist b bwd")
+    print(f"[dist b] wall {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def _tp_config(arch):
+    """Phase 16 (b)'s full-width config: cut in depth only."""
+    from repro_torch.configs import get_config
+    return get_config(arch).with_layers(DIST_TP_LAYERS)
+
+
+def tp_rank(rank: int, store: str) -> int:
+    """One rank of phase 16 (b): each of DIST_TP_ARCHS' steps on the card,
+    reduced (fp32, the CPU tests' inputs and limits) and at full width
+    (DIST_TP_LAYERS deep, bf16), one device then tensor-parallel over the
+    (1, 2) mesh, held shard by shard; exit 1 on a fault."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (axis_rules, batch_specs,
+                                                  distribute, local_tree,
+                                                  param_specs)
+    from repro_torch.kernels import KERNEL_LAUNCHES
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.utils.misc import tree_flatten_with_path, tree_map
+    import logging
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_dist_worker as cpu_tests
+    torch.set_num_threads(1)
+    # DTensor warns at every two-axis redistribution
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    short = {v: k for k, v in cpu_tests.TP_ARCHS.items()}
+    ok = True
+    try:
+        mesh = make_test_mesh(1, 2, device_type=DEV)
+
+        def counted(fn):
+            before = {n: KERNEL_LAUNCHES[n] for n in TRAIN_KERNELS}
+            out = fn()
+            if DEV != "cpu":
+                torch.cuda.synchronize()
+            return out, {n: KERNEL_LAUNCHES[n] - before[n]
+                         for n in TRAIN_KERNELS}
+
+        def shards(tree):
+            """Each leaf's shard on this rank, as param_specs places it."""
+            return tree_flatten_with_path(local_tree(distribute(
+                tree, mesh, param_specs(tree, mesh))))[1]
+        for full in (False, True):
+            for arch in DIST_TP_ARCHS:
+                t0 = time.perf_counter()
+                if full:
+                    cfg = _tp_config(arch)
+                    shape, lr = (DIST_TP_BATCH, DIST_TP_SEQ), DIST_TP_LR
+                    params = build_model(cfg).init(LM_SEED, device=DEV)
+                else:
+                    cfg = get_config(arch).reduced()
+                    shape = (cpu_tests.TP_BATCH, cpu_tests.TP_SEQ)
+                    lr = cpu_tests.TP_LR
+                    params = tree_map(lambda t: t.to(DEV), build_model(
+                        cfg).init(0, device="cpu"))
+                model = build_model(cfg)
+                tokens = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                           shape)
+                batch = {"tokens": torch.from_numpy(
+                    tokens.astype(np.int32)).to(DEV)}
+                opt = make_optimizer("adamw", lr=lr)
+
+                def grads_of(p, b):
+                    return step_mod._value_and_grad(model.loss, p, b)
+                (_, g_ref), k_ref = counted(lambda: grads_of(params, batch))
+                ref = tree_map(torch.clone, params)
+                m_ref, ref, _ = step_mod.make_train_step(cfg, opt)(
+                    ref, opt.init(ref), batch)
+                with axis_rules(mesh):
+                    dp = distribute(params, mesh, param_specs(params, mesh))
+                    db = distribute(batch, mesh, batch_specs(batch, mesh))
+                    (_, g_tp), k_tp = counted(
+                        lambda: step_mod._sharded(grads_of, mesh)(dp, db))
+                    m, dp, _ = step_mod.make_train_step(cfg, opt, mesh=mesh)(
+                        dp, opt.init(local_tree(dp)), db)
+                    want_g, want_p = shards(g_ref), shards(ref)
+                got_g = tree_flatten_with_path(local_tree(g_tp))[1]
+                got_p = tree_flatten_with_path(local_tree(dp))[1]
+                worst = {k: float(abs(m[k] - m_ref[k]) / abs(m_ref[k]))
+                         for k in ("loss", "grad_norm")}
+                for g, w in zip(got_g, want_g):
+                    worst["grads"] = max(worst.get("grads", 0.0), float(
+                        (g.float() - w.float()).abs().max()
+                        / w.float().abs().max().clamp_min(1e-30)))
+                if full:
+                    grad_tol, (far, near, n_near, n_all) = DIST_TP_TOL, \
+                        _bf16_moves(got_p, want_p, got_g, want_g, lr)
+                    what = (f"{near:.3e} lr in the {n_near} of {n_all} "
+                            f"where they may not")
+                    fault = False
+                else:
+                    grad_tol, near_tol = cpu_tests.tp_limits(short[arch])
+                    far, near = cpu_tests.adamw_moves(got_p, want_p, want_g,
+                                                      lr)
+                    what = f"{near:.3e} lr near eps (tol {near_tol:.3e})"
+                    fault = near > near_tol
+                want_k = _train_launches(cfg)
+                path = {n: k for n, k in k_tp.items() if k}
+                kind = "at full width" if full else "reduced"
+                print(f"{cfg.name} {kind}, "
+                      f"{cfg.n_layers} layers, {cfg.compute_dtype}, remat "
+                      f"{cfg.remat}, {shape[0]} x {shape[1]} tokens, tensor-"
+                      f"parallel on a (1, 2) gloo mesh on the card: loss "
+                      f"{float(m['loss'])!r} (one device "
+                      f"{float(m_ref['loss'])!r}); loss, grad norm and this "
+                      f"rank's gradients {max(worst.values()):.3e} apart at "
+                      f"most (tol {grad_tol:.3e}; {worst}); its parameters "
+                      f"{far:.3e} lr apart where the gradients fix the update "
+                      f"(tol 0.05), {what}; launches per rank {path}, one "
+                      f"device {dict((n, k) for n, k in k_ref.items() if k)}"
+                      f", phase 15's count {want_k}; "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+                if max(worst.values()) > grad_tol or far > 0.05 or fault \
+                        or k_tp != k_ref or k_tp != want_k:
+                    print(f"FAULT: {arch} beyond its limits or launches "
+                          f"differ", flush=True)
+                    ok = False
+                del params, ref, dp, g_ref, g_tp, want_g, want_p, got_g, got_p
+                if DEV != "cpu":
+                    torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def _bf16_moves(got_p, want_p, got_g, want_g, lr):
+    """(the largest parameter move in lr where both steps' gradients
+    exceed ADAMW_NEAR_EPS with one sign or are both 0, the largest
+    elsewhere, the count elsewhere, the count of all)."""
+    import torch
+    far = near = 0.0
+    n_near = n_all = 0
+    for p, q, g, w in zip(got_p, want_p, got_g, want_g):
+        g, w = g.float(), w.float()
+        moved = (p - q).abs() / lr
+        small = (g.sign() != w.sign()) | (w != 0) & (
+            (w.abs() <= ADAMW_NEAR_EPS) | (g.abs() <= ADAMW_NEAR_EPS))
+        far = max(far, float(torch.where(small, 0.0, moved).max()))
+        near = max(near, float(torch.where(small, moved, 0.0).max()))
+        n_near += int(small.sum())
+        n_all += small.numel()
+    return far, near, n_near, n_all
 
 
 # ----------------------------------------------------------- phase 17
 # The dry run (repro_torch.launch.dryrun) on the card's machine, in a
 # process of its own (a process has one default group: a fake group of 1,
-# 256 or 512 ranks takes its place there), beside (c) in this process:
+# 256 or 512 ranks takes its place there), started after phase 15 so
+# that it traces beside phase 16, then beside (c) in this process:
 # (a) granite-3-2b's phase 15 step (b) and mamba2-780m's (f) traced on
 # fake CUDA tensors over a (1, 1) fake mesh, through K4-K6's fake kernels:
 # the predicted peak per card within DRY_PEAK_RTOL of what phase 15
 # allocated at most, and the traced FLOPs over phase 15's median step wall
-# as a share of the bf16 tensor rate; (b) the reference test's four cells
-# (tests/test_distributed.py:130) on the production meshes, 256 and 512
-# fake ranks, every row ok; (c) methylseq at SMALL_SCALE serially through
-# the per-model loop (fused=False) and the fused path on the card, counters
-# zeroed before each: integer choices and failures equal, allocations
-# within ALLOC_RTOL, K1 and K2 once per model call of the loop.
+# as a share of the bf16 tensor rate; (b) every train cell (each
+# architecture at train_4k) and the reference test's decode cells
+# (tests/test_distributed.py:130: granite-3-2b at decode_32k) on the
+# production meshes, 256 and 512 fake ranks, in DRY_GROUPS processes beside
+# each other and (a), every row ok; each train cell's peak per card, FLOPs
+# and collective bytes printed beside the same cell's before the step
+# became tensor-parallel (DRY_BEFORE: the ZeRO-3 step that gathered every
+# weight whole, traced by the dry run of the commit before it on an H100's
+# machine), and grok-1-314b's peak on 256 ranks at least DRY_GROK_FALL
+# times lower;
+# (c) methylseq at SMALL_SCALE serially through the per-model loop
+# (fused=False) and the fused path on the card, counters zeroed before
+# each: integer choices and failures equal, allocations within ALLOC_RTOL,
+# K1 and K2 once per model call of the loop.
 DRY_PEAK_RTOL = 0.25
-DRY_CELLS = ["--arch", "granite-3-2b", "--shape", "train_4k,decode_32k",
-             "--mesh", "both"]
+# (b)'s groups, each a process for each mesh, of about equal trace time
+# (a train cell traced in 11-30 s on the card's machine, grok-1-314b the
+# longest): granite-3-2b's decode cell rides with its train cell
+DRY_GROUPS = [("granite-3-2b", "train_4k,decode_32k"),
+              ("grok-1-314b,musicgen-large", "train_4k"),
+              ("qwen1.5-32b,zamba2-7b,minitron-8b", "train_4k"),
+              ("internvl2-26b,phi3.5-moe-42b-a6.6b,mamba2-780m,yi-9b",
+               "train_4k")]
+DRY_BEFORE = "results/dryrun_train_zero3.jsonl"
+DRY_GROK_FALL = 10.0
 DRY_TIMEOUT = 900
 
 
@@ -3965,6 +4244,23 @@ def _dry_worker(arg: str) -> int:
     measured = json.loads(arg)
     t_start = time.perf_counter()
     ok = True
+    # (b) in processes of their own (each its fake group), beside (a)
+    import atexit
+    outs = REPO / "build" / "phase17"
+    outs.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for mesh in ("single", "multi"):
+        for i, (archs, shapes) in enumerate(DRY_GROUPS):
+            out = outs / f"dry_{mesh}_{i}.jsonl"
+            out.unlink(missing_ok=True)
+            procs.append((out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", archs, "--shape", shapes, "--mesh", mesh,
+                 "--device", DEV, "--out", str(out)],
+                env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+            atexit.register(_stop_worker, procs[-1][1])
     steps = {"granite": (get_config(TRAIN_ARCH), 8, 256),
              "mamba2": (scaled_config(get_config(SSM_ARGV[1]), SSM_ARGV[3]),
                         int(SSM_ARGV[7]), int(SSM_ARGV[9]))}
@@ -3991,32 +4287,58 @@ def _dry_worker(arg: str) -> int:
               f"{got['collectives']['total_bytes']} B; traced in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         ok = ok and rel <= DRY_PEAK_RTOL
-    out = REPO / "build" / "phase17" / "dry.jsonl"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.unlink(missing_ok=True)
     t0 = time.perf_counter()
-    try:
-        dryrun.main(DRY_CELLS + ["--device", DEV, "--out", str(out)])
-    except SystemExit:
-        ok = False
-    rows = [json.loads(line) for line in open(out)] if out.exists() else []
+    rows = []
+    for out, proc in procs:
+        try:
+            log, _ = proc.communicate(timeout=DRY_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            _stop_worker(proc)
+            log, ok = "timed out", False
+        if proc.returncode != 0:
+            print(log)
+            ok = False
+        rows += [json.loads(line) for line in open(out)] \
+            if out.exists() else []
+    before = {(r["arch"], r["mesh"]): r for r in map(
+        json.loads, open(REPO / DRY_BEFORE))}
     for r in rows:
         if r["status"] != "ok":
             print(f"[dry b] {r['arch']} {r['shape']} {r['mesh']}: "
                   f"{r['status']} {r.get('error', '')}\n"
                   f"{r.get('traceback', '')}")
             continue
-        rt, c = r["roofline"], r["cost"]
-        print(f"[dry b] {r['arch']} {r['shape']} on {r['chips']} ranks "
-              f"({r['mesh']}): ok, bottleneck {rt['bottleneck']} (compute "
-              f"{rt['compute_s']:.4e} s, memory {rt['memory_s']:.4e} s, "
-              f"collective {rt['collective_s']:.4e} s), peak "
-              f"{r['memory']['peak_gb']:.2f} GiB a card, {c['flops']:.4e} "
-              f"FLOP, {c['collective_bytes']:.4e} collective bytes; traced "
-              f"in {r['trace_s']} s")
-    ok = ok and len(rows) == 4 and all(r["status"] == "ok" for r in rows)
+        rt, c, mem = r["roofline"], r["cost"], r["memory"]
+        head = (f"[dry b] {r['arch']} {r['shape']} on {r['chips']} ranks "
+                f"({r['mesh']}): ok, bottleneck {rt['bottleneck']} (compute "
+                f"{rt['compute_s']:.4e} s, memory {rt['memory_s']:.4e} s, "
+                f"collective {rt['collective_s']:.4e} s), traced in "
+                f"{r['trace_s']} s; ")
+        if r["kind"] != "train":
+            print(head + f"peak {mem['peak_gb']:.2f} GiB a card, "
+                  f"{c['flops']:.4e} FLOP, {c['collective_bytes']:.4e} "
+                  f"collective bytes")
+            continue
+        was = before[(r["arch"], r["mesh"])]
+        kinds = ", ".join(f"{k} {v:.4e}" for k, v in
+                          r["collectives"]["bytes_by_kind"].items() if v)
+        print(head + f"a card, before -> after tensor parallelism: peak "
+              f"{was['peak_gb']:.2f} -> {mem['peak_gb']:.2f} GiB "
+              f"(arguments {was['argument_gb']:.2f} -> "
+              f"{mem['argument_gb']:.2f}, temporaries "
+              f"{mem['temp_gb']:.2f}), {was['flops']:.4e} -> "
+              f"{c['flops']:.4e} FLOP, {was['collective_bytes']:.4e} -> "
+              f"{c['collective_bytes']:.4e} collective bytes ({kinds})")
+        if (r["arch"], r["mesh"]) == ("grok-1-314b", "single") \
+                and was["peak_gb"] < DRY_GROK_FALL * mem["peak_gb"]:
+            print(f"[dry b] grok-1-314b's peak fell less than "
+                  f"{DRY_GROK_FALL:g} times")
+            ok = False
+    n_cells = 2 * (len(",".join(a for a, _ in DRY_GROUPS).split(",")) + 1)
+    ok = ok and len(rows) == n_cells \
+        and all(r["status"] == "ok" for r in rows)
     print(f"[dry] (a) and (b) wall {time.perf_counter() - t_start:.1f} s "
-          f"((b) {time.perf_counter() - t0:.1f} s)")
+          f"((b) waited for {time.perf_counter() - t0:.1f} s after (a))")
     return 0 if ok else 1
 
 
@@ -4102,24 +4424,39 @@ def check_loop_shapes(shapes) -> dict:
     return check_kernels(k1, k2) if k1 or k2 else {}
 
 
-def dryrun_phase(measured: dict) -> dict:
-    """Phase 17: (a) and (b) in the dry-run process while (c) runs here.
-    Returns the K1 and K2 shapes (c) launched."""
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, str(REPO / "chip_smoke.py"), "--dry",
-         json.dumps(measured)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+def dryrun_start(measured: dict):
+    """Start phase 17's dry-run process ((a) and (b)), which needs only
+    phase 15's measurements and launches nothing on the card, so that it
+    traces beside phase 16. Its output goes to a file until
+    ``dryrun_phase`` joins it."""
+    import atexit
+    log = REPO / "build" / "phase17_dry.log"
+    log.parent.mkdir(parents=True, exist_ok=True)
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--dry",
+             json.dumps(measured)], stdout=out, stderr=subprocess.STDOUT)
+    atexit.register(_stop_worker, proc)
+    return proc, log, time.perf_counter()
+
+
+def dryrun_phase(started) -> dict:
+    """Phase 17: (c) here while the dry-run process that ``dryrun_start``
+    started finishes (a) and (b). Returns the K1 and K2 shapes (c)
+    launched."""
+    proc, log, t0 = started
+    t_here = time.perf_counter()
     try:
         shapes = loop_vs_fused()
     finally:
         try:
-            out, _ = proc.communicate(timeout=DRY_TIMEOUT)
+            proc.wait(timeout=DRY_TIMEOUT)
         except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-        print(out, end="")
-    print(f"[dry] phase 17 wall {time.perf_counter() - t0:.1f} s")
+            _stop_worker(proc)
+        print(log.read_text(), end="")
+    print(f"[dry] phase 17 wall {time.perf_counter() - t0:.1f} s since its "
+          f"process started, {time.perf_counter() - t_here:.1f} s after "
+          f"phase 16")
     if proc.returncode != 0:
         _fail(f"phase 17: the dry run failed (exit {proc.returncode})")
     return shapes
@@ -4133,6 +4470,8 @@ def main() -> int:
         return _worker_main(*sys.argv[2:4])
     if sys.argv[1:2] == ["--dry"]:
         return _dry_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--tp-rank"]:
+        return tp_rank(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU",
               file=sys.stderr)
@@ -4150,8 +4489,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--train-only"]:
         # phases 1, 2, 15, 16 and 17 alone, for work on the training slice
         rows, measured = train_phase()
-        distributed_phase()
-        check_loop_shapes(dryrun_phase(measured))
+        dry = dryrun_start(measured)
+        errors = distributed_phase()
+        errors.update(check_loop_shapes(dryrun_phase(dry)))
+        for row in rows:
+            if row["name"] in errors:
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         errors[row["name"]])
         print(json.dumps({"kernels": rows}))
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -4295,11 +4639,14 @@ def main() -> int:
     # phase 15: training on the card, K4's backward
     rows, measured = train_phase()
     kernels += rows
-    # phase 16: the distributed layer on a 1-device mesh
-    distributed_phase()
+    # phase 17's dry run (a)-(b) traces from here on, beside phase 16
+    dry = dryrun_start(measured)
+    # phase 16: the distributed layer on a 1-device mesh, and (b) tensor
+    # parallelism on a (1, 2) gloo mesh with K4 and K6 at per-rank shapes
+    errors = distributed_phase()
     # phase 17: the dry run beside the per-model loop; every K1 and K2
     # shape the loop launched that phase 3 did not check is checked now
-    errors = check_loop_shapes(dryrun_phase(measured))
+    errors.update(check_loop_shapes(dryrun_phase(dry)))
     for row in kernels:
         if row["name"] in errors:
             row["max_abs_err"] = max(row["max_abs_err"], errors[row["name"]])

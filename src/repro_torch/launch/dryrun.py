@@ -14,15 +14,18 @@ K5 and K6 run their registered fake kernels and FLOP formulas; with
 ``--device cpu`` (the tests) the plain versions run, as the reference's
 probes force naive attention.
 
-The steps are sharded as the port's ZeRO-3 train step shards them
-(``train.step``): weights and optimizer state placed by ``param_specs``
-(``"inference"`` weights under ``--infer-tp`` by the reference's 8 GB
-rule), the loss and gradients run through ``local_map`` on whole weights
-and this rank's batch shard. Prefill and decode run the same way
-(``sharded_serve``): each weight gathered inside ``local_map``, the batch
-and the cache sharded over the FSDP axes where B divides (not at
-``long_500k``'s B = 1). The "model" axis shards storage only: every rank
-of a "model" row computes the same local step.
+The train cells trace the port's sharded train step (``train.step``)
+as it runs on a real mesh: weights and optimizer state placed by
+``param_specs``, the loss and gradients through ``local_map`` on each
+weight's own shard and this rank's batch shard, each layer's weights
+gathered over the FSDP axes only while it runs (and again for its
+backward), the blocks tensor-parallel over "model" (``distributed.tp``).
+Prefill and decode are left as they were (``sharded_serve``, a later
+slice makes them tensor-parallel): each weight gathered whole inside
+``local_map`` (``"inference"`` weights under ``--infer-tp`` by the
+reference's 8 GB rule), the batch and the cache sharded over the FSDP
+axes where B divides (not at ``long_500k``'s B = 1), and every rank of a
+"model" row computing the same local step.
 
 Per card, each row records:
 
@@ -34,7 +37,8 @@ Per card, each row records:
     collectives move none; ``moved_bytes``);
   * collective bytes (``analysis.collectives``) of the whole step;
   * memory from the live fake storages of this rank's tensors
-    (``TraceMode``): ``argument_gb`` the parameters, optimizer state,
+    (``TraceMode``; ``LiveMode`` keeps the same books over a real run):
+    ``argument_gb`` the parameters, optimizer state,
     batch and cache at entry; ``peak_gb`` the most held at once during
     the step (kernel scratch included: the fake kernels allocate it);
     ``temp_gb`` the peak less the arguments; ``alias_gb`` what the step
@@ -65,6 +69,7 @@ import weakref
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.analysis.collectives import CollectiveCounter
 from repro_torch.analysis.roofline import roofline_terms
@@ -92,25 +97,18 @@ _NO_BYTES_NAMESPACES = frozenset({"prim", "_c10d_functional",
 
 
 # --------------------------------------------------------------- tracing
-class TraceMode(FakeTensorMode):
-    """A ``FakeTensorMode`` that keeps the books of the tensors it makes:
-    the bytes of live storages (each counted once, released when the
-    storage dies), their peak, and the bytes each op reads and writes.
-    A fake kernel runs inside the mode, so its scratch is counted too;
-    the bytes moved are counted for the ops the step dispatches, not for
-    the ops the mode runs inside them (a decomposition, a fake kernel's
-    allocations)."""
+class _Books:
+    """The bytes of the live storages of the tensors that the ops a mode
+    sees return (each storage counted once, released when it dies) and
+    their peak."""
 
-    def __init__(self):
-        super().__init__(allow_non_fake_inputs=True)
-        self.live = 0
-        self.peak = 0
-        self.moved = 0
+    def _open_books(self, live: int = 0) -> None:
+        self.live = live
+        self.peak = live
         self._held: set[int] = set()
-        self._depth = 0
 
     def reset(self) -> None:
-        """Start a new peak and a new count of moved bytes."""
+        """Start a new peak (and a new count of moved bytes)."""
         self.peak = self.live
         self.moved = 0
 
@@ -129,6 +127,22 @@ class TraceMode(FakeTensorMode):
             self._held.discard(key)
         weakref.finalize(st, release)
 
+
+class TraceMode(_Books, FakeTensorMode):
+    """A ``FakeTensorMode`` that keeps the books of the tensors it makes:
+    the bytes of live storages (each counted once, released when the
+    storage dies), their peak, and the bytes each op reads and writes.
+    A fake kernel runs inside the mode, so its scratch is counted too;
+    the bytes moved are counted for the ops the step dispatches, not for
+    the ops the mode runs inside them (a decomposition, a fake kernel's
+    allocations)."""
+
+    def __init__(self):
+        super().__init__(allow_non_fake_inputs=True)
+        self._open_books()
+        self.moved = 0
+        self._depth = 0
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self._depth += 1
         try:
@@ -145,6 +159,31 @@ class TraceMode(FakeTensorMode):
                 and func.namespace not in _NO_BYTES_NAMESPACES \
                 and func._opname not in _NO_BYTES:
             self.moved += moved_bytes(func, args, kwargs or {}, outs)
+        return out
+
+
+class LiveMode(_Books, TorchDispatchMode):
+    """``TraceMode``'s books of live storages over a real run: ``live``
+    starts with the storages of the local tensors in ``tree`` (the step's
+    arguments), and each storage an op returns is added until it dies.
+    DTensors pass on to their local ops."""
+
+    def __init__(self, tree=()):
+        super().__init__()
+        self._open_books()
+        for t in pytree.tree_leaves(tree):
+            t = getattr(t, "_local_tensor", t)
+            if isinstance(t, torch.Tensor):
+                self._hold(t)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if DTensor in types:
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        for t in pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self._hold(t)
         return out
 
 
@@ -315,7 +354,10 @@ def sharded_serve(fn, mesh, in_specs, out_specs):
 def serve_step(cfg, kind, mesh, params, inputs):
     """One sharded prefill or decode step: (logits, cache) DTensors, on a
     mesh whose params are DTensors placed by ``param_specs`` and whose
-    inputs are DTensors placed by ``serve_specs``."""
+    inputs are DTensors placed by ``serve_specs``. Left as it was before
+    the train step became tensor-parallel: every weight gathered whole
+    (``sharded_serve``), each rank of a "model" row computing the same
+    step; tensor-parallel prefill and decode are a later slice's."""
     whole = tree_map(lambda t: P(*([None] * t.dim())), params)
     specs = serve_specs(cfg, kind, mesh, inputs)
     outs = (specs["logits"], specs["cache"])

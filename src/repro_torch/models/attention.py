@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_decode.ops import flash_decode
@@ -53,7 +54,8 @@ def attention_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
-    """x (B, S, d) -> q (B, S, H, D), k and v (B, S, Hkv, D), RoPE applied."""
+    """x (B, S, d) -> q (B, S, H, D), k and v (B, S, Hkv, D), RoPE applied
+    (H and Hkv the weights' own: the rank's heads under TP)."""
     b, s, _ = x.shape
     cd = x.dtype
     q = x @ as_type(params["wq"], cd)
@@ -63,9 +65,9 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
         q = q + as_type(params["bq"], cd)
         k = k + as_type(params["bk"], cd)
         v = v + as_type(params["bv"], cd)
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv, cfg.head_dim)
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -77,15 +79,20 @@ def causal_attention(q, k, v, cfg: ModelConfig):
 
 def attention_block(params, x, cfg: ModelConfig, positions):
     """Full self-attention sublayer (the caller adds the residual).
-    Returns (out, (k, v)) so that prefill can collect the cache."""
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    Returns (out, (k, v)) so that prefill can collect the cache.
+
+    Under TP (``distributed.tp``) ``wq`` is column-parallel over the
+    rank's query heads and ``wo`` row-parallel, and K4 runs on those heads
+    and the KV heads they use (``tp.attention_shard``)."""
+    params = tp.attention_shard(params, cfg.n_heads, cfg.n_kv, cfg.head_dim)
+    q, k, v = _project_qkv(params, tp.copy_to_tp(x), cfg, positions)
     q = shard(q, ("batch", None, "heads", None))
     k = shard(k, ("batch", None, "heads", None))
     v = shard(v, ("batch", None, "heads", None))
     o = causal_attention(q, k, v, cfg)
     b, s = x.shape[:2]
-    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return o @ as_type(params["wo"], x.dtype), (k, v)
+    o = o.reshape(b, s, -1)
+    return tp.reduce_from_tp(o @ as_type(params["wo"], x.dtype)), (k, v)
 
 
 def decode_attention_block(params, x, cfg: ModelConfig, k_cache, v_cache,

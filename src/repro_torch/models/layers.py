@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import shard
 
 INIT_STD = 0.02
@@ -87,10 +88,13 @@ def mlp_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
 
 
 def mlp(params, x: torch.Tensor, compute_dtype):
+    """SwiGLU; under TP ``w_gate``/``w_up`` are the rank's ``ff`` columns
+    and ``w_down`` its rows (column- then row-parallel)."""
+    x = tp.copy_to_tp(x)
     h = F.silu(x @ as_type(params["w_gate"], compute_dtype)) \
         * (x @ as_type(params["w_up"], compute_dtype))
     h = shard(h, ("batch", None, "ff"))
-    return h @ as_type(params["w_down"], compute_dtype)
+    return tp.reduce_from_tp(h @ as_type(params["w_down"], compute_dtype))
 
 
 # -------------------------------------------------------------- embeddings
@@ -102,21 +106,28 @@ def embedding_params(gen, cfg: ModelConfig, dtype):
 
 
 def embed_tokens(params, tokens: torch.Tensor, compute_dtype):
-    return as_type(params["embed"], compute_dtype)[tokens]
+    """The tokens' rows of ``embed`` (vocab-parallel under TP)."""
+    return tp.embed_lookup(as_type(params["embed"], compute_dtype), tokens)
 
 
 def logits_fn(params, x: torch.Tensor, cfg: ModelConfig):
-    """Final logits in fp32 with the padded-vocab tail set to -1e9."""
-    logits = (x @ as_type(params["lm_head"], x.dtype)).float()
+    """Final logits in fp32 with the padded-vocab tail set to -1e9; under
+    TP the rank's vocab columns (B, S, V / model)."""
+    logits = (tp.copy_to_tp(x) @ as_type(params["lm_head"], x.dtype)).float()
     logits = shard(logits, ("batch", None, "vocab"))
-    if cfg.padded_vocab != cfg.vocab:
-        logits[..., cfg.vocab:] = -1e9
+    tail = cfg.vocab - tp.vocab_offset(logits.shape[-1])
+    if cfg.padded_vocab != cfg.vocab and tail < logits.shape[-1]:
+        logits[..., max(tail, 0):] = -1e9
     return logits
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None):
-    """Mean CE over valid positions; logits fp32 (B, S, V), labels (B, S)."""
+    """Mean CE over valid positions; logits fp32 (B, S, V), labels (B, S).
+    Under TP the logits are the rank's vocab columns
+    (``tp.vocab_cross_entropy``)."""
+    if tp.model_size() > 1:
+        return tp.vocab_cross_entropy(logits, labels, mask)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     if mask is None:

@@ -26,6 +26,16 @@ activation; the numbers are the same. ``"dots"`` is ``"block"`` here:
 the reference's ``"dots"`` keeps the matmul outputs, which changes memory
 only (ROADMAP queue 3). ``cfg.decode_carry_cache`` changes no number: the
 decode cache is updated in place.
+
+Under the sharded train step (``distributed.tp.sharded``) ``forward``
+and ``loss_fn`` run on this rank's shards: each layer gathers its
+weights' FSDP dims inside its recompute function (``tp.gather_layer``),
+so a layer's gathered weights are dropped after it and gathered again
+for its backward (each block is recomputed whatever ``cfg.remat`` says
+when there are FSDP ranks to gather from); ``embed``, ``lm_head`` and
+``ln_f`` are gathered once. The blocks compute tensor-parallel over
+"model", and the logits ``forward`` returns are the rank's vocab
+columns.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -168,8 +179,10 @@ def _stack(params, cfg: ModelConfig):
 
 def _remat(fn, cfg: ModelConfig):
     """``fn`` recomputed in the backward under ``cfg.remat`` "block" or
-    "dots" when a gradient is being taken; as it is otherwise."""
-    if cfg.remat == "none" or not torch.is_grad_enabled():
+    "dots", or when it gathers weights over FSDP ranks, when a gradient is
+    being taken; as it is otherwise."""
+    if (cfg.remat == "none" and not tp.gathers()) \
+            or not torch.is_grad_enabled():
         return fn
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
@@ -235,18 +248,22 @@ def _positions(h):
 def forward(params, batch, cfg: ModelConfig):
     """Full-sequence forward -> (logits fp32 (B, S, V), aux_loss)."""
     _check_family(cfg)
+    params = {**params, **tp.gather_layer(
+        {k: params[k] for k in ("embed", "lm_head", "ln_f")})}
     h = _inputs_to_h(params, batch, cfg)
     positions = _positions(h)
     use_moe = cfg.family == "moe"
     attn_layers, ssm_layers = _stack(params, cfg)
 
     def attn_step(bp, x):
-        x, _, a = _attn_mlp_block(bp, x, cfg, positions, use_moe)
+        x, _, a = _attn_mlp_block(tp.gather_layer(bp), x, cfg, positions,
+                                  use_moe)
         return x, a
 
     def ssm_step(bp, x):
-        return _ssm_block(bp, x, cfg)
-    attn_step, ssm_step = _remat(attn_step, cfg), _remat(ssm_step, cfg)
+        return _ssm_block(tp.gather_layer(bp), x, cfg)
+    attn_step = _remat(tp.carried(attn_step), cfg)
+    ssm_step = _remat(tp.carried(ssm_step), cfg)
     aux = 0.0
     for kind, i in _layer_order(cfg):
         if kind == "ssm":

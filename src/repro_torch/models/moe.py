@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import shard
 from repro_torch.models.layers import INIT_STD, as_type, dense_init
 from repro_torch.utils.misc import ceil_div
@@ -57,10 +58,12 @@ def router(params, x, cfg: ModelConfig):
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = top_k(probs, cfg.top_k)
     top_w = top_w / torch.clamp_min(torch.sum(top_w, -1, keepdim=True), 1e-9)
-    # Switch-style load-balance auxiliary loss
+    # Switch-style load-balance auxiliary loss, over the whole batch (its
+    # FSDP shards' means averaged under the sharded step)
     e = cfg.n_experts
-    me = torch.mean(F.one_hot(top_i[:, 0], e).float(), dim=0)  # routed
-    pe = torch.mean(probs, dim=0)                               # router mass
+    me = tp.batch_mean(torch.mean(F.one_hot(top_i[:, 0], e).float(),
+                                  dim=0))                       # routed
+    pe = tp.batch_mean(torch.mean(probs, dim=0))                # router mass
     aux = e * torch.sum(me * pe)
     return top_i, top_w, aux
 
@@ -89,14 +92,16 @@ def _positions_rowwise(top_i, b, s, e, k):
 def _experts(params, buf, cd, spec: str, logical: tuple):
     """Expert SwiGLU over a capacity buffer (``spec`` names its leading
     dims: "e" or "be"; ``logical`` the hidden's logical axes, ff sharded
-    over "model")."""
+    over "model"). Under TP ``we_gate``/``we_up`` are the rank's ``ff``
+    columns and ``we_out`` its rows, the buffer built from
+    ``tp.copy_to_tp`` of the tokens; the experts' sum over "model"."""
     g = F.silu(torch.einsum(f"{spec}cd,edf->{spec}cf", buf,
                             as_type(params["we_gate"], cd)))
     u = torch.einsum(f"{spec}cd,edf->{spec}cf", buf,
                      as_type(params["we_up"], cd))
     h = shard(g * u, logical)
-    return torch.einsum(f"{spec}cf,efd->{spec}cd", h,
-                        as_type(params["we_out"], cd))
+    return tp.reduce_from_tp(torch.einsum(f"{spec}cf,efd->{spec}cd", h,
+                                          as_type(params["we_out"], cd)))
 
 
 def moe_block(params, x, cfg: ModelConfig):
@@ -128,7 +133,8 @@ def moe_block(params, x, cfg: ModelConfig):
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
     buf = torch.zeros((e, cap, d), dtype=cd, device=x.device)
     buf = buf.index_put((flat_e, safe_pos.long()),
-                        xf[tok_idx] * keep[:, None].to(cd), accumulate=True)
+                        tp.copy_to_tp(xf)[tok_idx] * keep[:, None].to(cd),
+                        accumulate=True)
     buf = shard(buf, ("experts", "batch", None))
     out = _experts(params, buf, cd, "e", ("experts", "batch", "ff"))
 
@@ -165,7 +171,7 @@ def _moe_block_grouped(params, x, cfg: ModelConfig):
     bidx = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
     buf = torch.zeros((b, e, cap, d), dtype=cd, device=x.device)
     buf = buf.index_put((bidx, rows_e, safe_pos),
-                        x[:, tok_idx] * keep[..., None].to(cd),
+                        tp.copy_to_tp(x)[:, tok_idx] * keep[..., None].to(cd),
                         accumulate=True)
     buf = shard(buf, ("batch", "experts", None, None))
     out = _experts(params, buf, cd, "be", ("batch", "experts", None, "ff"))

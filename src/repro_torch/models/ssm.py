@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.layers import INIT_STD, as_type, dense_init, rmsnorm
@@ -45,9 +46,8 @@ def ssm_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
     }
 
 
-def _split_proj(params, x, cfg: ModelConfig):
+def _split_proj(params, x, di: int, n: int):
     """x (B, S, d) -> z (B, S, di), xBC (B, S, di + 2N), dt (B, S, H)."""
-    di, n = cfg.d_inner, cfg.ssm_state
     zxbcdt = x @ as_type(params["in_proj"], x.dtype)
     return (zxbcdt[..., :di], zxbcdt[..., di: 2 * di + 2 * n],
             zxbcdt[..., 2 * di + 2 * n:])
@@ -70,15 +70,22 @@ def ssm_block(params, x, cfg: ModelConfig, return_cache: bool = False):
 
     With ``return_cache`` also returns (final_state (B, H, P, N) fp32,
     conv_tail (B, K-1, C)) to seed decode after a prefill.
+
+    Under TP (``distributed.tp``) the rank computes its heads: its z, x
+    and dt columns of ``in_proj`` and all of B and C (``tp.ssm_shard``),
+    K6 on its heads, the gated norm's sum of squares over "model", and
+    ``out_proj`` row-parallel.
     """
     b, s, _ = x.shape
-    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    params, h = tp.ssm_shard(params, cfg.d_inner, n, cfg.ssm_heads)
+    di = cfg.d_inner // tp.model_size()
     cd = x.dtype
     q = min(CHUNK, s)
     if s % q:
         raise ValueError(f"seq {s} not divisible by chunk {q}")
 
-    z, xbc_raw, dt = _split_proj(params, x, cfg)
+    z, xbc_raw, dt = _split_proj(params, tp.copy_to_tp(x), di, n)
     xbc = _causal_conv(params, xbc_raw, cfg)
     xc, bmat, cmat = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
     dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
@@ -90,8 +97,8 @@ def ssm_block(params, x, cfg: ModelConfig, return_cache: bool = False):
     y = y + params["ssm_d"][None, None, :, None] * xh.float()
     y = y.reshape(b, s, di).to(cd)
 
-    y = rmsnorm(y * F.silu(z), params["norm_scale"])
-    out = y @ as_type(params["out_proj"], cd)
+    y = tp.rmsnorm(y * F.silu(z), params["norm_scale"])
+    out = tp.reduce_from_tp(y @ as_type(params["out_proj"], cd))
     if return_cache:
         return out, final_state, xbc_raw[:, s - (cfg.ssm_conv - 1):, :]
     return out
@@ -118,7 +125,7 @@ def ssm_decode_block(params, x, cfg: ModelConfig, state, conv_state):
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     cd = x.dtype
 
-    z, xbc, dt = _split_proj(params, x, cfg)                 # (B, 1, *)
+    z, xbc, dt = _split_proj(params, x, di, n)               # (B, 1, *)
     window = torch.cat([conv_state, xbc.to(conv_state.dtype)], 1)
     w = as_type(params["conv_w"], cd)                        # (K, C)
     conv_out = torch.einsum("bkc,kc->bc", window.to(cd), w) \

@@ -1,20 +1,22 @@
 """The port's distributed layer on the CPU over gloo process groups, held to
 the reference where the reference runs: logical-axis rules and the
 parameter, batch and cache specs (pure Python, every reduced config);
-``shard`` without rules; the ZeRO-3 train step on a (2, 2) mesh against
-the single-device step (what ``tests/test_distributed.py:23`` means);
+``shard`` without rules; the sharded (tensor-parallel) train step on a
+(2, 2) mesh against the single-device step (what
+``tests/test_distributed.py:23`` means; ``test_torch_tp.py`` holds more
+configs and meshes);
 elastic 8 -> 4 -> 8 (``:56``); ``compressed_psum`` over 8 ranks against
 the reference's ``shard_map`` run (``:78``); GPipe on 4 ranks against the
 layers in sequence (``:104``, what it means).
 
 Each multi-process check starts one ``tests/torch_dist_worker.py`` process
-per rank, joined through a ``FileStore`` in the test's temporary directory
-(no port, so the xdist workers cannot collide), with its own timeout.
+per rank (``torch_dist_worker.run_ranks``), joined through a ``FileStore``
+in the test's temporary directory (no port, so the xdist workers cannot
+collide), with its own timeout.
 """
 import os
 import subprocess
 import sys
-import time
 import types
 
 import jax
@@ -31,34 +33,11 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.distributed import sharding
 from repro_torch.models import build_model
 from repro_torch.models.model import forward, init_cache
+from torch_dist_worker import REPO
+from torch_dist_worker import run_ranks as _run_ranks
 
 torch.set_num_threads(1)
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(REPO, "tests", "torch_dist_worker.py")
 MESHES = {"2x2": ("data", "model"), "2x2x2": ("pod", "data", "model")}
-
-
-def _run_ranks(check, world, tmp_path, timeout=90):
-    """Run ``check`` on ``world`` gloo ranks; return each rank's output."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    store = tmp_path / "store"
-    procs = [subprocess.Popen(
-        [sys.executable, WORKER, check, str(r), str(world), str(store),
-         str(tmp_path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, env=env) for r in range(world)]
-    deadline = time.monotonic() + timeout
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(
-                timeout=max(deadline - time.monotonic(), 1))[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r}:\n{out}"
-    return outs
 
 
 def _same_specs(got, want, path=""):

@@ -4,11 +4,14 @@ The reference's own contract (``tests/test_distributed.py:130-148``),
 which its XLA dry run fails, through the port's CLI on fake (2, 2) and
 (2, 2, 2) meshes with ``--device cpu``; ``benchmarks/roofline.py``
 renders the rows. At the reduced granite-3-2b on a fake (2, 2) mesh: the
-traced FLOPs per rank are exactly the count of ``FlopCounterMode`` over
-the unsharded step on real CPU tensors at the per-rank batch, and on a
-one-rank mesh at the whole batch; the all-gather and reduce-scatter
-bytes are what ``param_specs`` implies. On a real one-rank gloo mesh the
-sharded prefill and decode are bitwise the unsharded steps.
+traced train step's FLOPs and peak memory per rank are exactly those of
+the same step run for real on a (2, 2) gloo mesh (``FlopCounterMode`` and
+``dryrun.LiveMode`` in each rank, ``torch_dist_worker.dry_real``); the
+traced prefill and decode FLOPs are the count over the unsharded step on
+real CPU tensors at the per-rank batch, and every step's on a one-rank
+mesh at the whole batch; the collective bytes are what ``param_specs``
+and the shapes imply. On a real one-rank gloo mesh the sharded prefill
+and decode are bitwise the unsharded steps.
 """
 import json
 import logging
@@ -34,6 +37,7 @@ from repro_torch.models.model import decode_step, init_cache, prefill  # noqa: E
 from repro_torch.train.optimizer import make_optimizer  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
 from repro_torch.utils.misc import tree_flatten_with_path  # noqa: E402
+from torch_dist_worker import run_ranks  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # DTensor warns at every two-axis redistribution; the tests read numbers
@@ -95,12 +99,40 @@ def _trace(kind, world, shape=(2, 2)):
         return dryrun.trace_cell(CFG, SHAPES[kind], mesh, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def real_train(tmp_path_factory):
+    """The (2, 2) train cell run for real on 4 gloo ranks: each rank's
+    FLOPs, peak and argument GiB."""
+    tmp = tmp_path_factory.mktemp("dry_real")
+    run_ranks("dry_real", 4, tmp, timeout=240)
+    return [json.load(open(tmp / f"dry_{r}.json")) for r in range(4)]
+
+
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-def test_traced_flops_are_the_real_count_per_rank(kind):
+def test_traced_flops_are_the_real_count_per_rank(kind, request):
     got = _trace(kind, 4)
     assert got["kind"] == kind
+    if kind == "train":
+        # tensor-parallel over "model", the batch halved over "data"
+        real = request.getfixturevalue("real_train")
+        assert all(got["flops"] == r["flops"] for r in real), real
+        assert got["flops"] < _real_flops(kind, SHAPES[kind].global_batch
+                                          // 2)
+        return
     # the (2, 2) mesh's FSDP axis is "data": each rank takes half the batch
     assert got["flops"] == _real_flops(kind, SHAPES[kind].global_batch // 2)
+
+
+def test_traced_peak_of_the_train_cell_is_the_real_runs_per_rank(
+        real_train):
+    """The fake trace's books of live storages (``TraceMode``) against the
+    same books kept over the real step on each rank (``LiveMode``): the
+    arguments and the peak, each layer's gathered weights freed after the
+    layer and gathered again in the backward."""
+    mem = _trace("train", 4)["memory"]
+    for r in real_train:
+        assert mem["argument_gb"] == r["argument_gb"], (mem, r)
+        assert mem["peak_gb"] == r["peak_gb"], (mem, r)
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
@@ -111,26 +143,58 @@ def test_one_rank_mesh_traces_the_unsharded_flops(kind):
 
 
 def test_collective_bytes_are_what_param_specs_imply():
-    """On (2, 2) each weight is gathered whole once a step (an axis of 2
-    the spec shards: the first gather returns half the weight, the second
-    the whole), and each gradient sharded over "data" is reduce-scattered
-    to half."""
-    got = _trace("train", 4)["collectives"]["bytes_by_kind"]
+    """The train step on (2, 2), 4 x 64 tokens (2 a rank), fp32, derived
+    from ``param_specs`` and the shapes:
+
+      * all-gather: each layer's leaf with an FSDP dim, gathered over
+        "data" to its "model" shard (nbytes / 2 of the stacked leaf over
+        its layers) in the forward and again in the backward's recompute;
+        one gather a layer and leaf, never a whole weight;
+      * reduce-scatter: each such leaf's gradient onto its (2, 2) shard
+        (nbytes / 4), once;
+      * all-reduce over "data": the gradient of each leaf with no FSDP dim,
+        its local shard's bytes (``embed`` and ``lm_head`` over "model",
+        the norms whole);
+      * all-reduce over "model", activations (2, 64, d): the embedding's
+        sum; in each block 2 in the forward (after ``wo`` and ``w_down``),
+        1 in the recompute (after ``wo``: the recompute stops at the last
+        tensor the backward needs, before the block's last sum) and 2 in
+        the backward (the gradients of the attention's and the MLP's
+        inputs); the gradient of the logits' input; and the
+        cross-entropy's max, sum and label logit, (2, 64) fp32;
+      * the loss's sum over "data" and the clip's norm: a few scalars.
+
+    The prefill (not yet tensor-parallel) gathers each weight whole."""
+    got = _trace("train", 4)["collectives"]
     params = build_model(CFG).init(0, device="cpu")
     paths, leaves = tree_flatten_with_path(params)
     _, specs = tree_flatten_with_path(param_specs(params, ("data",
                                                            "model")))
-    gather = scatter = 0
+    gather = scatter = data_sums = whole = n_gathered = 0
     for t, spec in zip(leaves, specs):
         nbytes = t.numel() * t.element_size()
         axes = [a for e in spec for a in ((e,) if isinstance(e, str)
                                           else e or ())]
-        gather += {0: 0, 1: nbytes, 2: nbytes + nbytes // 2}[len(axes)]
-        scatter += nbytes // 2 if "data" in axes else 0
-    assert got["all-gather"] == gather > 0
-    assert got["reduce-scatter"] == scatter > 0
+        local = nbytes // 2 ** len(axes)
+        if "data" in axes:
+            gather += 2 * nbytes // (2 if "model" in axes else 1)
+            scatter += local
+            n_gathered += 2 * t.shape[0]
+        else:
+            data_sums += local
+        whole += {0: 0, 1: nbytes, 2: nbytes + nbytes // 2}[len(axes)]
+    b, s = SHAPES["train"].global_batch // 2, SHAPES["train"].seq_len
+    act = b * s * CFG.d_model * 4
+    model_sums = act * (1 + 5 * CFG.n_layers + 1) + 3 * b * s * 4
+    by_kind = got["bytes_by_kind"]
+    assert by_kind["all-gather"] == gather > 0
+    assert got["counts"]["all-gather"] == n_gathered
+    assert by_kind["reduce-scatter"] == scatter > 0
+    want = data_sums + model_sums
+    assert want <= by_kind["all-reduce"] <= want + 64, (by_kind, want)
+    assert by_kind["all-to-all"] == 0     # (2, 2): heads and KV heads align
     serve = _trace("prefill", 4)["collectives"]["bytes_by_kind"]
-    assert serve["all-gather"] == gather and serve["reduce-scatter"] == 0
+    assert serve["all-gather"] == whole and serve["reduce-scatter"] == 0
 
 
 def test_sharded_serve_is_bitwise_on_one_rank(tmp_path):

@@ -1,18 +1,52 @@
 """One rank of a multi-process check of the port's distributed layer, for
-``tests/test_torch_distributed.py``:
+``tests/test_torch_distributed.py``, ``test_torch_tp.py`` and
+``test_torch_dryrun.py``:
 
-    python tests/torch_dist_worker.py CHECK RANK WORLD STORE_FILE OUT_DIR
+    python tests/torch_dist_worker.py CHECK[:ARG] RANK WORLD STORE_FILE OUT_DIR
 
 Each rank joins a gloo group through a ``FileStore`` (no port), runs
-CHECK on the CPU and exits 0, or raises. Imports torch and the port only.
+CHECK (with ARG, where it takes one) on the CPU and exits 0, or raises.
+Imports torch and the port only. ``run_ranks`` starts the ranks for a
+test.
 """
+import collections
+import os
+import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_ranks(check, world, tmp_path, timeout=90):
+    """Run ``check`` on ``world`` gloo ranks, one process each, joined
+    through a ``FileStore`` in ``tmp_path`` (no port, so the xdist workers
+    cannot collide); return each rank's output, or fail with the output
+    of the first rank that did not exit 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    store = tmp_path / "store"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), check, str(r),
+         str(world), str(store), str(tmp_path)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out}"
+    return outs
 
 
 def granite(rank, world, out):
@@ -43,7 +77,7 @@ def granite(rank, world, out):
     params = model.init(0, device="cpu")
     tokens = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32))
     batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
-    lr = 3e-4
+    lr = TP_LR
     opt = make_optimizer("adamw", lr=lr)
     _, g_ref = step_mod._value_and_grad(model.loss, params, batch)
     ref = tree_map(torch.clone, params)
@@ -91,6 +125,404 @@ def granite(rank, world, out):
           f"{float(m_ref['loss'])!r}; loss, grad norm and gradients "
           f"{max(worst.values()):.3e} apart at most; parameters "
           f"{moved:.3e} lr ({prel:.3e} of the largest)")
+
+
+def _rel(a, b):
+    """Largest |a - b| over the largest |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+# ------------------------------------------------ tensor parallelism (TP)
+TP_ARCHS = {"granite": "granite-3-2b", "phi": "phi3.5-moe-42b-a6.6b",
+            "mamba2": "mamba2-780m", "zamba2": "zamba2-7b"}
+TP_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+TP_BATCH, TP_SEQ, TP_LR = 4, 32, 3e-4
+# The JAX reference's own spread at these inputs under 1-ulp moves of every
+# weight (tools/port_tp_spread.py): the largest relative change of any
+# gradient leaf, and the largest move after AdamW, in lr, of a parameter
+# whose gradient lies near AdamW's eps (|g| <= NEAR_EPS). The TP step's
+# gradients are held to 1e-6, or to twice the first where larger. Its
+# parameters whose gradient exceeds NEAR_EPS are held to 0.05 lr: their
+# first update g / (|g| + eps) is the gradient's sign within 1e-3, which
+# the gradient limit fixes. The others are held to 0.05 lr, or to twice
+# the second where larger (mamba2-780m: a 1-ulp move of the reference's
+# weights moves one of them by 0.314 lr, the others 4.0e-4 lr at most).
+NEAR_EPS = 1e3 * 1e-8
+TP_SPREAD = {"granite": (8.809e-07, 0.03650), "phi": (1.182e-06, 0.02852),
+             "mamba2": (1.319e-06, 0.3139), "zamba2": (1.273e-06, 0.04925)}
+
+
+def tp_limits(arch):
+    """(gradient limit, parameter limit near eps) of ``TP_ARCHS[arch]``."""
+    return max(1e-6, 2 * TP_SPREAD[arch][0]), max(0.05, 2 * TP_SPREAD[arch][1])
+
+
+def adamw_moves(got, want, grads, lr):
+    """The largest |got - want| / lr over the parameters (matching lists of
+    tensors) whose one-device gradient in ``grads`` exceeds NEAR_EPS, and
+    over the others."""
+    far = near = 0.0
+    for g, w, gr in zip(got, want, grads):
+        moved = (g - w).abs() / lr
+        small = gr.abs() <= NEAR_EPS
+        far = max(far, float(torch.where(small, 0.0, moved).max()))
+        near = max(near, float(torch.where(small, moved, 0.0).max()))
+    return far, near
+
+
+def _replicated_flops(cfg, tokens, n_model, recompute):
+    """FLOPs (fwd, its recompute, and 2x in the backward) of the products
+    that every "model" rank computes in full or in part more than its
+    1 / model share, per config, at ``tokens`` tokens a rank:
+
+      * attention (dense, moe, hybrid): the whole KV heads a rank's query
+        heads use, beyond its kvd / model columns of ``wk`` and ``wv``
+        (the reduced configs' 2 KV heads over 4 ranks: 32 columns each
+        against 16);
+      * moe: the router, d x E, on every rank;
+      * Mamba2 (ssm, hybrid): ``in_proj``'s B and C columns, d x 2N, and
+        the scan's head-independent C B^T products, (Q x N) x (N x Q) a
+        chunk, forward and the two of its backward."""
+    from repro_torch.distributed import tp
+    d, passes = cfg.d_model, 3 + recompute
+    n = 0
+    n_attn = cfg.n_attn_layers() if cfg.family != "ssm" else 0
+    if n_attn:
+        g = cfg.n_heads // cfg.n_kv
+        worst = 0
+        for r in range(n_model):
+            h0, h1 = r * cfg.n_heads // n_model, \
+                (r + 1) * cfg.n_heads // n_model
+            worst = max(worst, ((h1 - 1) // g + 1 - h0 // g) * cfg.head_dim)
+        extra = worst - cfg.n_kv * cfg.head_dim / n_model
+        n += n_attn * passes * 2 * tokens * d * 2 * extra
+    if cfg.family == "moe":
+        n += cfg.n_layers * passes * 2 * tokens * d * cfg.n_experts
+    if cfg.n_ssm_layers():
+        q = min(128, TP_SEQ)
+        per = passes * 2 * tokens * d * 2 * cfg.ssm_state \
+            + passes * 2 * tokens * q * cfg.ssm_state
+        n += cfg.n_ssm_layers() * per
+    del tp
+    return n
+
+
+def tp_step(rank, world, out, arg):
+    """The reduced ARCH train step on a MESH ("data", "model") gloo mesh
+    (``ARG`` = "arch/mesh", of ``TP_ARCHS`` and ``TP_MESHES``), tensor-
+    parallel over "model" with each layer's weights gathered over "data",
+    against the single-device step from the same parameters: the loss, the
+    gradient norm and every gradient within 1e-6 of the largest |value|,
+    the parameters after the AdamW step within 0.05 x lr (as ``granite``),
+    those whose gradient lies near AdamW's eps within twice the
+    reference's own spread where that is larger (``TP_SPREAD``);
+    each rank's FLOPs (``FlopCounterMode`` over its loss and gradients) at
+    most 1 / model of the single-device step's on its batch shard plus the
+    replicated products (``_replicated_flops``)."""
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (axis_rules, batch_specs,
+                                                  distribute, local_tree,
+                                                  param_specs)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.misc import tree_flatten_with_path, tree_map
+    arch, mesh_name = arg.split("/")
+    n_data, n_model = TP_MESHES[mesh_name]
+    cfg = get_config(TP_ARCHS[arch]).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab,
+                                               (TP_BATCH, TP_SEQ))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+    if cfg.family == "vlm":
+        raise ValueError("no vlm config in TP_ARCHS")
+    lr = TP_LR
+    opt = make_optimizer("adamw", lr=lr)
+    _, g_ref = step_mod._value_and_grad(model.loss, params, batch)
+    ref = tree_map(torch.clone, params)
+    m_ref, ref, _ = make_train_step(cfg, opt)(ref, opt.init(ref), batch)
+    # the single-device FLOPs on this rank's batch shard, each block
+    # recomputed as the sharded step recomputes it when it gathers
+    recompute = n_data > 1
+    one = dataclasses.replace(cfg, remat="block") if recompute else cfg
+    shard = {"tokens": batch["tokens"][:TP_BATCH // n_data]}
+    with FlopCounterMode(display=False) as fc:
+        step_mod._value_and_grad(build_model(one).loss, params, shard)
+    want_flops = fc.get_total_flops()
+    mesh = make_test_mesh(n_data, n_model, device_type="cpu")
+    with axis_rules(mesh):
+        dp = distribute(params, mesh, param_specs(params, mesh))
+        state = opt.init(local_tree(dp))
+        db = distribute(batch, mesh, batch_specs(batch, mesh))
+        with FlopCounterMode(display=False) as fc:
+            _, g_dp = step_mod._sharded(
+                lambda p, b: step_mod._value_and_grad(model.loss, p, b),
+                mesh)(dp, db)
+        got_flops = fc.get_total_flops()
+        m, dp, state = make_train_step(cfg, opt, mesh=mesh)(dp, state, db)
+    worst = {k: _rel(m[k], m_ref[k]) for k in ("loss", "grad_norm")}
+    paths, got = tree_flatten_with_path(g_dp)
+    for p, g, w in zip(paths, got, tree_flatten_with_path(g_ref)[1]):
+        worst[f"grad {p}"] = _rel(g.full_tensor(), w)
+    grad_tol, near_tol = tp_limits(arch)
+    bad = {k: v for k, v in worst.items() if v > grad_tol}
+    assert not bad, (bad, grad_tol)
+    far, near = adamw_moves(
+        [t.full_tensor() for t in tree_flatten_with_path(dp)[1]],
+        tree_flatten_with_path(ref)[1], tree_flatten_with_path(g_ref)[1], lr)
+    assert far <= 0.05 and near <= near_tol, (far, near, near_tol)
+    extra = _replicated_flops(cfg, TP_BATCH // n_data * TP_SEQ, n_model,
+                              recompute)
+    limit = want_flops / n_model + extra
+    assert got_flops <= limit, (got_flops, want_flops, extra)
+    print(f"OK {cfg.name} rank {rank} on {n_data} x {n_model}: loss "
+          f"{float(m['loss'])!r} vs {float(m_ref['loss'])!r}; loss, grad "
+          f"norm and gradients {max(worst.values()):.3e} apart at most "
+          f"(tol {grad_tol:.3e}); parameters {far:.3e} lr (tol 0.05), "
+          f"those near eps {near:.3e} lr (tol {near_tol:.3e}); FLOPs "
+          f"{got_flops} <= "
+          f"{want_flops} / {n_model} + {extra:.0f} = {limit:.0f} "
+          f"({got_flops / want_flops:.4f} of one device)")
+
+
+def tp_one_rank(rank, world, out):
+    """Each of ``TP_ARCHS``' reduced train steps on a one-rank (1, 1) mesh
+    bitwise the unsharded step: the loss, the gradient norm and every
+    parameter after AdamW (a group of one gathers nothing and sums
+    nothing)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (axis_rules, batch_specs,
+                                                  distribute, local_tree,
+                                                  param_specs)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils.misc import tree_flatten_with_path, tree_map
+    mesh = make_test_mesh(1, 1, device_type="cpu")
+    for arch in TP_ARCHS.values():
+        cfg = get_config(arch).reduced()
+        params = build_model(cfg).init(0, device="cpu")
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                   (TP_BATCH, TP_SEQ))
+        batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+        opt = make_optimizer("adamw", lr=3e-4)
+        ref = tree_map(torch.clone, params)
+        m_ref, ref, _ = make_train_step(cfg, opt)(ref, opt.init(ref), batch)
+        with axis_rules(mesh):
+            dp = distribute(params, mesh, param_specs(params, mesh))
+            db = distribute(batch, mesh, batch_specs(batch, mesh))
+            m, dp, _ = make_train_step(cfg, opt, mesh=mesh)(
+                dp, opt.init(local_tree(dp)), db)
+        got = tree_flatten_with_path(local_tree(dp))[1]
+        want = tree_flatten_with_path(ref)[1]
+        assert all(torch.equal(m[k], m_ref[k]) for k in ("loss",
+                                                         "grad_norm")), arch
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), arch
+        print(f"OK {arch}: loss, grad norm and {len(got)} parameters "
+              f"bitwise on a one-rank mesh")
+
+
+def _run(fn, args, mesh=None):
+    """(``fn(*args)``, the gradients of its floating inputs) of a fixed
+    weighting of its output (the same on every rank), under TP over
+    ``mesh`` when given."""
+    from repro_torch.distributed import tp
+    args = [a.detach().requires_grad_(a.is_floating_point()) for a in args]
+    if mesh is None:
+        y = fn(*args)
+    else:
+        with tp.sharded(mesh):
+            y = fn(*args)
+    w = torch.linspace(-1.0, 1.0, y.numel(), dtype=y.dtype).reshape(y.shape)
+    torch.autograd.backward((y * w).sum())
+    return y.detach(), [a.grad for a in args if a.requires_grad]
+
+
+def _tp_pair(fn, full, shards):
+    """``fn`` on the whole tensors ``full`` on one device, and on this
+    rank's ``shards`` under TP over a (1, world) mesh: (one-device output,
+    TP output, one-device gradients, TP gradients), each gradient of the
+    same input in the same order."""
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(1, dist.get_world_size(), device_type="cpu")
+    y1, g1 = _run(fn, full)
+    y2, g2 = _run(fn, shards, mesh)
+    return y1, y2, g1, g2
+
+
+def tp_unit(rank, world, out, arg):
+    """One piece of ``distributed.tp`` on ``world`` "model" ranks against
+    one device, at a small size (forward and every gradient within 1e-6 of
+    the largest |value|; the embedding bitwise):
+
+      * vocab: the vocab-parallel embedding, logits and cross-entropy on a
+        true vocab of 300 in a padded 512 (the padded tail straddles a
+        rank's columns);
+      * mlp: the column- then row-parallel SwiGLU;
+      * gqa: attention with 2 KV heads over 4 ranks (with biases);
+      * uneven: 10 query heads on 10 KV heads over 4 ranks (2 or 3 whole
+        heads a rank, as qwen1.5-32b's 40 over 16; a head's columns split
+        across two ranks' shards).
+
+    The attention checks hold each tensor to the larger of 1e-6 and twice
+    the one-device step's own spread: the same block with its heads in
+    reverse order (a bias gradient sums each head's outputs over every
+    position, and the heads' order alone moves it by ~1e-6)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tp
+    from repro_torch.models import attention, layers
+    m, r = world, rank
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape, std=0.5):
+        return torch.randn(shape, generator=gen) * std
+
+    def cols(t, dim=-1):
+        return torch.chunk(t, m, dim)[r]
+    checks = []
+    spread = collections.defaultdict(float)
+    if arg == "vocab":
+        cfg = dataclasses.replace(get_config("granite-3-2b").reduced(),
+                                  vocab=300, d_model=16)
+        v = cfg.padded_vocab
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (2, 12)))
+        table, head = rnd(v, 16), rnd(16, v)
+        labels = torch.roll(tokens, -1, 1)
+        mask = torch.ones(2, 12)
+        mask[:, -1] = 0.0
+
+        def loss(t, hd):
+            h = layers.embed_tokens({"embed": t}, tokens, torch.float32)
+            logits = layers.logits_fn({"lm_head": hd}, torch.tanh(h), cfg)
+            return layers.cross_entropy(logits, labels, mask)[None]
+        y1, y2, g1, g2 = _tp_pair(loss, [table, head],
+                                  [cols(table, 0), cols(head)])
+        checks += [("loss", y2, y1), ("d embed", g2[0], cols(g1[0], 0)),
+                   ("d lm_head", g2[1], cols(g1[1]))]
+
+        def emb(t):
+            return layers.embed_tokens({"embed": t}, tokens, torch.float32)
+        e1, e2, ge1, ge2 = _tp_pair(emb, [table], [cols(table, 0)])
+        assert torch.equal(e1, e2), "the embedding is not bitwise"
+        checks += [("d embed (lookup)", ge2[0], cols(ge1[0], 0))]
+    elif arg == "mlp":
+        x, wg, wu, wd = rnd(2, 8, 16), rnd(16, 64), rnd(16, 64), rnd(64, 16)
+
+        def mlp(x, wg, wu, wd):
+            return layers.mlp({"w_gate": wg, "w_up": wu, "w_down": wd}, x,
+                              torch.float32)
+        y1, y2, g1, g2 = _tp_pair(mlp, [x, wg, wu, wd],
+                                  [x, cols(wg), cols(wu), cols(wd, 0)])
+        checks += [("out", y2, y1), ("dx", g2[0], g1[0]),
+                   ("d w_gate", g2[1], cols(g1[1])),
+                   ("d w_up", g2[2], cols(g1[2])),
+                   ("d w_down", g2[3], cols(g1[3], 0))]
+    elif arg in ("gqa", "uneven"):
+        base = get_config("granite-3-2b").reduced()
+        shapes = [(4, 2)] if arg == "gqa" else [(10, 10)]
+        for n_heads, n_kv in shapes:
+            cfg = dataclasses.replace(base, d_model=16, n_heads=n_heads,
+                                      n_kv=n_kv, head_dim=8, qkv_bias=True)
+            qd, kvd = n_heads * 8, n_kv * 8
+            names = ["wq", "wk", "wv", "wo", "bq", "bk", "bv"]
+            full = [rnd(16, qd), rnd(16, kvd), rnd(16, kvd), rnd(qd, 16),
+                    rnd(qd), rnd(kvd), rnd(kvd)]
+            x = rnd(2, 12, 16, std=1.0)
+            pos = torch.arange(12)[None].expand(2, 12)
+
+            def block(x, *ws):
+                return attention.attention_block(dict(zip(names, ws)), x,
+                                                 cfg, pos)[0]
+            q_rev = torch.arange(qd).reshape(n_heads, 8).flip(0).flatten()
+            kv_rev = torch.arange(kvd).reshape(n_kv, 8).flip(0).flatten()
+            rev = [q_rev, kv_rev, kv_rev, q_rev, q_rev, kv_rev, kv_rev]
+
+            def reversed_heads(x, *ws):
+                ws = [w.index_select(-1 if nm != "wo" else 0, i)
+                      for nm, w, i in zip(names, ws, rev)]
+                return attention.attention_block(dict(zip(names, ws)), x,
+                                                 cfg, pos)[0]
+            local = [cols(full[0]), cols(full[1]), cols(full[2]),
+                     cols(full[3], 0), *full[4:]]
+            y1, y2, g1, g2 = _tp_pair(block, [x, *full], [x, *local])
+            y3, g3 = _run(reversed_heads, [x, *full])
+            tag = f"{n_heads}/{n_kv}"
+            checks += [(f"{tag} out", y2, y1), (f"{tag} dx", g2[0], g1[0])]
+            spread[f"{tag} out"] = _rel(y3, y1)
+            spread[f"{tag} dx"] = _rel(g3[0], g1[0])
+            for i, nm in enumerate(names):
+                want = g1[i + 1]
+                spread[f"{tag} d {nm}"] = _rel(g3[i + 1], want)
+                if nm in ("wq", "wk", "wv"):
+                    want = cols(want)
+                elif nm == "wo":
+                    want = cols(want, 0)
+                checks.append((f"{tag} d {nm}", g2[i + 1], want))
+            if arg == "uneven":
+                sizes = {h1 - h0 for (h0, h1), _ in
+                         tp.head_split(n_heads, n_kv, m)}
+                assert sizes == {2, 3}, sizes
+    else:
+        raise ValueError(arg)
+    worst = {k: _rel(a, b) for k, a, b in checks}
+    bad = {k: v for k, v in worst.items() if v > max(1e-6, 2 * spread[k])}
+    assert not bad, (bad, spread)
+    print(f"OK {arg} rank {rank}: {len(checks)} tensors, "
+          f"{max(worst.values()):.3e} apart at most; the one-device "
+          f"spread {max(spread.values(), default=0.0):.3e} at most")
+
+
+def dry_real(rank, world, out):
+    """The dry run's (2, 2) train cell of ``tests/test_torch_dryrun.py``
+    (the reduced granite-3-2b, 4 x 64 tokens, AdamW) run for real: each
+    rank writes its ``FlopCounterMode`` count and ``dryrun.LiveMode``'s
+    peak of live bytes over the step (to ``out``/dry_<rank>.json), for the
+    test to hold the traced cell to."""
+    import json
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (axis_rules, batch_specs,
+                                                  distribute, local_tree,
+                                                  param_specs)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+    cfg = get_config("granite-3-2b").reduced()
+    mesh = make_test_mesh(2, 2, device_type="cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (4, 64))
+    with axis_rules(mesh):
+        params = init_params(cfg, 0, device="cpu")
+        params = distribute(params, mesh, param_specs(params, mesh))
+        opt = make_optimizer("adamw")
+        state = opt.init(local_tree(params))
+        batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+        batch = distribute(batch, mesh, batch_specs(batch, mesh))
+        step = make_train_step(cfg, opt, mesh=mesh)
+        args = (params, state, batch)
+        with dryrun.LiveMode(args) as live, \
+                FlopCounterMode(display=False) as fc:
+            held = live.live
+            step(*args)
+    got = {"flops": fc.get_total_flops(), "peak_gb": live.peak / 1024**3,
+           "argument_gb": held / 1024**3}
+    with open(f"{out}/dry_{rank}.json", "w") as f:
+        json.dump(got, f)
+    print(f"OK rank {rank}: {got}")
 
 
 def elastic(rank, world, out):
@@ -251,10 +683,11 @@ def serve_one_rank(rank, world, out):
 
 if __name__ == "__main__":
     check, rank, world, store, out = sys.argv[1:6]
+    check, _, arg = check.partition(":")
     rank, world = int(rank), int(world)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        globals()[check](rank, world, out)
+        globals()[check](rank, world, out, *([arg] if arg else []))
     finally:
         dist.destroy_process_group()
