@@ -42,7 +42,9 @@ Phases (any failure exits non-zero, without the final result line):
   8. hold K4 flash_attention, K5 flash_decode and K6 ssd_scan against their
      plain versions on the card at the reference's test shapes, fp32 and
      bf16; K6 in bf16 also no farther from its plain version, relative to
-     the largest |y|, than twice the fp32 kernel fed the same values;
+     the largest |y|, than twice the fp32 kernel fed the same values; K5
+     also on e4m3 caches (P rounded to e4m3 and to the query's type) and
+     its log-sum-exp variant over 1, 2 and 4 slices of the cache;
   9. serve zamba2-7b at full width (bf16, random weights from a seed) on the
      card through ``ServeEngine`` with ``KVCacheSizer``: 32 requests in 4
      batches of 8, prompts of 256..2048 tokens, 32 new tokens each at
@@ -50,13 +52,21 @@ Phases (any failure exits non-zero, without the final result line):
      once per attention and Mamba2 layer per batch, K5 once per attention
      layer per decode step, K1 and K2 from the sizer; every logit finite and
      each batch's cache bytes the reference layout's; then K4-K6 are
-     checked as in 8 at every shape the run launched;
+     checked as in 8 at every shape the run launched; (b) the same model on
+     an e4m3 cache, phase 10's 8 x 1,024 tokens and 8 decode steps fed
+     its greedy tokens (run after 10), counters zeroed just before: K5 on
+     e4m3 once per attention layer a step, each call held to its plain
+     version on the inputs the path gave it, the logits' distance from
+     phase 10's bf16-cache run printed and held to phase 10's limit;
  10. feed the same tokens to the kernel path and the plain path at full
      width in bf16 (prefill and 8 decode steps) and compare the logits;
  11. serve zamba2-7b at full width cut to 6 layer positions in fp32 on the
      card and on the CPU: equal greedy tokens, logits within a tolerance;
  12. time K4-K6 at their most launched full-width shapes beside their plain
-     versions, PyTorch's scaled_dot_product_attention (K4, K5) and bounds,
+     versions, PyTorch's scaled_dot_product_attention (K4, K5) and bounds
+     (K5 also on the cache cast to e4m3, beside the library call on it
+     widened to bf16, and its log-sum-exp variant, beside the
+     memory-efficient attention that returns one),
      with K4's achieved TFLOP/s, K5's and K6's GB/s and K6's largest
      difference from its plain version there, in bf16 and from the fp32
      kernel fed the same values (the bf16 one at most twice the fp32).
@@ -111,7 +121,12 @@ Phases (any failure exits non-zero, without the final result line):
      (b) two processes on the card, a (1, 2) gloo mesh: the reduced
      granite-3-2b and mamba2-780m steps tensor-parallel over "model"
      within the CPU tests' limits of the one-device step, K4's and K6's
-     launches per rank the one-device step's.
+     launches per rank the one-device step's; then the serve through
+     ``launch.dryrun.serve_step`` (the cache as ``cache_specs`` lays it
+     out, K5's log-sum-exp variant on each rank's slice), reduced
+     granite-3-2b and zamba2-7b at the CPU tests' limits and zamba2-7b at
+     full width, 3 layer positions, bf16, against one device; K5's
+     variants checked at a rank's slice of the production meshes' decode.
  17. (last) the dry run (``repro_torch.launch.dryrun``) in a process of
      its own: (a) phase 15's granite-3-2b and mamba2-780m steps traced on
      fake CUDA tensors over a (1, 1) fake mesh, through K4-K6's fake
@@ -2294,6 +2309,14 @@ LM_TOL = {"flash_attention": (2e-5, 2e-2), "flash_decode": (2e-5, 3e-2),
 # positions: at most 3.019e-6 on an H100, held to 1e-5 (PERF.md)
 TF_BATCH, TF_LEN, TF_STEPS = 8, 1024, 8
 TF_RTOL = 0.1
+# K5 with a bf16 query on an e4m3 cache (P in bf16) and K5's log-sum-exp
+# variant in bf16, against their plain versions: |kernel - plain| <=
+# tol * (1 + |plain|). At most 3.906e-3 and 2.065e-3 on an H100 at the
+# shapes of phases 8, 9 and 16 (b), against q, k, v ~ N(0, 1) outputs of
+# 0.03-0.05; held to 1e-2 (K5's own bf16 limit, 3e-2, is the size of a
+# typical output there). With P rounded to e4m3 the plain version's own
+# rounding flips reach 1.534e-2: those rows keep 3e-2.
+K5_BF16_TOL = 1e-2
 CVC_LAYERS, CVC_BATCH, CVC_LEN, CVC_NEW = 6, 2, 256, 8
 CVC_RTOL = 1e-5
 DEV = "cuda"
@@ -2436,6 +2459,84 @@ def check_lm_kernels(k4_shapes, k5_shapes, k6_shapes, label="check") -> dict:
     return err
 
 
+def check_k5_variants(k5_shapes, label="check") -> dict:
+    """K5 on an e4m3 cache (P rounded to e4m3, the TPU kernel's function,
+    and to the query's type, the model's) and K5's log-sum-exp variant
+    over 1, 2 and 4 slices of the cache (each slice's offset; a slice past
+    pos must give o = 0 and lse = -inf exactly), against their plain
+    versions on the card, fp32 and bf16 queries: with P in e4m3 within
+    K5's bf16 limit (P keeps 4 significant bits; a score one ulp apart
+    may round P to a neighbour), with P in the query's type within K5's
+    fp32 limit or K5_BF16_TOL; the log-sum-exp variant's output and
+    log-sum-exp within K5's fp32 limit or K5_BF16_TOL. Returns the
+    largest absolute difference of each."""
+    import torch
+    from repro_torch.kernels.flash_decode.ops import (FP8, flash_decode,
+                                                      flash_decode_lse)
+    from repro_torch.kernels.flash_decode.ref import (
+        flash_decode_lse_plain, flash_decode_plain)
+    dev = torch.device(DEV)
+    err = {"flash_decode_fp8": 0.0, "flash_decode_lse": 0.0}
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def close(name, pairs, tol, what):
+        """Hold each (kernel, plain) pair; -inf only where the plain
+        version has it."""
+        e, ok = 0.0, True
+        for got, want in pairs:
+            fin = torch.isfinite(want)
+            ok &= bool(torch.equal(fin, torch.isfinite(got))) and bool(
+                (got[~fin] == want[~fin]).all())
+            diff = (got.float() - want.float())[fin].abs()
+            if diff.numel():
+                e = max(e, float(diff.max()))
+                ok &= bool((diff <= tol * (1 + want.float()[fin].abs()))
+                           .all())
+        print(f"[{label}] {name} {what}: max abs err {e:.3e} (tol {tol:g} "
+              f"x (1+|plain|)) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"{name} disagrees with its plain version at {what}")
+        err[name] = max(err[name], e)
+
+    for i, shape in enumerate(k5_shapes):
+        for dtype in (f32, bf16):
+            q, kc, vc, pos = lm_kernel_inputs("flash_decode", shape, dtype,
+                                              300 + i, dev)
+            if shape[4] % 16 == 0:
+                k8, v8 = kc.to(FP8), vc.to(FP8)
+                for p_dtype in (FP8, dtype):
+                    got = flash_decode(q, k8, v8, pos, p_dtype=p_dtype)
+                    want = flash_decode_plain(q, k8, v8, pos, p_dtype=p_dtype)
+                    torch.cuda.synchronize()
+                    tol = (LM_TOL["flash_decode"][1] if p_dtype == FP8
+                           else K5_BF16_TOL if dtype == bf16
+                           else LM_TOL["flash_decode"][0])
+                    close("flash_decode_fp8", [(got, want)], tol,
+                          f"(B,S_max,H,Hkv,D,pos)={shape} "
+                          f"{str(dtype)[6:]} P {str(p_dtype)[6:]}")
+                del k8, v8
+            pairs = []
+            for n in (1, 2, 4):
+                sl = -(-shape[1] // n)
+                for r in range(n):
+                    ks, vs = kc[:, r * sl:(r + 1) * sl], vc[:, r * sl:
+                                                            (r + 1) * sl]
+                    got = flash_decode_lse(q, ks, vs, pos, offset=r * sl,
+                                           p_dtype=dtype)
+                    want = flash_decode_lse_plain(q, ks, vs, pos,
+                                                  offset=r * sl,
+                                                  p_dtype=dtype)
+                    pairs += list(zip(got, want))
+            torch.cuda.synchronize()
+            close("flash_decode_lse", pairs, K5_BF16_TOL if dtype == bf16
+                  else LM_TOL["flash_decode"][0],
+                  f"(B,S_max,H,Hkv,D,pos)={shape} "
+                f"{str(dtype)[6:]}, out and lse over 1, 2 and 4 slices")
+            del q, kc, vc, pairs
+    torch.cuda.empty_cache()
+    return err
+
+
 def k6_fp32_distance(x, dt, bm, cm, a, qc, wy, wst):
     """The fp32 kernel fed bf16 inputs' values cast up: its largest
     distance from the plain version (``wy``, ``wst``, which computes in fp32
@@ -2452,15 +2553,17 @@ def k6_fp32_distance(x, dt, bm, cm, a, qc, wy, wst):
 
 def reference_kv_bytes(cfg, batch: int, max_seq: int) -> int:
     """Bytes of the reference's decode cache (``repro/models/model.py::
-    init_cache``) for ``cfg``: pos (int32), K and V per attention layer, and
-    per SSM layer the fp32 state and the convolution tail."""
+    init_cache``) for ``cfg``: pos (int32), K and V per attention layer (in
+    ``cfg.kv_dtype``), and per SSM layer the fp32 state and the convolution
+    tail."""
     cd = 2 if cfg.compute_dtype == "bfloat16" else 4
+    kvd = 1 if cfg.kv_dtype == "float8_e4m3fn" else cd
     kv = 2 * cfg.n_attn_layers() * batch * max_seq * cfg.n_kv * cfg.head_dim
     state = cfg.n_ssm_layers() * batch * cfg.ssm_heads * cfg.ssm_head_dim \
         * cfg.ssm_state
     conv = cfg.n_ssm_layers() * batch * (cfg.ssm_conv - 1) \
         * (cfg.d_inner + 2 * cfg.ssm_state)
-    return 4 + cd * kv + 4 * state + cd * conv
+    return 4 + kvd * kv + 4 * state + cd * conv
 
 
 def _lm_shape_recorder():
@@ -2672,10 +2775,11 @@ def serve_full_width() -> dict:
             "wall_s": wall, "tokens": n_tok}
 
 
-def teacher_forced(model, run_params) -> None:
+def teacher_forced(model, run_params) -> dict:
     """Phase 10: the kernel path against the plain path on the card, full
     width in bf16, fed the same tokens: prefill logits and TF_STEPS decode
-    steps (the kernel path's greedy tokens fed to both)."""
+    steps (the kernel path's greedy tokens fed to both). Returns the
+    prompt, the tokens fed and the kernel path's last logits."""
     import numpy as np
     import torch
     dev = torch.device(DEV)
@@ -2696,8 +2800,10 @@ def teacher_forced(model, run_params) -> None:
         agree += int((a.argmax(-1) == b.argmax(-1)).sum())
         n += a.shape[0]
     compare(lk[:, -1], lp[:, -1])
+    feed = []
     for _ in range(TF_STEPS):
         tok = lk[:, -1].argmax(-1)[:, None]
+        feed.append(tok)
         lk, ck = model.decode_step(run_params, ck, tok)
         with plain_kernels():
             lp, cp = model.decode_step(run_params, cp, tok)
@@ -2713,6 +2819,114 @@ def teacher_forced(model, run_params) -> None:
         _fail("the kernel path's logits differ from the plain path's")
     del ck, cp
     torch.cuda.empty_cache()
+    return {"tokens": toks, "feed": feed, "logits": lk[:, -1, :cfg.vocab]}
+
+
+def serve_fp8(model, run_params, forced) -> dict:
+    """Phase 9 (b): the serve cell's model on an e4m3 KV cache
+    (``kv_dtype="float8_e4m3fn"``), full width, its bf16 weights: phase
+    10's prefill of TF_BATCH x TF_LEN tokens and its TF_STEPS decode
+    steps, fed its greedy tokens (``forced``, ``teacher_forced``'s), with
+    every launch counter zeroed just before and read just after (K5 on the
+    e4m3 cache once per attention layer a step). Each of those K5 calls
+    is held, on the inputs the path gave it, to its plain version with P
+    in the query's type (the model's function) within K5_BF16_TOL x (1 +
+    |plain|), and must lie nearer it, in mean |difference| over every
+    call's output, than the plain version with P in the cache's type (the
+    TPU kernel's function). The logits' distance from phase 10's
+    kernel-path run on the bf16 cache is printed and held to TF_RTOL (the
+    cache rounds K and V to 4 significant bits), every logit finite, and
+    the cache's bytes the reference layout's."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.kernels.flash_decode.ref import flash_decode_plain
+    from repro_torch.models import attention, build_model
+    from repro_torch.utils.misc import tree_bytes
+    dev = torch.device(DEV)
+    cfg = model.cfg
+    fp8 = build_model(dataclasses.replace(cfg, kv_dtype="float8_e4m3fn"))
+    toks, feed = forced["tokens"], forced["feed"]
+    max_seq = TF_LEN + TF_STEPS
+    k5, held = attention.flash_decode, []
+
+    def checked(q, kc, vc, pos, **kw):
+        """The path's K5 launch, then its plain versions on its inputs:
+        (largest |difference|, elements beyond the limit, mean
+        |difference|, mean |difference| from P in the cache's type)."""
+        o = k5(q, kc, vc, pos, **kw)
+        want = flash_decode_plain(q, kc, vc, pos, **kw).float()
+        other = flash_decode_plain(q, kc, vc, pos,
+                                   **{**kw, "p_dtype": kc.dtype}).float()
+        d = (o.float() - want).abs()
+        held.append(torch.stack([
+            d.max(), (d > K5_BF16_TOL * (1 + want.abs())).sum().float(),
+            d.mean(), (o.float() - other).abs().mean()]))
+        return o
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    attention.flash_decode = checked
+    try:
+        t0 = time.perf_counter()
+        l8, c8 = fp8.prefill(run_params, {"tokens": toks}, max_seq=max_seq)
+        finite = bool(torch.isfinite(l8).all())
+        for tok in feed:
+            l8, c8 = fp8.decode_step(run_params, c8, tok)
+            finite &= bool(torch.isfinite(l8).all())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        attention.flash_decode = k5
+    launches = dict(KERNEL_LAUNCHES)
+    k5_err, k5_over, k5_same, k5_other = torch.stack(held).cpu().T.tolist()
+    k5_err, k5_over = max(k5_err), int(sum(k5_over))
+    nearer = sum(k5_same) / max(sum(k5_other), 1e-30)
+    a, b = l8[:, -1, :cfg.vocab].float(), forced["logits"].float()
+    rel = float((a - b).abs().max() / b.abs().max())
+    agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+    kv_bytes = tree_bytes(c8)
+    want_bytes = reference_kv_bytes(fp8.cfg, TF_BATCH, max_seq)
+    try:
+        probe = torch.zeros((1, 4, 1, 16), dtype=c8["k"].dtype, device=dev)
+        probe.index_copy_(1, torch.tensor([1], device=dev),
+                          probe[:, :1].clone())
+        copy_note = "takes e4m3"
+    except (NotImplementedError, RuntimeError) as e:
+        copy_note = f"refuses e4m3 ({type(e).__name__}): written as bytes"
+    want = {"flash_decode_fp8": cfg.n_attn_layers() * TF_STEPS,
+            "flash_attention": cfg.n_attn_layers(),
+            "ssd_scan": cfg.n_ssm_layers()}
+    print(f"[serve fp8] {SERVE_ARCH} full width bf16 on an e4m3 cache: B="
+          f"{TF_BATCH} prompt {TF_LEN}, prefill + {TF_STEPS} decode "
+          f"steps fed phase 10's greedy tokens in {wall:.3f} s (its K5 "
+          f"calls held to their plain versions inside); last step's "
+          f"largest |logit diff| / largest |logit| against phase 10's "
+          f"bf16-cache run {rel:.3e} (tol {TF_RTOL:g}); argmax agreement "
+          f"{agree}/{TF_BATCH}; cache {kv_bytes} bytes (reference layout "
+          f"{want_bytes}); launches {launches}; the card's index_copy_ "
+          f"{copy_note}")
+    print(f"[serve fp8] K5 on the e4m3 cache, {len(held)} calls on the "
+          f"path's own inputs: max abs err {k5_err:.3e} against the plain "
+          f"version with P in the query's type ({k5_over} elements beyond "
+          f"{K5_BF16_TOL:g} x (1+|plain|)); mean |diff| {sum(k5_same) / len(held):.3e} "
+          f"against it, {sum(k5_other) / len(held):.3e} against P in the "
+          f"cache's type (ratio {nearer:.3f}, must be < 1)")
+    if not finite or rel > TF_RTOL:
+        _fail("the e4m3-cache serve's logits are not finite or too far")
+    if k5_over or nearer >= 1:
+        _fail("K5 on the e4m3 cache disagrees with its plain version on "
+              "the serve's inputs")
+    if kv_bytes != want_bytes:
+        _fail(f"the e4m3 cache holds {kv_bytes} bytes, not {want_bytes}")
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            _fail(f"{name}: {launches.get(name, 0)} launches on the e4m3 "
+                  f"serve, expected {n}")
+    if launches.get("flash_decode", 0) or launches.get("flash_decode_lse", 0):
+        _fail("the e4m3 serve launched K5 on a bf16 cache")
+    del c8
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rel": rel, "max_abs_err": k5_err}
 
 
 def to_cpu(tree):
@@ -2772,15 +2986,18 @@ def lm_card_vs_cpu() -> None:
 
 
 def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
-    """K4, K5 and K6 at the given full-width bf16 shapes beside their plain
+    """K4, K5 (on the bf16 cache, on it cast to e4m3, and its log-sum-exp
+    variant) and K6 at the given full-width bf16 shapes beside their plain
     versions and, for K4 and K5, one call of PyTorch's
     scaled_dot_product_attention (causal; one query over a masked cache)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-    from repro_torch.kernels.flash_decode.ops import flash_decode
-    from repro_torch.kernels.flash_decode.ref import flash_decode_plain
+    from repro_torch.kernels.flash_decode.ops import (FP8, flash_decode,
+                                                      flash_decode_lse)
+    from repro_torch.kernels.flash_decode.ref import (
+        flash_decode_lse_plain, flash_decode_plain)
     from repro_torch.analysis import kernel_costs as costs
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
@@ -2814,6 +3031,56 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
         "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, **gqa(k5_shape[2], k5_shape[3])),
             30, 10)}
+    # K5 on an e4m3 cache as the model calls it (P rounded to bf16), its
+    # library yardstick the same call on the cache widened to bf16 first
+    # (the widening timed with it); K5's log-sum-exp variant on the bf16
+    # cache (the fp32 output and each row's log-sum-exp), beside the one
+    # PyTorch call that returns both, the memory-efficient attention
+    b, _smax, h, hkv, d, pos5 = k5_shape
+    k8, v8 = kc.to(FP8), vc.to(FP8)
+    rows["flash_decode_fp8"] = {
+        "ms": _time_ms(lambda: flash_decode(q, k8, v8, pos, p_dtype=bf16),
+                       30, 10),
+        "plain_ms": _time_ms(lambda: flash_decode_plain(
+            q, k8, v8, pos, p_dtype=bf16), 10, 5),
+        **dict(zip(("bound_ms", "bound_by"), costs.bound_at(
+            *costs.k5_work(b, h, hkv, d, pos5 + 1, 2, 1),
+            costs.PEAK_FLOPS_BF16))),
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, k8.to(bf16).transpose(1, 2), v8.to(bf16).transpose(1, 2),
+            attn_mask=mask, **gqa(h, hkv)), 30, 10)}
+    # a call's device time apart (the profiler's kernel time): a host that
+    # launches slower than the kernel runs makes the per-call time the
+    # host's
+    dev_ms = {
+        "flash_decode": _device_ms(lambda: flash_decode(q, kc, vc, pos),
+                                   "flash_decode_split_kernel"),
+        "flash_decode_fp8": _device_ms(lambda: flash_decode(
+            q, k8, v8, pos, p_dtype=bf16), "flash_decode_split_kernel"),
+        "flash_decode_lse": _device_ms(lambda: flash_decode_lse(
+            q, kc, vc, pos, p_dtype=bf16), "flash_decode_split_kernel")}
+    print("[time] K5's device time a call (torch.profiler): " + ", ".join(
+        f"{k} {_fmt_ms(v)}" for k, v in dev_ms.items()))
+    del k8, v8
+    rows["flash_decode_lse"] = {
+        "ms": _time_ms(lambda: flash_decode_lse(q, kc, vc, pos,
+                                                p_dtype=bf16), 30, 10),
+        "plain_ms": _time_ms(lambda: flash_decode_lse_plain(
+            q, kc, vc, pos, p_dtype=bf16), 10, 5),
+        **dict(zip(("bound_ms", "bound_by"), costs.bound_at(
+            *costs.k5_work(b, h, hkv, d, pos5 + 1, 2, lse=True),
+            costs.PEAK_FLOPS_BF16))),
+        "library_ms": None}
+    if h == hkv:
+        bias = torch.zeros((b, h, 1, k5_shape[1]), dtype=bf16, device=dev) \
+            .masked_fill(~mask, float("-inf"))
+        try:
+            rows["flash_decode_lse"]["library_ms"] = _time_ms(
+                lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                    qt, kt, vt, bias, True), 30, 10)
+        except RuntimeError as e:      # a yardstick only: none is recorded
+            print(f"[time] the memory-efficient attention refused the "
+                  f"shape: {str(e)[:200]}")
     del q, kc, vc, qt, kt, vt
     x, dt, bm, cm, a = lm_kernel_inputs("ssd_scan", k6_shape, bf16, 9, dev)
     qc = k6_shape[5]
@@ -2831,7 +3098,9 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
     del x, dt, bm, cm, a, y, st, wy, wst
     torch.cuda.empty_cache()
     for name, shape in (("flash_attention", k4_shape),
-                        ("flash_decode", k5_shape), ("ssd_scan", k6_shape)):
+                        ("flash_decode", k5_shape),
+                        ("flash_decode_fp8", k5_shape),
+                        ("flash_decode_lse", k5_shape), ("ssd_scan", k6_shape)):
         r = rows[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
         print(f"[time] {name} {shape} bf16: kernel {r['ms']:.5f} ms, plain "
@@ -2871,12 +3140,14 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
 
 
 def lm_phases() -> dict:
-    """Phases 8-12 of the LM serving slice; returns its JSON rows."""
+    """Phases 8-12 of the LM serving slice; returns its JSON rows (K5's
+    log-sum-exp variant's launches are phase 16 (b)'s, filled in there)."""
     import torch
     errors = check_lm_kernels(K4_SHAPES, K5_SHAPES, K6_SHAPES)
+    errors.update(check_k5_variants(K5_SHAPES))
     serve = serve_full_width()
     model, run_params = serve.pop("model"), serve.pop("run_params")
-    teacher_forced(model, run_params)
+    fp8 = serve_fp8(model, run_params, teacher_forced(model, run_params))
     del model, run_params
     torch.cuda.empty_cache()
     # every shape the serve phase launched, K5 at its first and last pos
@@ -2885,7 +3156,10 @@ def lm_phases() -> dict:
           for p in sorted({min(positions[s]), max(positions[s])})]
     more = check_lm_kernels(sorted(shapes["flash_attention"]), sorted(k5),
                             sorted(shapes["ssd_scan"]), label="check serve")
+    more.update(check_k5_variants(sorted(k5), label="check serve"))
     errors = {k: max(v, more[k]) for k, v in errors.items()}
+    errors["flash_decode_fp8"] = max(errors["flash_decode_fp8"],
+                                     fp8["max_abs_err"])
     lm_card_vs_cpu()
 
     def heaviest(name):   # the most launched shape; on a tie the largest
@@ -2897,13 +3171,19 @@ def lm_phases() -> dict:
     print(f"[time] LM JSON rows at the most launched full-width shapes "
           f"(ties to the largest): flash_attention {k4s}, flash_decode "
           f"{k5key} at the median launched pos {pos}, ssd_scan {k6s}")
-    src = {"flash_attention": 70, "flash_decode": 61, "ssd_scan": 71}
+    src = {"flash_attention": ("flash_attention", 70),
+           "flash_decode": ("flash_decode", 61),
+           "flash_decode_fp8": ("flash_decode", 61),
+           "flash_decode_lse": ("flash_decode", 61),
+           "ssd_scan": ("ssd_scan", 71)}
+    launches = {**serve["launches"], "flash_decode_fp8":
+                fp8["launches"]["flash_decode_fp8"], "flash_decode_lse": 0}
     return [{"name": name, "route": "cuda",
-             "source": f"src/repro_torch/kernels/{name}/kernel.cu",
-             "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
-             "launches": serve["launches"][name],
+             "source": f"src/repro_torch/kernels/{pkg}/kernel.cu",
+             "replaces": f"src/repro/kernels/{pkg}/kernel.py:{line}",
+             "launches": launches[name],
              "max_abs_err": errors[name], **timings[name]}
-            for name, line in src.items()]
+            for name, (pkg, line) in src.items()]
 
 
 # ----------------------------------------------------------- phase 15
@@ -3879,6 +4159,11 @@ DIST_TP_LAYERS, DIST_TP_BATCH, DIST_TP_SEQ, DIST_TP_LR = 2, 8, 256, 3e-4
 DIST_TP_TOL = K4_BWD_TOL["bfloat16"]
 ADAMW_NEAR_EPS = 1e3 * 1e-8
 DIST_TP_TIMEOUT = 300
+# (b)'s serve: the reduced configs at the CPU tests' shapes and limits, then
+# zamba2-7b at full width cut to 3 layer positions (2 Mamba2 and the shared
+# attention block: at 2 it would have no attention layer), bf16
+DIST_SERVE_ARCHS = ("granite-3-2b", "zamba2-7b")
+DIST_SERVE_LAYERS, DIST_SERVE_BATCH, DIST_SERVE_SEQ = 3, 8, 256
 # (b) then holds K4 (B, S, H, Hkv, D) and K6 (B, H, S, P, N, Q), forward and
 # backward, to their plain versions at the per-rank head counts that the
 # production meshes' 16 "model" ranks give the train cells
@@ -3894,12 +4179,21 @@ TP_K4_SHAPES = [(1, 512, 2, 1, 64), (1, 512, 2, 1, 128), (1, 512, 3, 1, 128),
                 (1, 512, 2, 2, 64), (DIST_TP_BATCH, DIST_TP_SEQ, 16, 4, 64)]
 TP_K6_SHAPES = [(1, 3, 512, 64, 128, 128), (1, 7, 512, 64, 64, 128),
                 (DIST_TP_BATCH, 24, DIST_TP_SEQ, 64, 128, 128)]
+# and K5's e4m3 and log-sum-exp variants (B, S_loc, H, Hkv, D, pos) at a
+# rank's slice of decode_32k's cache on 16 "model" ranks (8 sequences a
+# rank, 2,048 positions, every query head: granite-3-2b 32 on 8 KV heads,
+# grok-1-314b and internvl2-26b 48 on 8, zamba2-7b 32 on 32) and at (b)'s
+# full-width serve (264 positions over 2 ranks)
+TP_K5_SHAPES = [(8, 2048, 32, 8, 64, 2047), (8, 2048, 48, 8, 128, 1000),
+                (8, 2048, 32, 32, 112, 1500),
+                (DIST_SERVE_BATCH, 132, 32, 32, 112, 131)]
 
 
-def distributed_phase() -> dict:
+def distributed_phase() -> tuple[dict, dict]:
     """Phase 16: the sharded step, compressed_psum and the elastic
     controller on a 1-device nccl mesh, each bitwise its one-device
-    counterpart; then (b) (``tp_phase``, whose errors it returns)."""
+    counterpart; then (b) (``tp_phase``, whose errors and serve launches
+    it returns)."""
     import shutil
     import numpy as np
     import torch
@@ -3994,16 +4288,17 @@ def distributed_phase() -> dict:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    err = tp_phase()
+    err, launches = tp_phase()
     print(f"[dist] phase 16 wall {time.perf_counter() - t0:.1f} s")
-    return err
+    return err, launches
 
 
-def tp_phase() -> dict:
+def tp_phase() -> tuple[dict, dict]:
     """Phase 16 (b): the two ranks of the (1, 2) gloo mesh, each a process
-    on the card, then K4 and K6 at the per-rank head counts of the
-    production meshes; fails if any does. Returns the largest absolute
-    difference per kernel row."""
+    on the card, then K4, K5's variants and K6 at the per-rank shapes of
+    the production meshes; fails if any does. Returns the largest absolute
+    difference per kernel row and rank 0's launches in the full-width
+    serve."""
     import atexit
     import shutil
     t0 = time.perf_counter()
@@ -4025,6 +4320,7 @@ def tp_phase() -> dict:
                 _stop_worker(p)
             _fail("phase 16 (b): a rank did not finish in time")
     shutil.rmtree(tmp, ignore_errors=True)
+    launches = None
     for r, (proc, out) in enumerate(zip(procs, outs)):
         print("".join(f"[dist b] rank {r}: {line}\n"
                       for line in out.splitlines()
@@ -4033,12 +4329,18 @@ def tp_phase() -> dict:
               end="")
         if proc.returncode != 0:
             _fail(f"phase 16 (b): rank {r} failed (exit {proc.returncode})")
+        for line in out.splitlines():
+            if line.startswith("SERVE LAUNCHES ") and r == 0:
+                launches = json.loads(line[len("SERVE LAUNCHES "):])
+    if launches is None:
+        _fail("phase 16 (b): rank 0 printed no serve launches")
     err = check_lm_kernels(TP_K4_SHAPES, [], TP_K6_SHAPES, label="dist b")
+    err.update(check_k5_variants(TP_K5_SHAPES, label="dist b"))
     err["flash_attention_bwd"] = check_k4_backward(TP_K4_SHAPES,
                                                    label="dist b bwd")
     err["ssd_scan_bwd"] = check_k6_backward(TP_K6_SHAPES, label="dist b bwd")
     print(f"[dist b] wall {time.perf_counter() - t0:.1f} s")
-    return err
+    return err, launches
 
 
 def _tp_config(arch):
@@ -4168,9 +4470,111 @@ def tp_rank(rank: int, store: str) -> int:
                 del params, ref, dp, g_ref, g_tp, want_g, want_p, got_g, got_p
                 if DEV != "cpu":
                     torch.cuda.empty_cache()
+        ok &= tp_serve_rank(mesh, cpu_tests)
     finally:
         dist.destroy_process_group()
     return 0 if ok else 1
+
+
+def tp_serve_rank(mesh, cpu_tests) -> bool:
+    """Phase 16 (b)'s serve, on this rank of the (1, 2) mesh: prefill and
+    8 greedy decode steps through ``dryrun.serve_step``, tensor-parallel
+    over "model" with the cache as ``cache_specs`` lays it out, against
+    the unsharded steps on the card from the same parameters and tokens,
+    shard by shard (no collective reads them back): the reduced
+    DIST_SERVE_ARCHS in fp32 at the CPU tests' limits (every step's logits
+    and every cache leaf within ``torch_dist_worker.serve_limits`` of the
+    largest, greedy tokens equal); then zamba2-7b at full width cut to
+    DIST_SERVE_LAYERS positions, bf16, DIST_SERVE_BATCH x DIST_SERVE_SEQ
+    tokens, the logits within DIST_TP_TOL of the largest, the argmax
+    agreement printed. K4 once per attention layer and K6 once per Mamba2
+    layer a prefill on each rank, K5's log-sum-exp variant once per
+    attention layer a step (one device: K5 itself). Prints a rank's
+    launches at full width as a JSON line for the smoke's row."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNEL_LAUNCHES
+    from repro_torch.models import build_model
+    from repro_torch.utils.misc import tree_map
+    serve = ("flash_attention", "flash_decode", "flash_decode_lse",
+             "ssd_scan")
+    ok = True
+
+    def counted(fn):
+        before = {n: KERNEL_LAUNCHES[n] for n in serve}
+        out = fn()
+        if DEV != "cpu":
+            torch.cuda.synchronize()
+        return out, {n: KERNEL_LAUNCHES[n] - before[n] for n in serve
+                     if KERNEL_LAUNCHES[n] - before[n]}
+    runs = [(arch, True) for arch in DIST_SERVE_ARCHS] + [("zamba2-7b",
+                                                            False)]
+    for arch, reduced in runs:
+        t0 = time.perf_counter()
+        if reduced:
+            cfg = get_config(arch).reduced()
+            params = tree_map(lambda t: t.to(DEV), build_model(cfg).init(
+                0, device="cpu"))
+            shape, steps = (cpu_tests.SERVE_BATCH, cpu_tests.SERVE_PROMPT), \
+                cpu_tests.SERVE_STEPS
+        else:
+            cfg = get_config(arch).with_layers(DIST_SERVE_LAYERS)
+            params = build_model(cfg).init(LM_SEED, device=DEV)
+            shape, steps = (DIST_SERVE_BATCH, DIST_SERVE_SEQ), \
+                cpu_tests.SERVE_STEPS
+        prompt = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, shape).astype(np.int32)).to(DEV)
+        old = (cpu_tests.SERVE_PROMPT, cpu_tests.SERVE_STEPS)
+        cpu_tests.SERVE_PROMPT, cpu_tests.SERVE_STEPS = shape[1], steps
+        try:
+            want, k_one = counted(lambda: cpu_tests._serve_one_device(
+                cfg, params, prompt))
+            got, k_tp = counted(lambda: cpu_tests._serve_sharded(
+                cfg, params, prompt, want[1], mesh, "train"))
+        finally:
+            cpu_tests.SERVE_PROMPT, cpu_tests.SERVE_STEPS = old
+        worst, greedy = cpu_tests.serve_distance(cfg, got, want)
+        logits = max(v for k, v in worst.items() if k.startswith("logits"))
+        agree = sum(int((g[:, -1, :cfg.vocab].argmax(-1) == w[sl][
+            :, -1, :cfg.vocab].argmax(-1)).sum())
+            for (g, sl), w in zip(got[0], want[0]))
+        n = sum(g.shape[0] for g, _ in got[0])
+        n_attn, n_ssm = cfg.n_attn_layers(), cfg.n_ssm_layers()
+        want_k = {n: c for n, c in (("flash_attention", n_attn),
+                                    ("flash_decode_lse", n_attn * steps),
+                                    ("ssd_scan", n_ssm)) if c}
+        if reduced:
+            short = {v: k for k, v in cpu_tests.TP_ARCHS.items()}[arch]
+            tol = cpu_tests.serve_limits(short)
+            fault = bool(cpu_tests.serve_faults(worst, tol)) or not greedy
+            what = (f"logits and {len(got[2])} cache leaves "
+                    f"{max(worst.values()):.3e} apart at most (tol "
+                    f"{tol[0]:.3e} and {tol[1]:.3e}); greedy tokens "
+                    f"{'equal' if greedy else 'DIFFER'}")
+        else:
+            tol = DIST_TP_TOL
+            fault = logits > tol
+            what = (f"logits {logits:.3e} apart at most (tol {tol}); argmax "
+                    f"agreement {agree}/{n}; cache leaves "
+                    f"{max(v for k, v in worst.items() if 'logits' not in k):.3e}")
+            print("SERVE LAUNCHES " + json.dumps(k_tp), flush=True)
+        print(f"serve {cfg.name} {'reduced' if reduced else 'at full width'}"
+              f", {cfg.n_layers} layer positions, {cfg.compute_dtype}, "
+              f"{shape[0]} x {shape[1]} tokens and {steps} decode steps, "
+              f"tensor-parallel on a (1, 2) gloo mesh on the card against "
+              f"one device: {what}; launches per rank {k_tp} (want "
+              f"{want_k}), one device {k_one}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if fault or k_tp != want_k:
+            print(f"FAULT: the {arch} serve beyond its limits or launches "
+                  f"differ", flush=True)
+            ok = False
+        del params, want, got
+        if DEV != "cpu":
+            torch.cuda.empty_cache()
+    return ok
 
 
 def _bf16_moves(got_p, want_p, got_g, want_g, lr):
@@ -4490,7 +4894,7 @@ def main() -> int:
         # phases 1, 2, 15, 16 and 17 alone, for work on the training slice
         rows, measured = train_phase()
         dry = dryrun_start(measured)
-        errors = distributed_phase()
+        errors, _ = distributed_phase()
         errors.update(check_loop_shapes(dryrun_phase(dry)))
         for row in rows:
             if row["name"] in errors:
@@ -4643,13 +5047,16 @@ def main() -> int:
     dry = dryrun_start(measured)
     # phase 16: the distributed layer on a 1-device mesh, and (b) tensor
     # parallelism on a (1, 2) gloo mesh with K4 and K6 at per-rank shapes
-    errors = distributed_phase()
+    # (K5's log-sum-exp variant runs on its tensor-parallel decode)
+    errors, serve_launches = distributed_phase()
     # phase 17: the dry run beside the per-model loop; every K1 and K2
     # shape the loop launched that phase 3 did not check is checked now
     errors.update(check_loop_shapes(dryrun_phase(dry)))
     for row in kernels:
         if row["name"] in errors:
             row["max_abs_err"] = max(row["max_abs_err"], errors[row["name"]])
+        if row["name"] == "flash_decode_lse":
+            row["launches"] = serve_launches["flash_decode_lse"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -67,10 +67,16 @@ def k4_bwd_bound(b, s, h, hkv, d, itemsize):
                     PEAK_FLOPS_BF16)
 
 
-def k5_work(b, h, hkv, d, live, itemsize):
-    """K5: the ``live`` cache positions of K and V read once, q read and
-    out written; a dot and a multiply-add per live value."""
-    nbytes = itemsize * (2 * b * live * hkv * d + 2 * b * h * d)
+def k5_work(b, h, hkv, d, live, itemsize, cache_itemsize=None,
+            lse=False):
+    """K5: the ``live`` cache positions of K and V read once (in the
+    cache's type, ``cache_itemsize``: 1 for an e4m3 cache), q read and out
+    written (with ``lse``, the log-sum-exp variant's fp32 output and one
+    fp32 log-sum-exp a row); a dot and a multiply-add per live value."""
+    cache_itemsize = itemsize if cache_itemsize is None else cache_itemsize
+    out = 4 * (b * h * d + b * h) if lse else itemsize * b * h * d
+    nbytes = cache_itemsize * 2 * b * live * hkv * d + itemsize * b * h * d \
+        + out
     return nbytes, 4 * b * h * live * d
 
 

@@ -7,10 +7,11 @@ annotations (heads, ``ff``, ``vocab`` and ``ssm_heads`` over "model"):
 under GSPMD that is Megatron-style tensor parallelism over "model", with
 the FSDP dims ("pod", "data") of each weight gathered where it is used.
 Here the same layout is written out on local tensors. The sharded step
-(``train.step``) runs the loss inside ``local_map`` on each parameter's
-own shard under ``sharded(mesh)``, and the models call the functions
-below; with no ``sharded`` context, or on groups of one rank, every
-function returns its argument's own numbers (no collective, no copy).
+(``train.step``) and the serve steps (``launch.dryrun.serve_step``) run
+the model inside ``local_map`` on each parameter's own shard under
+``sharded(mesh)``, and the models call the functions below; with no
+``sharded`` context, or on groups of one rank, every function returns its
+argument's own numbers (no collective, no copy).
 
   * ``gather_layer(tree)``: each leaf's FSDP dim all-gathered (an autograd
     all-gather whose backward reduce-scatters the gradient); a leaf with no
@@ -31,7 +32,22 @@ function returns its argument's own numbers (no collective, no copy).
     max and the sum of exponentials over "model", the label's logit from
     its owner); the whole-vocab logits never exist on a rank;
   * ``rmsnorm``: Mamba2's gated norm over all of ``d_inner``, its sum of
-    squares all-reduced over "model".
+    squares all-reduced over "model";
+  * for prefill and decode (``launch.dryrun.serve_step``), the cache laid
+    out as the reference's ``cache_specs`` lays it out: ``kv_to_cache``
+    sends a prompt's K/V from each rank's KV heads to every rank's slice
+    of the sequence, ``conv_to_cache`` / ``conv_from_cache`` /
+    ``conv_step`` move Mamba2's convolution tail between the channels a
+    rank computes and the chunk of channels it caches (exchanged at every
+    step: the tail is (K - 1) x (d_inner + 2N) a sequence, a few KB, where
+    keeping the rank's own channels would hold B and C on every rank and
+    leave the cache's layout), ``gather_heads`` gives every rank the
+    step's query heads and new K/V, ``write_at`` writes them on the rank
+    that owns ``pos``, ``merge_heads`` sends each slice's attention and
+    log-sum-exp to the rank of each head and adds them there in rank
+    order, and ``gather_vocab`` returns whole-vocab logits. Every exchange
+    is one all-to-all (``regroup``); the card's gloo crashed in an
+    all-gather of CUDA tensors.
 
 Which split each config takes on the production meshes' 16 "model" ranks
 (``head_split``, ``attention_shard``): every config's query heads divide
@@ -52,6 +68,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 
 import torch
@@ -77,6 +94,7 @@ class _Context:
     model: _Axis | None             # None: no "model" axis of size > 1
     fsdp: tuple[_Axis, ...]         # the FSDP axes of size > 1, mesh order
     fsdp_names: tuple[str, ...]     # every FSDP axis of the mesh
+    gather: bool = True             # the weights carry FSDP dims (ZeRO-3)
 
 
 def _ctx() -> _Context | None:
@@ -94,8 +112,11 @@ def _use(ctx: _Context | None):
 
 
 @contextlib.contextmanager
-def sharded(mesh):
-    """Run the enclosed model code on this rank's shards of ``mesh``."""
+def sharded(mesh, gather: bool = True):
+    """Run the enclosed model code on this rank's shards of ``mesh``: the
+    weights placed by ``param_specs`` (ZeRO-3, ``gather`` True: each
+    layer's FSDP dims gathered while it runs) or by its "inference" mode
+    (``gather`` False: sharded over "model" only, nothing gathered)."""
     names = axis_names(mesh)
 
     def axis(name):
@@ -106,7 +127,7 @@ def sharded(mesh):
     fsdp = tuple(axis(a) for a in names
                  if a in FSDP_AXES and mesh.size(names.index(a)) > 1)
     with _use(_Context(model, fsdp,
-                       tuple(a for a in names if a in FSDP_AXES))):
+                       tuple(a for a in names if a in FSDP_AXES), gather)):
         yield
 
 
@@ -141,7 +162,7 @@ def gathers() -> bool:
     then be dropped after the layer and gathered again for its
     backward)."""
     ctx = _ctx()
-    return ctx is not None and bool(ctx.fsdp)
+    return ctx is not None and bool(ctx.fsdp) and ctx.gather
 
 
 # ------------------------------------------------------------ collectives
@@ -261,7 +282,7 @@ def gather_layer(tree):
     reduce-scattered back onto its shard, each other leaf's all-reduced
     over the FSDP axes. The tree itself with no FSDP ranks."""
     ctx = _ctx()
-    if ctx is None or not ctx.fsdp:
+    if ctx is None or not ctx.fsdp or not ctx.gather:
         return tree
 
     def one(name, t):
@@ -516,3 +537,268 @@ def rmsnorm(x, scale, eps: float = 1e-6):
                        ctx.model.group, True)
     y = x32 * torch.rsqrt(ss / (x.shape[-1] * ctx.model.size) + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+# ----------------------------------------------------------------- serve
+# Prefill and decode lay the cache out as the reference's ``cache_specs``
+# does: K/V sequence over "model" (rank r holds the positions r * S_loc ..
+# (r + 1) * S_loc - 1), Mamba2's state heads over "model" (a rank's own
+# heads) and the convolution tail's channels over "model" in contiguous
+# chunks (``chunk_ranges``). Tensors are exchanged with all-to-alls only
+# (the card's gloo crashed in an all-gather of CUDA tensors); a piece a
+# rank holds itself never goes through the collective.
+def chunk_ranges(n: int, m: int) -> list:
+    """Each of ``m`` ranks' (lo, hi) of a dim of ``n`` split as
+    ``torch.chunk`` (and a DTensor ``Shard``) splits it: ceil(n / m) each,
+    the last ones short or empty."""
+    c = -(-n // m)
+    return [(min(r * c, n), min((r + 1) * c, n)) for r in range(m)]
+
+
+def chunk_width(n: int) -> int:
+    """This rank's share of a dim of ``n`` sharded over "model"."""
+    lo, hi = chunk_ranges(n, model_size())[model_rank()]
+    return hi - lo
+
+
+def _exchange(sends, shapes, group):
+    """One all-to-all: ``sends[t]`` (a tensor) to rank t, and back the
+    tensor of shape ``shapes[s]`` that rank s sent here, for every s, in
+    the sends' type (moved as bytes: gloo carries no e4m3)."""
+    dtype = sends[0].dtype
+    size = torch.empty((), dtype=dtype).element_size()
+    flat = torch.cat([t.reshape(-1) for t in sends]).view(torch.uint8)
+    outs = [size * _numel(sh) for sh in shapes]
+    got = _all_to_all(flat, outs, [size * t.numel() for t in sends], group)
+    return [g.view(dtype).reshape(sh)
+            for g, sh in zip(got.split(outs), shapes)]
+
+
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+def _holder(idx: int, have, me: int) -> int:
+    """Who supplies global index ``idx``: this rank where it holds it,
+    else the lowest rank that does."""
+    def holds(r):
+        return any(lo <= idx < hi for lo, hi in have[r])
+    if holds(me):
+        return me
+    for r in range(len(have)):
+        if holds(r):
+            return r
+    raise ValueError(f"no rank holds index {idx}")
+
+
+@functools.lru_cache(maxsize=256)
+def _regroup_plan(have, need):
+    """Every rank's needed ranges cut into (supplier, lo, hi) pieces, in
+    order: a supplier's pieces lie in one of its held ranges."""
+    cuts = sorted({e for ranges in have for r in ranges for e in r})
+    plan = []
+    for t, ranges in enumerate(need):
+        pieces = []
+        for lo, hi in ranges:
+            edges = [lo] + [c for c in cuts if lo < c < hi] + [hi]
+            for a, b in zip(edges, edges[1:]):
+                if a < b:
+                    pieces.append((_holder(a, have, t), a, b))
+        plan.append(pieces)
+    return plan
+
+
+def _local(ranges, lo: int) -> int:
+    """The position of global index ``lo`` in a tensor holding ``ranges``
+    concatenated."""
+    at = 0
+    for a, b in ranges:
+        if a <= lo < b:
+            return at + lo - a
+        at += b - a
+    raise ValueError(f"index {lo} is not held")
+
+
+def regroup(x, dim: int, have: list, need: list):
+    """The global indices ``need[me]`` (sorted (lo, hi) ranges) of a dim
+    whose indices ``have[r]`` each rank r holds (``x`` holding this rank's,
+    concatenated along ``dim``), concatenated in order: each index from
+    this rank where it holds it, else from the lowest rank that does, in
+    one all-to-all (none where every rank holds all it needs)."""
+    ctx = _ctx()
+    me, m = ctx.model.rank, ctx.model.size
+    dim = dim % x.dim()
+    plan = _regroup_plan(tuple(tuple(map(tuple, h)) for h in have),
+                         tuple(tuple(map(tuple, n)) for n in need))
+
+    def piece(lo, hi):
+        return x.narrow(dim, _local(have[me], lo), hi - lo)
+    remote = any(s != t for t in range(m) for s, _, _ in plan[t])
+    if not remote:
+        return torch.cat([piece(lo, hi) for _, lo, hi in plan[me]]
+                         or [x.narrow(dim, 0, 0)], dim)
+    xt = x.movedim(dim, 0)
+    rest = tuple(xt.shape[1:])
+
+    def part(t):
+        got = [piece(lo, hi).movedim(dim, 0) for s, lo, hi in plan[t]
+               if s == me and t != me]
+        return torch.cat(got) if got else xt[:0]
+    widths = [sum(hi - lo for s, lo, hi in plan[me] if s == r and r != me)
+              for r in range(m)]
+    got = _exchange([part(t) for t in range(m)],
+                    [(w, *rest) for w in widths], ctx.model.group)
+    at = [0] * m
+    out = []
+    for s, lo, hi in plan[me]:
+        if s == me:
+            out.append(piece(lo, hi))
+        else:
+            out.append(got[s][at[s]: at[s] + hi - lo].movedim(0, dim))
+            at[s] += hi - lo
+    return torch.cat(out or [x.narrow(dim, 0, 0)], dim)
+
+
+def gather_heads(x, n_heads: int, n_kv: int, kv: bool = False):
+    """All heads of ``x`` (B, S, heads, ...) from each rank's query heads
+    (``kv`` False) or KV heads (``kv`` True) of ``head_split``; a KV head
+    that several ranks compute comes from its lowest one."""
+    split = head_split(n_heads, n_kv, model_size())
+    have = [[kk if kv else hh] for hh, kk in split]
+    return regroup(x, 2, have, [[(0, n_kv if kv else n_heads)]] * len(split))
+
+
+def gather_vocab(logits):
+    """The whole vocab of vocab-parallel logits (B, S, V / model)."""
+    if model_size() == 1:
+        return logits
+    v = logits.shape[-1]
+    m = model_size()
+    return regroup(logits, -1, [[(r * v, (r + 1) * v)] for r in range(m)],
+                   [[(0, m * v)]] * m)
+
+
+def seq_offset(s_loc: int) -> int:
+    """The first cache position of this rank's sequence slice."""
+    return model_rank() * s_loc
+
+
+def kv_to_cache(k, v, k_cache, v_cache, n_heads: int, n_kv: int) -> None:
+    """Write a prompt's K and V (B, s, heads, D) into one layer's cache
+    (B, S_loc, Hkv, D) in place. Under TP ``k``/``v`` are this rank's KV
+    heads (``head_split``) and the cache its sequence slice: each KV head
+    goes from its lowest rank to every rank's slice of the prompt, in one
+    all-to-all of both."""
+    s = k.shape[1]
+    m = model_size()
+    if m == 1:
+        k_cache[:, :s] = k
+        v_cache[:, :s] = v
+        return
+    me, s_loc = model_rank(), k_cache.shape[1]
+    kv_heads = [kk for _, kk in head_split(n_heads, n_kv, m)]
+    own, top = [], 0
+    for k0, k1 in kv_heads:       # the KV heads each rank sends
+        own.append((max(k0, top), max(k1, top)))
+        top = max(top, k1)
+    both = torch.stack([k, v]).to(k_cache.dtype)       # (2, B, s, Hl, D)
+    k0_me = kv_heads[me][0]
+
+    def rows(t):
+        return min(t * s_loc, s), min((t + 1) * s_loc, s)
+
+    def part(t):
+        if t == me:
+            return both[:, :, :0]
+        (p0, p1), (h0, h1) = rows(t), own[me]
+        return both[:, :, p0:p1, h0 - k0_me: h1 - k0_me]
+    p0, p1 = rows(me)
+    b, d = k.shape[0], k.shape[3]
+    got = _exchange([part(t) for t in range(m)],
+                    [(2, b, 0 if r == me else p1 - p0, own[r][1] - own[r][0],
+                      d) for r in range(m)], _ctx().model.group)
+    got[me] = both[:, :, p0:p1, own[me][0] - k0_me: own[me][1] - k0_me]
+    for r in range(m):
+        h0, h1 = own[r]
+        if h1 > h0 and p1 > p0:
+            k_cache[:, :p1 - p0, h0:h1] = got[r][0]
+            v_cache[:, :p1 - p0, h0:h1] = got[r][1]
+
+
+def merge_heads(o, lse, n_heads: int, n_kv: int):
+    """Under TP, each rank's attention over its cache slice for every
+    head, o (B, 1, H, D) fp32 and lse (B, 1, H), merged for this rank's
+    query heads: (B, 1, H_loc, D) fp32, every slice's part added in rank
+    order (``merge_partials``), the same numbers on every rank."""
+    from repro_torch.kernels.flash_decode.ref import merge_partials
+    m, me = model_size(), model_rank()
+    heads = [hh for hh, _ in head_split(n_heads, n_kv, m)]
+    both = torch.cat([o, lse[..., None]], -1)           # (B, 1, H, D + 1)
+    h0, h1 = heads[me]
+    got = _exchange([both[:, :, a:b] if t != me else both[:, :, :0]
+                     for t, (a, b) in enumerate(heads)],
+                    [(*both.shape[:2], 0 if r == me else h1 - h0,
+                      both.shape[3]) for r in range(m)], _ctx().model.group)
+    got[me] = both[:, :, h0:h1]
+    parts = torch.stack(got)
+    return merge_partials(parts[..., :-1], parts[..., -1])
+
+
+def _conv_layout(d_inner: int, n_state: int):
+    """(the channels of the convolution tail each rank computes: its x
+    channels and all of B and C; the chunks the cache holds), as ranges of
+    the tail's d_inner + 2N channels."""
+    m = model_size()
+    w = d_inner // m
+    bc = (d_inner, d_inner + 2 * n_state)
+    have = [[(r * w, (r + 1) * w), bc] for r in range(m)]
+    chunks = [[c] if c[1] > c[0] else []
+              for c in chunk_ranges(d_inner + 2 * n_state, m)]
+    return have, chunks
+
+
+def conv_to_cache(tail, d_inner: int, n_state: int):
+    """A prompt's convolution tail (B, K-1, channels this rank computes)
+    as the cache holds it: this rank's chunk of the channels."""
+    if model_size() == 1:
+        return tail
+    have, chunks = _conv_layout(d_inner, n_state)
+    return regroup(tail, 2, have, chunks)
+
+
+def conv_from_cache(chunk, d_inner: int, n_state: int):
+    """The cached convolution tail (this rank's chunk of the channels) for
+    the channels this rank computes (its x channels, B and C)."""
+    if model_size() == 1:
+        return chunk
+    have, chunks = _conv_layout(d_inner, n_state)
+    return regroup(chunk, 2, chunks, have)
+
+
+def conv_step(chunk, xbc, d_inner: int, n_state: int):
+    """The cached tail after one decode step: ``chunk`` (B, K-1, this
+    rank's chunk) shifted by one position and the step's new values
+    ``xbc`` (B, 1, the channels this rank computes) of its chunk
+    appended."""
+    have, chunks = _conv_layout(d_inner, n_state)
+    return torch.cat([chunk[:, 1:], regroup(xbc, 2, have, chunks)], 1)
+
+
+def write_at(cache, new, at) -> None:
+    """Write ``new`` (B, 1, ...) into ``cache`` (B, S, ...) at position
+    ``at`` (a 0-d tensor on the cache's device) in place where 0 <= at <
+    S, and nowhere otherwise, with no copy to the host: the rank of a
+    sequence-sharded cache that owns the position writes it. e4m3 caches
+    are written as bytes (``index_copy_`` takes no e4m3 on either
+    device)."""
+    n = cache.shape[1]
+    inside = (at >= 0) & (at < n)
+    idx = at.clamp(0, n - 1).reshape(1).long()
+    new = new.to(cache.dtype)
+    if cache.element_size() == 1 and cache.dtype.is_floating_point:
+        cache, new = cache.view(torch.uint8), new.view(torch.uint8)
+    cache.index_copy_(1, idx, torch.where(inside, new,
+                                          cache.index_select(1, idx)))

@@ -84,11 +84,11 @@ SIGNATURES = {
         "flash_attention_bwd_smem": (_I, _I),
     },
     "flash_decode": {
-        # dtype, q, k_cache, v_cache, pos, out, B, H, Hkv, D, S_max,
-        # k strides (B, S, Hkv), v strides (B, S, Hkv), scale, splits,
-        # span, stream
-        "flash_decode_fwd": (_I,) + (_P,) * 5 + (_I,) * 5 + (_L,) * 6
-        + (_F, _I, _I, _P),
+        # q dtype, cache dtype, P's dtype, q, k_cache, v_cache, pos, out,
+        # lse (or null), B, H, Hkv, D, S_loc, k strides (B, S, Hkv), v
+        # strides (B, S, Hkv), scale, offset, splits, span, stream
+        "flash_decode_fwd": (_I,) * 3 + (_P,) * 6 + (_I,) * 5 + (_L,) * 6
+        + (_F, _I, _I, _I, _P),
     },
     "ssd_scan": {
         # dtype, x, dt, B, C, a, y, final_state, B, S, H, P, N, Q,

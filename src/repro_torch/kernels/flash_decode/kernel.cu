@@ -4,10 +4,25 @@
 // Replaces the TPU kernel src/repro/kernels/flash_decode/kernel.py::
 // flash_decode_bhd (body _decode_body) and its wrapper ops.py::
 // flash_decode_attention, and computes the same function:
-//   s[t] = (q . k[t]) * scale in fp32 for t <= pos (-1e30 past pos);
-//   running max, denominator and accumulator in fp32, block by block in
-//   ascending position; p rounded to v's type before P.V; out = acc /
-//   max(l, 1e-30) in q's type; kv_head = head / (H / Hkv).
+//   s[t] = (q . k[t]) * scale in fp32 for t <= pos (-1e30 past pos), K read
+//   as fp32 whatever the cache's type; running max, denominator and
+//   accumulator in fp32, block by block in ascending position; p rounded
+//   to P's type before P.V (the TPU kernel's: v's type; the reference
+//   model's: the query's, which the model passes); out = acc / max(l,
+//   1e-30) in q's type; kv_head = head / (H / Hkv).
+// The caches are of the query's type (fp32 or bf16) or e4m3 (fp8), read in
+// 16-byte chunks (16 e4m3 values; 8 bytes where a lane serves 4 or more
+// query heads, to keep its accumulators in registers) and widened in
+// registers: to fp32 for Q.K^T, and V to fp32 for the products with P in
+// P's type (a product of two e4m3 or bf16 values is exact in fp32, so this
+// is the TPU kernel's P.V in V's type with fp32 accumulation).
+// The log-sum-exp variant (lse != null) computes the same over one rank's
+// slice of a cache sharded over the sequence, the positions offset..offset
+// + S_loc - 1 with pos global, and writes the fp32 output, normalised and
+// not rounded, and each (b, h) row's log-sum-exp, natural log, for the
+// merge across ranks (a slice with no live position: out = 0 and lse =
+// -inf, as the TPU kernel leaves acc = 0 and l = 0 when it skips every
+// block).
 // pos is read on the device from an int32 (the TPU kernel takes it as a
 // scalar block), so a decode step needs no device->host copy, and positions
 // past pos are never read (the TPU kernel's pl.when(isb * bs <= pos)). The
@@ -17,8 +32,8 @@
 //
 // What bounds it on an H100: bytes. At the serving shapes (B = 8, H = Hkv =
 // 32, D = 112, pos up to 2,079, bf16) a launch reads 2 * B * (pos + 1) * Hkv *
-// D values of K and V (235 MB at pos = 2,047: 70 us at 3.35 TB/s) and does
-// 4 FLOPs per value read per query head.
+// D values of K and V (235 MB at pos = 2,047: 70 us at 3.35 TB/s; half of
+// that from an e4m3 cache) and does 4 FLOPs per value read per query head.
 //
 // Design: split-KV with the combine in a thread-block cluster. The grid is
 // (splits, Hkv, B) with a cluster of `splits` blocks (at most 8, the
@@ -31,9 +46,9 @@
 // block serves all G = H / Hkv query heads of its KV head, so the cache is
 // read once.
 // Each warp streams its own rows with no block-wide barrier: a row is read
-// by a group of lpr lanes, each holding kCpl 16-byte chunks of K and of V
-// (for bf16 at G = 1, 2 chunks: 7 lanes of 8 at D = 112), loaded straight
-// into registers, the next step's rows while this step's are used. A lane
+// by a group of lpr lanes, each holding kCpl chunks of K and of V (for
+// bf16 at G = 1, 2 chunks: 7 lanes of 8 at D = 112), loaded straight into
+// registers, the next step's rows while this step's are used. A lane
 // reduces its dot products over the group with shuffles and keeps the
 // group's online softmax (m, l, in log2 units: q is scaled by scale *
 // log2(e) once) and its chunks of the accumulator per head in registers.
@@ -41,17 +56,19 @@
 // each block leaves (m, l, acc[G][D]) there; after cluster.sync() every
 // block merges its slice of the outputs over the splits in split order,
 // reading the others' through distributed shared memory (an empty split or
-// row group gives m = -1e30, l = 0, acc = 0; split 0 always holds position
-// 0): no second launch, no scratch in device memory, no atomics, the same
-// result every run.
+// row group gives m = -1e30, l = 0, acc = 0): no second launch, no scratch
+// in device memory, no atomics, the same result every run.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 
 namespace {
 
 namespace cg = cooperative_groups;
+using fp8 = __nv_fp8_e4m3;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -62,6 +79,7 @@ constexpr int kMaxG = 8;          // query heads per KV head
 constexpr int kMaxSplits = 8;     // the portable cluster size
 constexpr int kMaxDevices = 64;
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -75,21 +93,61 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
 }
-// the 16 / sizeof(T) values of one 16-byte chunk, as floats
-__device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
+
+// a chunk of kBytes bytes, loaded by one instruction
+template <int kBytes> struct Chunk;
+template <> struct Chunk<16> { using type = uint4; };
+template <> struct Chunk<8> { using type = uint2; };
+
+// the values of one chunk of a cache of the tag's type, as floats
+__device__ __forceinline__ void unpack(const uint4& u, float* f,
+                                       const float*) {
   f[0] = __uint_as_float(u.x);
   f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z);
   f[3] = __uint_as_float(u.w);
 }
 __device__ __forceinline__ void unpack(const uint4& u, float* f,
-                                       __nv_bfloat16) {
+                                       const __nv_bfloat16*) {
   const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
+}
+// four e4m3 values, the lowest byte first, widened exactly (e4m3 -> f16
+// -> f32, two at a time)
+__device__ __forceinline__ void fp8x4(unsigned w, float* f) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>((w >> (16 * i)) & 0xffffu),
+        __NV_E4M3);
+    const float2 x = __half22float2(__half2(h));
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& u, float* f,
+                                       const fp8*) {
+  fp8x4(u.x, f);
+  fp8x4(u.y, f + 4);
+  fp8x4(u.z, f + 8);
+  fp8x4(u.w, f + 12);
+}
+__device__ __forceinline__ void unpack(const uint2& u, float* f,
+                                       const fp8*) {
+  fp8x4(u.x, f);
+  fp8x4(u.y, f + 4);
+}
+
+// p rounded to P's type: 0 fp32 (as it is), 1 bf16, 2 e4m3 (round to
+// nearest even, as torch's and JAX's casts)
+__device__ __forceinline__ float round_p(float p, int mode) {
+  if (mode == 1) return __bfloat162float(__float2bfloat16(p));
+  if (mode == 2) return static_cast<float>(fp8(p));
+  return p;
 }
 
 // the floats of shared memory: each row group's m and l per head and its
@@ -98,20 +156,25 @@ __host__ __device__ constexpr int smem_floats(int slots, int kG, int D) {
   return slots * kG * (D + 2) + kG * (D + 2);
 }
 
-// kG >= G query heads per KV head (1, 2, 4 or 8); a lane holds kCpl 16-byte
-// chunks of a row (chunks j, j + lpr, ...); kU rows per row group have their
-// loads in flight together
-template <typename T, int kG, int kCpl, int kU>
+// TQ the query's (and the output's) type, TC the cache's; kG >= G query
+// heads per KV head (1, 2, 4 or 8); a lane holds kCpl chunks of kCB bytes
+// of a row (chunks j, j + lpr, ...); kU rows per row group have their loads
+// in flight together. With lse_out the output is fp32 and each row's
+// log-sum-exp is written too.
+template <typename TQ, typename TC, int kG, int kCpl, int kCB, int kU>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                          const T* __restrict__ vc,
-                          const int* __restrict__ pos_ptr, T* __restrict__ out,
-                          int H, int Hkv, int D, int S_max, long long k_sb,
-                          long long k_ss, long long k_sh, long long v_sb,
-                          long long v_ss, long long v_sh, float scale_log2,
-                          int span, int lpr) {
-  constexpr int E = 16 / sizeof(T);   // values per 16-byte chunk
-  constexpr int W = kCpl * E;         // values of a row per lane
+flash_decode_split_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
+                          const TC* __restrict__ vc,
+                          const int* __restrict__ pos_ptr, void* out,
+                          float* __restrict__ lse_out, int H, int Hkv, int D,
+                          int S_loc, long long k_sb, long long k_ss,
+                          long long k_sh, long long v_sb, long long v_ss,
+                          long long v_sh, float scale_log2, int pround,
+                          int offset, int span, int lpr) {
+  using ChunkT = typename Chunk<kCB>::type;
+  constexpr int E = kCB / sizeof(TC);   // values per chunk
+  constexpr int W = kCpl * E;           // values of a row per lane
+  const TC* tag = nullptr;
   cg::cluster_group cluster = cg::this_cluster();
   const int G = H / Hkv, cpr = D / E;
   const int rpw = 32 / lpr, slots = kWarps * rpw;   // row groups
@@ -122,8 +185,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   for (int c = 0; c < kCpl; ++c) act[c] = j + lpr * c < cpr;
   const int split = static_cast<int>(cluster.block_rank());
   const int kvh = blockIdx.y, b = blockIdx.z;
-  const T* kb = kc + b * k_sb + kvh * k_sh + j * E;
-  const T* vb = vc + b * v_sb + kvh * v_sh + j * E;
+  const TC* kb = kc + b * k_sb + kvh * k_sh + j * E;
+  const TC* vb = vc + b * v_sb + kvh * v_sh + j * E;
   // the G query heads of this KV head are kvh * G .. kvh * G + G - 1; q is
   // held scaled by scale * log2(e), so the scores come out in log2 units
   const size_t qoff = (static_cast<size_t>(b) * H +
@@ -144,7 +207,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                 : 0.0f;
       }
   }
-  const int n_live = min(*pos_ptr + 1, S_max);
+  // the live positions of this slice: global offset + t <= pos
+  const int n_live = min(max(*pos_ptr + 1 - offset, 0), S_loc);
   const int s_begin = split * span;
   const int s_end = min(s_begin + span, n_live);
 
@@ -152,7 +216,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   // every lane of a warp takes part in the shuffles); the next step's rows
   // are loaded while this step's are used
   const int step = kU * slots;
-  uint4 kn[kU][kCpl], vn[kU][kCpl];
+  ChunkT kn[kU][kCpl], vn[kU][kCpl];
   auto load = [&](int it) {
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
@@ -161,18 +225,18 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       for (int c = 0; c < kCpl; ++c) {
         const bool in = act[c] && r < s_end;
         const long long off = lpr * c * E;
-        kn[u][c] = in ? __ldg(reinterpret_cast<const uint4*>(
+        kn[u][c] = in ? __ldg(reinterpret_cast<const ChunkT*>(
                             kb + r * k_ss + off))
-                      : make_uint4(0u, 0u, 0u, 0u);
-        vn[u][c] = in ? __ldg(reinterpret_cast<const uint4*>(
+                      : ChunkT{};
+        vn[u][c] = in ? __ldg(reinterpret_cast<const ChunkT*>(
                             vb + r * v_ss + off))
-                      : make_uint4(0u, 0u, 0u, 0u);
+                      : ChunkT{};
       }
     }
   };
   load(s_begin);
   for (int it = s_begin; it < s_end; it += step) {
-    uint4 kr[kU][kCpl], vr[kU][kCpl];
+    ChunkT kr[kU][kCpl], vr[kU][kCpl];
     bool valid[kU];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
@@ -193,7 +257,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
       for (int c = 0; c < kCpl; ++c) {
         float kf[E];
-        unpack(kr[u][c], kf, T());
+        unpack(kr[u][c], kf, tag);
 #pragma unroll
         for (int g = 0; g < kG; ++g)
 #pragma unroll
@@ -220,7 +284,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       for (int u = 0; u < kU; ++u) {
         p[g][u] = valid[u] ? exp2f(s[u][g] - m_new) : 0.0f;
         ps += p[g][u];
-        p[g][u] = to_f(from_f<T>(p[g][u]));   // p.astype(v.dtype)
+        p[g][u] = round_p(p[g][u], pround);   // p.astype(P's type)
       }
       l[g] = l[g] * corr + ps;
       m[g] = m_new;
@@ -232,7 +296,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
       for (int c = 0; c < kCpl; ++c) {
         float vf[E];
-        unpack(vr[u][c], vf, T());
+        unpack(vr[u][c], vf, tag);
 #pragma unroll
         for (int g = 0; g < kG; ++g)
 #pragma unroll
@@ -315,23 +379,45 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         a = fmaf(ra[r], w, a);
       }
     }
-    out[qoff + x] = from_f<T>(a / fmaxf(lsum, 1e-30f));
+    const float o = a / fmaxf(lsum, 1e-30f);
+    if (lse_out != nullptr) {
+      static_cast<float*>(out)[qoff + x] = o;
+      if (x % D == 0)   // once a row: the natural log of l * 2^m
+        lse_out[qoff / D + g] = lsum > 0.0f ? (mx + log2f(lsum)) * kLn2
+                                            : -__int_as_float(0x7f800000);
+    } else {
+      static_cast<TQ*>(out)[qoff + x] = from_f<TQ>(o);
+    }
   }
   cluster.sync();   // each block's shared memory lives until all have read
 }
 
-template <typename T, int kG>
-int launch(const void* q, const void* kc, const void* vc, const int* pos,
-           void* out, int B, int H, int Hkv, int D, int S_max,
-           long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-           long long v_ss, long long v_sh, float scale, int splits, int span,
-           cudaStream_t stream) {
-  constexpr int kCpl = kG == 1 ? 2 : 1;
-  const auto kernel = flash_decode_split_kernel<T, kG, kCpl, kUnroll>;
-  const int cpr = D / (16 / static_cast<int>(sizeof(T)));
+struct Args {
+  const void *q, *kc, *vc;
+  const int* pos;
+  void* out;
+  float* lse;
+  int B, H, Hkv, D, S_loc;
+  long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  float scale;
+  int pround, offset, splits, span;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TC, int kG>
+int launch(const Args& a) {
+  // an e4m3 cache: one chunk a lane, of 8 bytes from 4 query heads a KV
+  // head up (the accumulators of 8 heads x 16 values would not stay in
+  // registers)
+  constexpr bool kNarrow = sizeof(TC) == 1;
+  constexpr int kCB = kNarrow && kG >= 4 ? 8 : 16;
+  constexpr int kCpl = kNarrow || kG > 1 ? 1 : 2;
+  const auto kernel =
+      flash_decode_split_kernel<TQ, TC, kG, kCpl, kCB, kUnroll>;
+  const int cpr = a.D / (kCB / static_cast<int>(sizeof(TC)));
   int lpr = 1;   // lanes per row: the power of two >= a row's chunks / kCpl
   while (lpr * kCpl < cpr) lpr *= 2;
-  const int smem = 4 * smem_floats(kWarps * (32 / lpr), kG, D);
+  const int smem = 4 * smem_floats(kWarps * (32 / lpr), kG, a.D);
   static int opted[kMaxDevices];   // set the attribute once per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -346,74 +432,71 @@ int launch(const void* q, const void* kc, const void* vc, const int* pos,
     opted[dev] = smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, Hkv, B);
+  cfg.gridDim = dim3(a.splits, a.Hkv, a.B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
+  cfg.stream = a.stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.x = a.splits;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
-                           static_cast<const T*>(kc),
-                           static_cast<const T*>(vc), pos,
-                           static_cast<T*>(out), H, Hkv, D, S_max, k_sb, k_ss,
-                           k_sh, v_sb, v_ss, v_sh,
-                           scale * 1.4426950408889634f, span, lpr);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TQ*>(a.q),
+                           static_cast<const TC*>(a.kc),
+                           static_cast<const TC*>(a.vc), a.pos, a.out, a.lse,
+                           a.H, a.Hkv, a.D, a.S_loc, a.k_sb, a.k_ss, a.k_sh,
+                           a.v_sb, a.v_ss, a.v_sh,
+                           a.scale * 1.4426950408889634f, a.pround, a.offset,
+                           a.span, lpr);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_g(const void* q, const void* kc, const void* vc, const int* pos,
-             void* out, int B, int H, int Hkv, int D, int S_max,
-             long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-             long long v_ss, long long v_sh, float scale, int splits,
-             int span, cudaStream_t stream) {
-  const int G = H / Hkv;
-  if (G == 1)
-    return launch<T, 1>(q, kc, vc, pos, out, B, H, Hkv, D, S_max, k_sb, k_ss,
-                        k_sh, v_sb, v_ss, v_sh, scale, splits, span, stream);
-  if (G == 2)
-    return launch<T, 2>(q, kc, vc, pos, out, B, H, Hkv, D, S_max, k_sb, k_ss,
-                        k_sh, v_sb, v_ss, v_sh, scale, splits, span, stream);
-  if (G <= 4)
-    return launch<T, 4>(q, kc, vc, pos, out, B, H, Hkv, D, S_max, k_sb, k_ss,
-                        k_sh, v_sb, v_ss, v_sh, scale, splits, span, stream);
-  return launch<T, 8>(q, kc, vc, pos, out, B, H, Hkv, D, S_max, k_sb, k_ss,
-                      k_sh, v_sb, v_ss, v_sh, scale, splits, span, stream);
+template <typename TQ, typename TC>
+int launch_g(const Args& a) {
+  const int G = a.H / a.Hkv;
+  if (G == 1) return launch<TQ, TC, 1>(a);
+  if (G == 2) return launch<TQ, TC, 2>(a);
+  if (G <= 4) return launch<TQ, TC, 4>(a);
+  return launch<TQ, TC, 8>(a);
 }
 
 }  // namespace
 
-// q and out (B, 1, H, D) contiguous; the caches (B, S_max, Hkv, D) with the
-// given element strides for B, S and Hkv and unit stride over D, 16-byte
-// aligned rows (D and the strides multiples of 16 bytes); pos one int32 on
-// the device. dtype 0 = float32, 1 = bfloat16. D <= 128, D % 8 == 0,
+// q (B, 1, H, D) contiguous, of qtype (0 = float32, 1 = bfloat16); the
+// caches (B, S_loc, Hkv, D) of ctype (0 = float32, 1 = bfloat16, 2 = e4m3;
+// the query's type or e4m3) with the given element strides for B, S and
+// Hkv and unit stride over D, 16-byte aligned rows (D and the strides
+// multiples of 16 bytes); pos one int32 on the device; P rounded to pround
+// (0 = as it is, float32; 1 = bfloat16; 2 = e4m3). With lse null, out (B,
+// 1, H, D) of qtype and offset 0; else out fp32 and lse (B, 1, H) fp32 for
+// the slice of positions offset..offset + S_loc - 1. D <= 128, D % 8 == 0,
 // H / Hkv <= 8; splits (1..8) blocks of span positions (a multiple of 64)
-// cover S_max.
-extern "C" int flash_decode_fwd(int dtype, const void* q, const void* kc,
-                                const void* vc, const int* pos, void* out,
-                                int B, int H, int Hkv, int D, int S_max,
+// cover S_loc.
+extern "C" int flash_decode_fwd(int qtype, int ctype, int pround,
+                                const void* q, const void* kc, const void* vc,
+                                const int* pos, void* out, float* lse, int B,
+                                int H, int Hkv, int D, int S_loc,
                                 long long k_sb, long long k_ss, long long k_sh,
                                 long long v_sb, long long v_ss, long long v_sh,
-                                float scale, int splits, int span,
+                                float scale, int offset, int splits, int span,
                                 cudaStream_t stream) {
   if (D > kMaxD || D % 8 != 0 || H % Hkv != 0 || H / Hkv > kMaxG ||
       splits < 1 || splits > kMaxSplits || span % kTile != 0 ||
-      static_cast<long long>(splits) * span < S_max)
+      static_cast<long long>(splits) * span < S_loc || pround < 0 ||
+      pround > 2 || (ctype == 2 && D % 16 != 0) ||
+      (lse == nullptr && offset != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch_g<float>(q, kc, vc, pos, out, B, H, Hkv, D, S_max, k_sb,
-                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, splits, span,
-                           stream);
-  if (dtype == 1)
-    return launch_g<__nv_bfloat16>(q, kc, vc, pos, out, B, H, Hkv, D, S_max,
-                                   k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                                   splits, span, stream);
+  const Args a = {q,    kc,   vc,   pos,  out,    lse,    B,    H,
+                  Hkv,  D,    S_loc, k_sb, k_ss,  k_sh,   v_sb, v_ss,
+                  v_sh, scale, pround, offset, splits, span, stream};
+  if (qtype == 0 && ctype == 0) return launch_g<float, float>(a);
+  if (qtype == 1 && ctype == 1)
+    return launch_g<__nv_bfloat16, __nv_bfloat16>(a);
+  if (qtype == 0 && ctype == 2) return launch_g<float, fp8>(a);
+  if (qtype == 1 && ctype == 2) return launch_g<__nv_bfloat16, fp8>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

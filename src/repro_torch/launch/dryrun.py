@@ -20,12 +20,15 @@ as it runs on a real mesh: weights and optimizer state placed by
 weight's own shard and this rank's batch shard, each layer's weights
 gathered over the FSDP axes only while it runs (and again for its
 backward), the blocks tensor-parallel over "model" (``distributed.tp``).
-Prefill and decode are left as they were (``sharded_serve``, a later
-slice makes them tensor-parallel): each weight gathered whole inside
-``local_map`` (``"inference"`` weights under ``--infer-tp`` by the
-reference's 8 GB rule), the batch and the cache sharded over the FSDP
-axes where B divides (not at ``long_500k``'s B = 1), and every rank of a
-"model" row computing the same local step.
+Prefill and decode (``serve_step``) run the same way: the weights as
+they are placed (ZeRO-3 by ``param_specs``, or its ``"inference"`` mode,
+"model" only, under ``--infer-tp`` by the reference's 8 GB rule), the
+blocks tensor-parallel over "model", the batch over the FSDP axes where B
+divides (not at ``long_500k``'s B = 1), and the cache as the reference's
+``cache_specs`` lays it out: K/V sequence, SSM state heads and the
+convolution tail's channels over "model". Decode runs K5's log-sum-exp
+variant on each rank's slice of the cache and merges the slices across
+"model".
 
 Per card, each row records:
 
@@ -296,23 +299,6 @@ def _even_cache_specs(cache_shapes, mesh):
     return tree_map(fix, specs, cache_shapes)
 
 
-def _serve_cache_specs(cache_shapes, mesh):
-    """The cache's layout for the port's serve: ``_even_cache_specs`` with
-    the "model" axis dropped. The reference shards the KV sequence over
-    "model" because its decode splits the keys across the axis; K5 reads
-    its whole cache, and every rank of a "model" row runs the same local
-    step, so the cache is sharded over the FSDP axes only."""
-    def drop(spec):
-        def keep(e):
-            if e == MODEL_AXIS:
-                return None
-            if isinstance(e, tuple):
-                return tuple(a for a in e if a != MODEL_AXIS) or None
-            return e
-        return P(*(keep(e) for e in spec))
-    return tree_map(drop, _even_cache_specs(cache_shapes, mesh))
-
-
 def _leaves(tree):
     return pytree.tree_leaves(tree, is_leaf=lambda x: isinstance(x, P))
 
@@ -339,55 +325,74 @@ def distribute_like(tree, mesh, specs, mode, device):
                     specs)
 
 
-def sharded_serve(fn, mesh, in_specs, out_specs):
-    """``fn`` over DTensors through ``local_map``: each argument laid out
-    by its spec (the weights replicated, gathered from their ZeRO-3
-    shards), each output wrapped by its spec. On a one-rank mesh every
-    number is ``fn``'s on plain tensors."""
-    from torch.distributed.tensor.experimental import local_map
-    ins = tuple(placements(s, mesh) for s in _leaves(in_specs))
-    outs = tuple(placements(s, mesh) for s in _leaves(out_specs))
-    return local_map(fn, out_placements=outs, in_placements=ins,
-                     device_mesh=mesh, redistribute_inputs=True)
-
-
-def serve_step(cfg, kind, mesh, params, inputs):
+def serve_step(cfg, kind, mesh, params, inputs, max_seq=None):
     """One sharded prefill or decode step: (logits, cache) DTensors, on a
-    mesh whose params are DTensors placed by ``param_specs`` and whose
-    inputs are DTensors placed by ``serve_specs``. Left as it was before
-    the train step became tensor-parallel: every weight gathered whole
-    (``sharded_serve``), each rank of a "model" row computing the same
-    step; tensor-parallel prefill and decode are a later slice's."""
-    whole = tree_map(lambda t: P(*([None] * t.dim())), params)
-    specs = serve_specs(cfg, kind, mesh, inputs)
-    outs = (specs["logits"], specs["cache"])
+    mesh whose params are DTensors placed by ``param_specs`` (ZeRO-3, or
+    its "inference" mode: "model" only) and whose inputs are DTensors
+    placed by ``serve_specs``. The step runs on each rank's own shards
+    through ``local_map`` under ``tp.sharded``: tensor-parallel over
+    "model", each layer's weights gathered over the FSDP axes while it
+    runs where they are ZeRO-3, the batch over the FSDP axes, the cache
+    as ``cache_specs`` lays it out (K/V sequence, SSM state heads and the
+    convolution tail's channels over "model"). The logits come back whole
+    over the vocab. A prefill's cache holds ``max_seq`` positions (the
+    prompt's by default). On a one-rank mesh every number is the unsharded
+    step's."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed import tp
+    leaves = pytree.tree_leaves(params)
+    p_place = tuple(tuple(t.placements) for t in leaves)
+    modes = {}
+    for mode in ("train", "inference"):
+        specs = _leaves(param_specs(params, mesh, mode=mode))
+        modes[mode] = tuple(placements(sp, mesh, t.ndim)
+                            for sp, t in zip(specs, leaves))
+    if p_place not in modes.values():
+        raise ValueError("serve_step takes parameters placed by "
+                         "param_specs (mode 'train' or 'inference')")
+    gather = p_place == modes["train"]
+    specs = serve_specs(cfg, kind, mesh, inputs, max_seq)
+
+    def place(spec_tree):
+        return tuple(placements(sp, mesh) for sp in _leaves(spec_tree))
     if kind == "prefill":
-        fn = sharded_serve(lambda p, b: prefill(p, b, cfg), mesh,
-                           (whole, specs["inputs"]), outs)
-        return fn(params, inputs)
-    fn = sharded_serve(lambda p, c, t: decode_step(p, c, t, cfg), mesh,
-                       (whole, specs["cache"], specs["inputs"]["tokens"]),
-                       outs)
-    return fn(params, inputs["cache"], inputs["tokens"])
+        args, in_specs = (params, inputs), specs["inputs"]
+    else:
+        args = (params, inputs["cache"], inputs["tokens"])
+        in_specs = (specs["cache"], specs["inputs"]["tokens"])
+
+    def run(p, *rest):
+        with tp.sharded(mesh, gather=gather):
+            if kind == "prefill":
+                return prefill(p, *rest, cfg, max_seq)
+            return decode_step(p, *rest, cfg)
+    fn = local_map(run, out_placements=place((specs["logits"],
+                                              specs["cache"])),
+                   in_placements=p_place + place(in_specs),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(*args)
 
 
-def serve_specs(cfg, kind, mesh, inputs) -> dict:
+def serve_specs(cfg, kind, mesh, inputs, max_seq=None) -> dict:
     """The specs of a serve step's ``inputs`` (prefill: the batch; decode:
     the tokens and the cache) and of its logits and cache out: the batch,
-    tokens and logits by ``_even_batch_specs``, the cache by
-    ``_serve_cache_specs``."""
+    tokens and logits by ``_even_batch_specs``, the cache (of ``max_seq``
+    positions after a prefill, the prompt's by default) by
+    ``_even_cache_specs`` (the reference's ``cache_specs``, the batch
+    replicated where it does not divide)."""
     b = inputs["tokens"].shape[0]
     with FakeTensorMode():
         logits = torch.empty((b, 1, cfg.padded_vocab))
         if kind == "prefill":
             s = inputs["tokens"].shape[1]
             s += cfg.n_patches if cfg.family == "vlm" else 0
-            cache = cache_spec(cfg, b, s, device="cpu")
+            cache = cache_spec(cfg, b, max_seq or s, device="cpu")
     if kind == "prefill":
         specs = _even_batch_specs(inputs, mesh)
-        cache = _serve_cache_specs(cache, mesh)
+        cache = _even_cache_specs(cache, mesh)
     else:
-        cache = _serve_cache_specs(inputs["cache"], mesh)
+        cache = _even_cache_specs(inputs["cache"], mesh)
         specs = {"tokens": _even_batch_specs(inputs["tokens"], mesh),
                  "cache": cache}
     return {"inputs": specs, "cache": cache,

@@ -17,9 +17,11 @@ rounding in bf16.
 
 ``decode_attention_block`` goes to the flash-decode kernel (K5) in the
 same way. It writes the new K/V at ``pos`` in place (``index_copy_`` with
-``pos`` on the device, no host sync); the reference writes them with an
-elementwise select over the whole cache (a GSPMD workaround). The values
-are the same.
+``pos`` on the device, no host sync; an e4m3 cache through a byte view);
+the reference writes them with an elementwise select over the whole cache
+(a GSPMD workaround). The values are the same. Under TP it runs K5's
+log-sum-exp variant on the rank's slice of the cache and merges the
+slices across ranks.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                  flash_decode_lse)
 from repro_torch.models.layers import (INIT_STD, apply_rope, as_type,
                                        dense_init, rope_angles)
 
@@ -101,19 +104,43 @@ def decode_attention_block(params, x, cfg: ModelConfig, k_cache, v_cache,
 
     x (B, 1, d); k_cache, v_cache (B, S_max, Hkv, D), written at ``pos``
     in place; pos a 0-d int32 tensor on x's device, the number of tokens
-    already in the cache. Returns (out, k_cache, v_cache).
-    """
+    already in the cache. Returns (out, k_cache, v_cache). The cache may
+    be e4m3 (``cfg.kv_dtype``): K5 widens it on read, and P is rounded to
+    the compute type, as the reference model casts the cache on read and
+    rounds its probabilities (``repro/models/attention.py:190-203``).
+
+    Under TP (``distributed.tp``) the cache is this rank's slice of the
+    sequence, as ``cache_specs`` lays it out: ``wq`` is column-parallel
+    over the rank's query heads and ``wo`` row-parallel; the step's q and
+    new K/V are gathered over "model" (every rank holds a slice of every
+    KV head); the rank that owns ``pos`` writes the new K/V; K5's
+    log-sum-exp variant runs every head over the slice, and the slices
+    merge, for the rank's heads, in rank order (``tp.merge_heads``)."""
     b = x.shape[0]
+    params = tp.attention_shard(params, cfg.n_heads, cfg.n_kv, cfg.head_dim)
     positions = pos.reshape(1, 1).expand(b, 1)
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
-    idx = pos.reshape(1).long()
-    k_cache.index_copy_(1, idx, k_new.to(k_cache.dtype))
-    v_cache.index_copy_(1, idx, v_new.to(v_cache.dtype))
+    q, k_new, v_new = _project_qkv(params, tp.copy_to_tp(x), cfg, positions)
+    scale = cfg.head_dim ** -0.5
+    if tp.model_size() > 1:
+        q = tp.gather_heads(q, cfg.n_heads, cfg.n_kv)
+        k_new, v_new = tp.gather_heads(torch.cat([k_new, v_new], 1),
+                                       cfg.n_heads, cfg.n_kv,
+                                       kv=True).split(1, 1)
+    offset = tp.seq_offset(k_cache.shape[1])
+    tp.write_at(k_cache, k_new, pos - offset)
+    tp.write_at(v_cache, v_new, pos - offset)
     k_cache = shard(k_cache, ("batch", "kv_seq", None, None))
     v_cache = shard(v_cache, ("batch", "kv_seq", None, None))
     # the reference also keeps its (B, H, S) scores sequence-sharded
     # ("batch", None, "kv_seq"); here they live inside K5, which splits
     # them over the cache's sequence already (split-KV)
-    o = flash_decode(q, k_cache, v_cache, pos, scale=cfg.head_dim ** -0.5)
-    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return o @ as_type(params["wo"], x.dtype), k_cache, v_cache
+    if tp.model_size() == 1:
+        o = flash_decode(q, k_cache, v_cache, pos, scale=scale,
+                         p_dtype=q.dtype)
+    else:
+        o, lse = flash_decode_lse(q, k_cache, v_cache, pos, offset=offset,
+                                  scale=scale, p_dtype=q.dtype)
+        o = tp.merge_heads(o, lse, cfg.n_heads, cfg.n_kv).to(q.dtype)
+    o = o.reshape(b, 1, -1)
+    return (tp.reduce_from_tp(o @ as_type(params["wo"], x.dtype)), k_cache,
+            v_cache)

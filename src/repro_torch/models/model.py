@@ -35,7 +35,10 @@ for its backward (each block is recomputed whatever ``cfg.remat`` says
 when there are FSDP ranks to gather from); ``embed``, ``lm_head`` and
 ``ln_f`` are gathered once. The blocks compute tensor-parallel over
 "model", and the logits ``forward`` returns are the rank's vocab
-columns.
+columns. Under the sharded serve steps (``launch.dryrun.serve_step``)
+``prefill`` and ``decode_step`` run the same way on the cache's shards,
+laid out as the reference's ``cache_specs`` lays them out, and return
+whole-vocab logits.
 """
 from __future__ import annotations
 
@@ -248,8 +251,7 @@ def _positions(h):
 def forward(params, batch, cfg: ModelConfig):
     """Full-sequence forward -> (logits fp32 (B, S, V), aux_loss)."""
     _check_family(cfg)
-    params = {**params, **tp.gather_layer(
-        {k: params[k] for k in ("embed", "lm_head", "ln_f")})}
+    params = _whole_vocab_params(params)
     h = _inputs_to_h(params, batch, cfg)
     positions = _positions(h)
     use_moe = cfg.family == "moe"
@@ -297,7 +299,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     reference's leaves, shapes and types (so ``tree_bytes`` of it is the
     reference's): ``pos`` a 0-d int32, ``k``/``v`` (n_attn, B, max_seq,
     Hkv, D), ``ssm`` {``state`` (n_ssm, B, H, P, N) fp32, ``conv``
-    (n_ssm, B, K-1, C)}."""
+    (n_ssm, B, K-1, C)}. Under TP, this rank's shard of each leaf as the
+    reference's ``cache_specs`` lays it out: the sequence, the state's
+    heads and the tail's channels over "model"."""
     _check_family(cfg)
     dev = resolve_device(device)
     cd = dtype_of(cfg.compute_dtype)
@@ -305,7 +309,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     cache: dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32,
                                                 device=dev)}
     if cfg.family in ATTN_FAMILIES + ("hybrid",):
-        kv = (cfg.n_attn_layers(), batch, max_seq, cfg.n_kv, cfg.head_dim)
+        m = tp.model_size()
+        if max_seq % m:
+            raise ValueError(f"a cache of {max_seq} positions does not "
+                             f"split over {m} 'model' ranks")
+        kv = (cfg.n_attn_layers(), batch, max_seq // m, cfg.n_kv,
+              cfg.head_dim)
         cache["k"] = torch.zeros(kv, dtype=kvd, device=dev)
         cache["v"] = torch.zeros(kv, dtype=kvd, device=dev)
     if cfg.family in ("ssm", "hybrid"):
@@ -314,10 +323,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     return cache
 
 
+def _whole_vocab_params(params):
+    """``params`` with the embedding, the head and the final norm gathered
+    over the FSDP axes (as ``forward`` takes them)."""
+    return {**params, **tp.gather_layer(
+        {k: params[k] for k in ("embed", "lm_head", "ln_f")})}
+
+
 def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None):
     """Prompt ingestion: the forward plus the decode cache. Returns the
-    last position's logits (B, 1, V) and the cache, with ``pos`` = S."""
+    last position's logits (B, 1, V) and the cache, with ``pos`` = S.
+
+    Under ``tp.sharded`` the blocks run tensor-parallel as ``forward``'s
+    do, each layer's weights gathered over the FSDP axes while it runs;
+    each attention layer's K/V go from the rank's KV heads to every
+    rank's slice of the sequence (``tp.kv_to_cache``), each Mamba2 layer's
+    state stays the rank's heads and its convolution tail goes to the
+    rank's chunk of the channels (``tp.conv_to_cache``); the logits are
+    gathered over the vocab."""
     _check_family(cfg)
+    params = _whole_vocab_params(params)
     h = _inputs_to_h(params, batch, cfg)
     b, s, _ = h.shape
     max_seq = max_seq or s
@@ -327,42 +352,48 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None):
     attn_layers, ssm_layers = _stack(params, cfg)
     for kind, i in _layer_order(cfg):
         if kind == "attn":
-            h, (k, v), _ = _attn_mlp_block(attn_layers[i], h, cfg, positions,
+            h, (k, v), _ = _attn_mlp_block(tp.gather_layer(attn_layers[i]),
+                                           h, cfg, positions,
                                            cfg.family == "moe")
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            tp.kv_to_cache(k, v, cache["k"][i], cache["v"][i], cfg.n_heads,
+                           cfg.n_kv)
         else:
-            h, state, conv = _ssm_block(ssm_layers[i], h, cfg,
-                                        return_cache=True)
+            h, state, conv = _ssm_block(tp.gather_layer(ssm_layers[i]), h,
+                                        cfg, return_cache=True)
             cache["ssm"]["state"][i] = state
-            cache["ssm"]["conv"][i] = conv.to(cd)
+            cache["ssm"]["conv"][i] = tp.conv_to_cache(
+                conv.to(cd), cfg.d_inner, cfg.ssm_state)
     cache["pos"].fill_(s)
     h = rmsnorm(h, params["ln_f"])
-    return logits_fn(params, h[:, -1:, :], cfg), cache
+    return tp.gather_vocab(logits_fn(params, h[:, -1:, :], cfg)), cache
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig):
     """One decode step, tokens (B, 1) -> (logits (B, 1, V), cache). The
     cache is updated in place (K/V written at ``pos``, each layer's SSM
-    state and convolution tail replaced) and returned with ``pos`` + 1."""
+    state and convolution tail replaced) and returned with ``pos`` + 1.
+    Under ``tp.sharded``, tensor-parallel on the cache's shards as
+    ``prefill`` leaves them."""
     _check_family(cfg)
+    params = _whole_vocab_params(params)
     h = embed_tokens(params, tokens.long(), dtype_of(cfg.compute_dtype))
     h = shard(h, ("batch", None, "embed"))
     pos = cache["pos"]
     attn_layers, ssm_layers = _stack(params, cfg)
     for kind, i in _layer_order(cfg):
         if kind == "attn":
-            h = _attn_mlp_decode(attn_layers[i], h, cfg, cache["k"][i],
-                                 cache["v"][i], pos, cfg.family == "moe")
+            h = _attn_mlp_decode(tp.gather_layer(attn_layers[i]), h, cfg,
+                                 cache["k"][i], cache["v"][i], pos,
+                                 cfg.family == "moe")
         else:
             st, cv = cache["ssm"]["state"], cache["ssm"]["conv"]
-            h, state, conv = _ssm_block_decode(ssm_layers[i], h, cfg, st[i],
-                                               cv[i])
+            h, state, conv = _ssm_block_decode(tp.gather_layer(
+                ssm_layers[i]), h, cfg, st[i], cv[i])
             st[i] = state
             cv[i] = conv.to(cv.dtype)
     cache["pos"] = pos + 1
     h = rmsnorm(h, params["ln_f"])
-    return logits_fn(params, h, cfg), cache
+    return tp.gather_vocab(logits_fn(params, h, cfg)), cache
 
 
 # ------------------------------------------------------------------ model

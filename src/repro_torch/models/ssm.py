@@ -20,7 +20,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.models.layers import INIT_STD, as_type, dense_init, rmsnorm
+from repro_torch.models.layers import INIT_STD, as_type, dense_init
 
 CHUNK = 128
 
@@ -107,31 +107,46 @@ def ssm_block(params, x, cfg: ModelConfig, return_cache: bool = False):
 # ------------------------------------------------------------------ decode
 def ssm_cache_init(cfg: ModelConfig, batch: int, n_layers: int, dtype,
                    device):
-    """Recurrent decode state for ``n_layers`` SSM layers."""
+    """Recurrent decode state for ``n_layers`` SSM layers; under TP this
+    rank's heads of the state and its chunk of the convolution tail's
+    channels (``cache_specs``' layout)."""
     di, n = cfg.d_inner, cfg.ssm_state
     return {
-        "state": torch.zeros((n_layers, batch, cfg.ssm_heads,
+        "state": torch.zeros((n_layers, batch,
+                              cfg.ssm_heads // tp.model_size(),
                               cfg.ssm_head_dim, n), dtype=torch.float32,
                              device=device),
-        "conv": torch.zeros((n_layers, batch, cfg.ssm_conv - 1, di + 2 * n),
+        "conv": torch.zeros((n_layers, batch, cfg.ssm_conv - 1,
+                             tp.chunk_width(di + 2 * n)),
                             dtype=dtype, device=device),
     }
 
 
 def ssm_decode_block(params, x, cfg: ModelConfig, state, conv_state):
     """One-token step. x (B, 1, d); state (B, H, P, N); conv (B, K-1, C).
-    Returns (out (B, 1, d), state', conv_state')."""
+    Returns (out (B, 1, d), state', conv_state').
+
+    Under TP the rank steps its heads, as ``ssm_block`` computes them
+    (``tp.ssm_shard``), on its heads of the state; the cached tail is its
+    chunk of the channels, from which it takes the channels it computes
+    and to which it returns the step's new values (``tp.conv_from_cache``,
+    ``tp.conv_step``)."""
     b = x.shape[0]
-    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    params, h = tp.ssm_shard(params, cfg.d_inner, n, cfg.ssm_heads)
+    di = cfg.d_inner // tp.model_size()
     cd = x.dtype
 
-    z, xbc, dt = _split_proj(params, x, di, n)               # (B, 1, *)
-    window = torch.cat([conv_state, xbc.to(conv_state.dtype)], 1)
+    z, xbc, dt = _split_proj(params, tp.copy_to_tp(x), di, n)  # (B, 1, *)
+    xbc = xbc.to(conv_state.dtype)
+    tail = tp.conv_from_cache(conv_state, cfg.d_inner, n)
+    window = torch.cat([tail, xbc], 1)
     w = as_type(params["conv_w"], cd)                        # (K, C)
     conv_out = torch.einsum("bkc,kc->bc", window.to(cd), w) \
         + as_type(params["conv_b"], cd)
     conv_out = F.silu(conv_out)
-    new_conv = window[:, 1:, :]
+    new_conv = window[:, 1:, :] if tp.model_size() == 1 else \
+        tp.conv_step(conv_state, xbc, cfg.d_inner, n)
 
     xc, bmat, cmat = (conv_out[:, :di], conv_out[:, di:di + n],
                       conv_out[:, di + n:])
@@ -147,5 +162,6 @@ def ssm_decode_block(params, x, cfg: ModelConfig, state, conv_state):
     y = y + params["ssm_d"][None, :, None] * xh
     y = y.reshape(b, 1, di).to(cd)
 
-    y = rmsnorm(y * F.silu(z), params["norm_scale"])
-    return y @ as_type(params["out_proj"], cd), state, new_conv
+    y = tp.rmsnorm(y * F.silu(z), params["norm_scale"])
+    return (tp.reduce_from_tp(y @ as_type(params["out_proj"], cd)), state,
+            new_conv)

@@ -109,18 +109,16 @@ def real_train(tmp_path_factory):
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-def test_traced_flops_are_the_real_count_per_rank(kind, request):
+def test_traced_flops_are_the_real_count_per_rank(kind, real_train):
+    """Each step, tensor-parallel over "model" with the batch halved over
+    "data", traced on fake tensors counts what the same step counts run
+    for real on four gloo ranks, and less than one device's step on the
+    rank's half of the batch."""
     got = _trace(kind, 4)
     assert got["kind"] == kind
-    if kind == "train":
-        # tensor-parallel over "model", the batch halved over "data"
-        real = request.getfixturevalue("real_train")
-        assert all(got["flops"] == r["flops"] for r in real), real
-        assert got["flops"] < _real_flops(kind, SHAPES[kind].global_batch
-                                          // 2)
-        return
-    # the (2, 2) mesh's FSDP axis is "data": each rank takes half the batch
-    assert got["flops"] == _real_flops(kind, SHAPES[kind].global_batch // 2)
+    key = "flops" if kind == "train" else f"flops_{kind}"
+    assert all(got["flops"] == r[key] for r in real_train), real_train
+    assert got["flops"] < _real_flops(kind, SHAPES[kind].global_batch // 2)
 
 
 def test_traced_peak_of_the_train_cell_is_the_real_runs_per_rank(
@@ -163,14 +161,13 @@ def test_collective_bytes_are_what_param_specs_imply():
         inputs); the gradient of the logits' input; and the
         cross-entropy's max, sum and label logit, (2, 64) fp32;
       * the loss's sum over "data" and the clip's norm: a few scalars.
-
-    The prefill (not yet tensor-parallel) gathers each weight whole."""
+    """
     got = _trace("train", 4)["collectives"]
     params = build_model(CFG).init(0, device="cpu")
     paths, leaves = tree_flatten_with_path(params)
     _, specs = tree_flatten_with_path(param_specs(params, ("data",
                                                            "model")))
-    gather = scatter = data_sums = whole = n_gathered = 0
+    gather = scatter = data_sums = n_gathered = 0
     for t, spec in zip(leaves, specs):
         nbytes = t.numel() * t.element_size()
         axes = [a for e in spec for a in ((e,) if isinstance(e, str)
@@ -182,7 +179,6 @@ def test_collective_bytes_are_what_param_specs_imply():
             n_gathered += 2 * t.shape[0]
         else:
             data_sums += local
-        whole += {0: 0, 1: nbytes, 2: nbytes + nbytes // 2}[len(axes)]
     b, s = SHAPES["train"].global_batch // 2, SHAPES["train"].seq_len
     act = b * s * CFG.d_model * 4
     model_sums = act * (1 + 5 * CFG.n_layers + 1) + 3 * b * s * 4
@@ -193,8 +189,6 @@ def test_collective_bytes_are_what_param_specs_imply():
     want = data_sums + model_sums
     assert want <= by_kind["all-reduce"] <= want + 64, (by_kind, want)
     assert by_kind["all-to-all"] == 0     # (2, 2): heads and KV heads align
-    serve = _trace("prefill", 4)["collectives"]["bytes_by_kind"]
-    assert serve["all-gather"] == whole and serve["reduce-scatter"] == 0
 
 
 def test_sharded_serve_is_bitwise_on_one_rank(tmp_path):
@@ -205,3 +199,96 @@ def test_sharded_serve_is_bitwise_on_one_rank(tmp_path):
                        capture_output=True, text=True, timeout=180)
     assert r.returncode == 0, r.stdout + r.stderr[-3000:]
     assert r.stdout.count("bitwise") == 2
+
+
+def _serve_bytes(kind, infer_tp):
+    """The (2, 2) serve cell's collective bytes at rank 0 (the fake
+    world's), derived from the specs and the shapes: batch 4 over "data"
+    (2 a rank), 64 tokens or a 64-position cache over "model" (32 a
+    rank), fp32, ``head_split``'s heads (rank 0: query heads 0-1, KV head
+    0; rank 1: 2-3 and 1):
+
+      * all-gather: ZeRO-3 only, each layer's leaf with an FSDP dim
+        gathered over "data" to its "model" shard, once (no backward);
+      * all-reduce over "model", the activations: the embedding's sum, and
+        in each block the sums after ``wo`` and ``w_down``;
+      * all-to-all over "model", only what comes from the other rank:
+        prefill, each layer's K and V of the other rank's KV head for this
+        rank's 32 positions (``tp.kv_to_cache``); decode, each layer's
+        q of the other rank's query heads and K/V of its KV head
+        (``tp.gather_heads``), then the other rank's output and
+        log-sum-exp over its slice for this rank's heads (``tp.
+        merge_heads``); both, the other half of the last position's
+        logits (``tp.gather_vocab``)."""
+    from repro_torch.distributed import tp
+    params = build_model(CFG).init(0, device="cpu")
+    _, leaves = tree_flatten_with_path(params)
+    _, specs = tree_flatten_with_path(param_specs(params, ("data",
+                                                           "model")))
+    gather = n_gathered = 0
+    for t, spec in zip(leaves, specs):
+        axes = [a for e in spec for a in ((e,) if isinstance(e, str)
+                                          else e or ())]
+        if "data" in axes and not infer_tp:
+            gather += t.numel() * 4 // (2 if "model" in axes else 1)
+            n_gathered += t.shape[0]
+    b, s, d, hd = 2, SHAPES[kind].seq_len, CFG.d_model, CFG.head_dim
+    n_layers, v = CFG.n_layers, CFG.padded_vocab
+    (h0, h1), (k0, k1) = tp.head_split(CFG.n_heads, CFG.n_kv, 2)[0]
+    other_kv = CFG.n_kv - (k1 - k0)
+    act = b * (s if kind == "prefill" else 1) * d * 4
+    if kind == "prefill":
+        a2a = n_layers * 2 * b * (s // 2) * other_kv * hd * 4
+    else:
+        a2a = n_layers * 4 * b * (
+            (CFG.n_heads - (h1 - h0)) * hd + 2 * other_kv * hd
+            + (h1 - h0) * (hd + 1))
+    return {"all-gather": gather, "all-reduce": act * (1 + 2 * n_layers),
+            "all-to-all": a2a + b * (v // 2) * 4, "reduce-scatter": 0,
+            "collective-permute": 0}, n_gathered
+
+
+@pytest.mark.parametrize("infer_tp", [False, True])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_serve_cells_shard_the_cache_and_move_what_the_specs_imply(
+        kind, infer_tp):
+    """A (2, 2) prefill and decode cell traced on fake tensors, with the
+    weights ZeRO-3 and under ``--infer-tp`` ("model" only): each cache
+    leaf the step returns is the shard ``cache_specs`` gives this rank
+    (K/V sequence, over "model", batch over "data"), and its collective
+    bytes by kind are ``_serve_bytes``'."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.distributed.sharding import axis_rules, placements
+    from repro_torch.launch.inputs import input_specs
+    want, n_gathered = _serve_bytes(kind, infer_tp)
+    with dryrun.fake_world(4):
+        mesh = make_test_mesh(2, 2, device_type="cpu")
+        got = dryrun.trace_cell(CFG, SHAPES[kind], mesh, device="cpu",
+                                infer_tp=infer_tp)["collectives"]
+        _, spec = input_specs(CFG, SHAPES[kind], device="cpu")
+        p_shapes = dryrun.params_shape(CFG)
+        mode = dryrun.TraceMode()
+        with axis_rules(mesh):
+            params = dryrun.distribute_like(
+                p_shapes, mesh, param_specs(
+                    p_shapes, mesh,
+                    mode="inference" if infer_tp else "train"), mode, "cpu")
+            specs = dryrun.serve_specs(CFG, kind, mesh, spec)
+            inputs = dryrun.distribute_like(spec, mesh, specs["inputs"],
+                                            mode, "cpu")
+            with mode:
+                _, cache = dryrun.serve_step(CFG, kind, mesh, params, inputs)
+            paths, leaves = tree_flatten_with_path(cache)
+            _, c_specs = tree_flatten_with_path(specs["cache"])
+            shards = {}
+            for p, t, sp in zip(paths, leaves, c_specs):
+                local, _ = compute_local_shape_and_global_offset(
+                    t.shape, mesh, placements(sp, mesh, t.dim()))
+                shards[p] = (tuple(t.to_local().shape), tuple(local))
+    assert shards["['k']"][1] == (CFG.n_layers, 2, 32, CFG.n_kv,
+                              CFG.head_dim), shards
+    assert all(a == b for a, b in shards.values()), shards
+    assert got["bytes_by_kind"] == want, (got, want)
+    assert got["counts"]["all-gather"] == n_gathered

@@ -23,10 +23,13 @@ KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
 
 
 def _counting(monkeypatch, module, attr, name):
+    """Count each call as its launch would be counted (K5 on an e4m3
+    cache under its own name)."""
     fn = getattr(module, attr)
 
     def counted(*a, **k):
-        KERNEL_LAUNCHES[name] += 1
+        fp8 = name == "flash_decode" and a[1].dtype == torch.float8_e4m3fn
+        KERNEL_LAUNCHES[name + "_fp8" if fp8 else name] += 1
         return fn(*a, **k)
     monkeypatch.setattr(module, attr, counted)
 
@@ -59,11 +62,15 @@ def test_lm_phases_run_on_the_cpu_with_plain_kernels(monkeypatch):
         _counting(monkeypatch, module, attr, name)
     rows = m.lm_phases()
     assert [r["name"] for r in rows] == ["flash_attention", "flash_decode",
-                                         "ssd_scan"]
+                                         "flash_decode_fp8",
+                                         "flash_decode_lse", "ssd_scan"]
     # 4 batches of 8 with 2 steps each: 2 shared-block applications and 2
-    # Mamba2 layers per prefill, 2 attention layers per decode step
-    assert [r["launches"] for r in rows] == [8, 16, 8]
+    # Mamba2 layers per prefill, 2 attention layers per decode step; the
+    # e4m3 serve's 8 steps; the log-sum-exp variant's come from phase 16
+    assert [r["launches"] for r in rows] == [8, 16, 16, 0, 8]
     for r in rows:
         assert set(r) == KEYS and r["bound_ms"] > 0
         assert r["bound_by"] in ("bytes", "operations")
-    assert rows[2]["library_ms"] is None
+    # the e4m3 cache halves the bytes of K5's bound
+    assert rows[2]["bound_ms"] < 0.6 * rows[1]["bound_ms"]
+    assert rows[4]["library_ms"] is None

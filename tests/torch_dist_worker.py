@@ -330,6 +330,302 @@ def tp_one_rank(rank, world, out):
               f"bitwise on a one-rank mesh")
 
 
+# ---------------------------------------------------- TP prefill and decode
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 32, 8
+# The JAX reference's own spread at these inputs under 1-ulp moves of every
+# weight (tools/port_tp_serve_spread.py): the largest relative change of
+# any step's logits and of any cache leaf. The tensor-parallel steps are
+# held to 1e-6 of the largest |value|, or to twice the spread where that is
+# larger: the row-parallel products' partial sums and the slices' merge
+# move the numbers by as much (1.01e-6 measured on zamba2-7b's logits).
+SERVE_SPREAD = {"granite": (6.260e-07, 4.618e-07),
+                "phi": (4.295e-07, 5.278e-07),
+                "mamba2": (8.690e-07, 8.897e-07),
+                "zamba2": (8.529e-07, 1.269e-06)}
+
+
+def serve_limits(arch):
+    """(logits limit, cache limit) of ``TP_ARCHS[arch]``'s serve."""
+    return tuple(max(1e-6, 2 * v) for v in SERVE_SPREAD[arch])
+
+
+# The port's unsharded steps against the JAX reference's on the same
+# parameters and prompt, the reference fed its own greedy tokens (the same
+# as the port's): the largest relative distance of any step's logits and of
+# any leaf of the final cache (measured on the CPU). The tensor-parallel
+# steps are held to the reference within twice these plus
+# ``serve_limits`` (measured: 9.05e-7 on the logits, 7.43e-7 on a cache
+# leaf at most).
+SERVE_REF_GAP = {"granite": (5.074e-07, 4.288e-07),
+                 "phi": (5.571e-07, 2.639e-07),
+                 "mamba2": (9.358e-07, 7.700e-07),
+                 "zamba2": (8.066e-07, 8.569e-07)}
+
+
+def reference_limits(arch):
+    """(logits limit, cache limit) of ``TP_ARCHS[arch]``'s serve against
+    the JAX reference's steps."""
+    return tuple(2 * g + t for g, t in zip(SERVE_REF_GAP[arch],
+                                           serve_limits(arch)))
+
+
+def load_reference(path):
+    """The JAX reference's serve saved by the test (``reference_serve``):
+    (each step's logits, the greedy tokens it fed, (None, the final
+    cache)) as ``_serve_one_device`` gives them."""
+    from repro_torch.convert import lm_params_to_torch
+    tree = lm_params_to_torch(load_tree(path), "cpu")
+    steps = [tree["logits"][str(i)] for i in range(SERVE_STEPS + 1)]
+    fed = [tree["fed"][str(i)] for i in range(SERVE_STEPS)]
+    return steps, fed, (None, tree["cache"])
+
+
+def serve_faults(worst, limits):
+    """The entries of ``serve_distance``'s ``worst`` beyond ``limits``."""
+    return {k: v for k, v in worst.items()
+            if v > limits[0 if k.startswith("logits") else 1]}
+
+
+def load_tree(path):
+    """A nested dict of numpy arrays saved by ``save_params`` (an ``.npz``
+    of "/"-joined paths)."""
+    tree = {}
+    with np.load(path) as f:
+        for key in f.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = f[key]
+    return tree
+
+
+def load_params(path):
+    """A parameter tree saved by ``save_params``, as the port's CPU
+    tensors."""
+    from repro_torch.convert import lm_params_to_torch
+    return lm_params_to_torch(load_tree(path), "cpu")
+
+
+def save_params(tree, path):
+    """Save a nested dict of numpy arrays for ``load_params``."""
+    flat = {}
+
+    def walk(t, prefix):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[f"{prefix}{k}"] = np.asarray(v)
+    walk(tree, "")
+    np.savez(path, **flat)
+
+
+def _serve_one_device(cfg, params, prompt):
+    """The unsharded prefill and SERVE_STEPS greedy decode steps: the
+    logits of each step, the tokens fed and the final cache."""
+    import copy
+
+    from repro_torch.models.model import decode_step, prefill
+    max_seq = SERVE_PROMPT + SERVE_STEPS
+    logits, cache = prefill(params, {"tokens": prompt}, cfg, max_seq=max_seq)
+    steps, fed = [logits], []
+    caches = [copy.deepcopy(cache)]
+    for _ in range(SERVE_STEPS):
+        tok = logits[:, -1, :cfg.vocab].argmax(-1)[:, None].to(torch.int32)
+        fed.append(tok)
+        logits, cache = decode_step(params, cache, tok, cfg)
+        steps.append(logits)
+    caches.append(cache)
+    return steps, fed, caches
+
+
+def _serve_sharded(cfg, params, prompt, fed, mesh, mode):
+    """The same through ``dryrun.serve_step`` on ``mesh``, weights placed
+    by ``param_specs(mode=mode)``: each step's logits, the cache after
+    prefill and at the end (each leaf as ``_shard``), the final cache's
+    DTensors and their specs."""
+    from repro_torch.distributed.sharding import (axis_rules, distribute,
+                                                  param_specs)
+    from repro_torch.launch import dryrun
+    max_seq = SERVE_PROMPT + SERVE_STEPS
+    with axis_rules(mesh):
+        dp = distribute(params, mesh, param_specs(params, mesh, mode=mode))
+        batch = {"tokens": prompt}
+        specs = dryrun.serve_specs(cfg, "prefill", mesh, batch,
+                                   max_seq=max_seq)
+        logits, cache = dryrun.serve_step(
+            cfg, "prefill", mesh, dp, distribute(batch, mesh,
+                                                 specs["inputs"]),
+            max_seq=max_seq)
+        steps = [_shard(logits)]
+        first = _shards(cache)
+        for tok in fed:
+            specs = dryrun.serve_specs(cfg, "decode", mesh,
+                                       {"tokens": tok, "cache": cache})
+            tokens = distribute({"tokens": tok}, mesh,
+                                {"tokens": specs["inputs"]["tokens"]})
+            logits, cache = dryrun.serve_step(
+                cfg, "decode", mesh, dp, {"tokens": tokens["tokens"],
+                                          "cache": cache})
+            steps.append(_shard(logits))
+    return steps, first, _shards(cache), cache, specs["cache"]
+
+
+def _shard(t):
+    """A DTensor as (a copy of this rank's shard, the slices of the whole
+    tensor it holds): no collective (the card's gloo crashed in an
+    all-gather of CUDA tensors)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return t.to_local().clone(), tuple(slice(o, o + n)
+                                       for o, n in zip(off, shape))
+
+
+def _shards(cache):
+    from repro_torch.utils.misc import tree_flatten_with_path
+    paths, leaves = tree_flatten_with_path(cache)
+    return dict(zip(paths, (_shard(t) for t in leaves)))
+
+
+def _leaves(cache):
+    from repro_torch.utils.misc import tree_flatten_with_path
+    paths, leaves = tree_flatten_with_path(cache)
+    return {p: t.clone() for p, t in zip(paths, leaves)}
+
+
+def _local_shapes_of(cache, specs, mesh):
+    """Each cache leaf's local shard shape, and the shape ``specs`` give
+    its global shape on this rank of ``mesh``."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.distributed.sharding import placements
+    from repro_torch.utils.misc import tree_flatten_with_path
+    paths, leaves = tree_flatten_with_path(cache)
+    _, spec_leaves = tree_flatten_with_path(specs)
+    got = {}
+    for p, t, sp in zip(paths, leaves, spec_leaves):
+        want, _ = compute_local_shape_and_global_offset(
+            t.shape, mesh, placements(sp, mesh, t.dim()))
+        got[p] = (tuple(t.to_local().shape), tuple(want))
+    return got
+
+
+def serve_distance(cfg, got, want):
+    """(the largest distance of this rank's shard of each step's logits
+    (over the true vocab, not its padding) and of each cache leaf in
+    ``got`` (``_serve_sharded``'s) from the same part of ``want``
+    (``_serve_one_device``'s, or ``load_reference``'s, which has no
+    prefill cache), relative to the largest |value| of ``want``'s whole
+    tensor, by name; whether the greedy tokens of every step agree)."""
+    steps, first, last = got[:3]
+    w_steps, _, (w_first, w_last) = want
+    worst, greedy = {}, True
+    def rel(g, w, sl):
+        """|g - w[sl]| over the largest |w| (the whole tensor's)."""
+        g, w = g.float(), w.float()
+        return float((g - w[sl]).abs().max()
+                     / w.abs().max().clamp_min(1e-30))
+    for i, ((g, sl), w) in enumerate(zip(steps, w_steps)):
+        g, w = g[..., :cfg.vocab], w[..., :cfg.vocab]
+        worst[f"logits {i}"] = rel(g, w, sl)
+        greedy &= torch.equal(g[:, -1].argmax(-1), w[sl][:, -1].argmax(-1))
+    for tag, g_tree, w_tree in (("prefill", first, w_first),
+                                ("end", last, w_last)):
+        if w_tree is None:
+            continue
+        w_tree = _leaves(w_tree)
+        assert set(g_tree) == set(w_tree)
+        for p, (g, sl) in g_tree.items():
+            w = w_tree[p]
+            assert g.shape == w[sl].shape and g.dtype == w.dtype, p
+            worst[f"{tag} {p}"] = rel(g, w, sl) if w.is_floating_point() \
+                else float(not torch.equal(g, w[sl]))
+    return worst, greedy
+
+
+def tp_serve(rank, world, out, arg):
+    """The reduced ARCH's prefill and SERVE_STEPS greedy decode steps on a
+    MESH ("data", "model") gloo mesh (``ARG`` = "arch/mesh"), tensor-
+    parallel over "model" with the cache laid out by ``cache_specs``,
+    weights by ``param_specs`` in both its modes (ZeRO-3: each layer
+    gathered over "data"; "inference": "model" only), from the reference's
+    parameters (``params_<arch>.npz`` in ``out``, written by the test),
+    against the unsharded steps: every step's logits and every cache leaf
+    (after prefill and at the end), shard by shard, within
+    ``serve_limits`` of the largest |value| of one device's, the greedy
+    tokens equal, and each cache shard the shape ``cache_specs`` gives
+    it; and against the JAX reference's steps (``ref_<arch>.npz``): the
+    same greedy tokens, every step's logits and the final cache's shards
+    within ``reference_limits``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    arch, mesh_name = arg.split("/")
+    n_data, n_model = TP_MESHES[mesh_name]
+    cfg = get_config(TP_ARCHS[arch]).reduced()
+    params = load_params(f"{out}/params_{arch}.npz")
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32))
+    want = _serve_one_device(cfg, params, prompt)
+    ref = load_reference(f"{out}/ref_{arch}.npz")
+    assert all(torch.equal(a, b) for a, b in zip(want[1], ref[1])), \
+        "the unsharded greedy tokens are not the reference's"
+    mesh = make_test_mesh(n_data, n_model, device_type="cpu")
+    for mode in ("train", "inference"):
+        got = _serve_sharded(cfg, params, prompt, want[1], mesh, mode)
+        worst, greedy = serve_distance(cfg, got, want)
+        assert greedy, (mode, "greedy tokens differ")
+        shapes = _local_shapes_of(got[3], got[4], mesh)
+        bad_shape = {p: s for p, s in shapes.items() if s[0] != s[1]}
+        assert not bad_shape, bad_shape
+        limits = serve_limits(arch)
+        bad = serve_faults(worst, limits)
+        assert not bad, (mode, bad, limits)
+        ref_worst, ref_greedy = serve_distance(cfg, got, ref)
+        assert ref_greedy, (mode, "greedy tokens differ from the reference")
+        ref_limits = reference_limits(arch)
+        bad = serve_faults(ref_worst, ref_limits)
+        assert not bad, (mode, "against the reference", bad, ref_limits)
+        print(f"OK {cfg.name} rank {rank} on {n_data} x {n_model}, weights "
+              f"{mode}: prefill and {SERVE_STEPS} decode steps' logits and "
+              f"{len(got[2])} cache leaves {max(worst.values()):.3e} apart "
+              f"at most (tol {limits[0]:.3e} and {limits[1]:.3e}); greedy "
+              f"tokens equal; cache shards "
+              f"{sorted(set(s[0] for s in shapes.values()))} as "
+              f"cache_specs lays them out; against the JAX reference "
+              f"logits {max(v for k, v in ref_worst.items() if k.startswith('logits')):.3e} "
+              f"and final cache "
+              f"{max(v for k, v in ref_worst.items() if not k.startswith('logits')):.3e} "
+              f"(tol {ref_limits[0]:.3e} and {ref_limits[1]:.3e})")
+
+
+def tp_serve_one_rank(rank, world, out):
+    """Each of ``TP_ARCHS``' reduced prefill and SERVE_STEPS decode steps
+    through ``dryrun.serve_step`` on a one-rank (1, 1) mesh bitwise the
+    unsharded steps: every step's logits and the caches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(1, 1, device_type="cpu")
+    for arch in TP_ARCHS:
+        cfg = get_config(TP_ARCHS[arch]).reduced()
+        params = load_params(f"{out}/params_{arch}.npz")
+        prompt = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32))
+        want = _serve_one_device(cfg, params, prompt)
+        steps, first, last = _serve_sharded(cfg, params, prompt, want[1],
+                                            mesh, "train")[:3]
+        pairs = [(g, w[sl]) for (g, sl), w in zip(steps, want[0])]
+        for g_tree, w_tree in ((first, want[2][0]), (last, want[2][1])):
+            w_tree = _leaves(w_tree)
+            pairs += [(g, w_tree[p][sl]) for p, (g, sl) in g_tree.items()]
+        assert all(torch.equal(a, b) for a, b in pairs), arch
+        print(f"OK {arch}: prefill and {SERVE_STEPS} decode steps bitwise "
+              f"over {len(pairs)} tensors on a one-rank mesh")
+
+
 def _run(fn, args, mesh=None):
     """(``fn(*args)``, the gradients of its floating inputs) of a fixed
     weighting of its output (the same on every rank), under TP over
@@ -484,11 +780,12 @@ def tp_unit(rank, world, out, arg):
 
 
 def dry_real(rank, world, out):
-    """The dry run's (2, 2) train cell of ``tests/test_torch_dryrun.py``
-    (the reduced granite-3-2b, 4 x 64 tokens, AdamW) run for real: each
-    rank writes its ``FlopCounterMode`` count and ``dryrun.LiveMode``'s
-    peak of live bytes over the step (to ``out``/dry_<rank>.json), for the
-    test to hold the traced cell to."""
+    """The dry run's (2, 2) cells of ``tests/test_torch_dryrun.py`` (the
+    reduced granite-3-2b, 4 x 64 tokens) run for real: each rank writes
+    its ``FlopCounterMode`` count and ``dryrun.LiveMode``'s peak of live
+    bytes over the AdamW train step, and its counts over the prefill and
+    a decode step on a 64-position cache (to ``out``/dry_<rank>.json), for
+    the test to hold the traced cells to."""
     import json
 
     from torch.utils.flop_counter import FlopCounterMode
@@ -520,6 +817,19 @@ def dry_real(rank, world, out):
             step(*args)
     got = {"flops": fc.get_total_flops(), "peak_gb": live.peak / 1024**3,
            "argument_gb": held / 1024**3}
+    from repro_torch.models.model import init_cache
+    params = init_params(cfg, 0, device="cpu")
+    with axis_rules(mesh):
+        dp = distribute(params, mesh, param_specs(params, mesh))
+        prompt = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+        decode = {"tokens": prompt["tokens"][:, :1],
+                  "cache": init_cache(cfg, 4, 64, "cpu")}
+        for kind, inputs in (("prefill", prompt), ("decode", decode)):
+            specs = dryrun.serve_specs(cfg, kind, mesh, inputs)
+            inputs = distribute(inputs, mesh, specs["inputs"])
+            with FlopCounterMode(display=False) as fc:
+                dryrun.serve_step(cfg, kind, mesh, dp, inputs)
+            got[f"flops_{kind}"] = fc.get_total_flops()
     with open(f"{out}/dry_{rank}.json", "w") as f:
         json.dump(got, f)
     print(f"OK rank {rank}: {got}")
