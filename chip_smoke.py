@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero, without the final result line):
+Phases (any failure exits non-zero, without the final result line). After
+2, phases 4-6, 13, 14, 17 (c) and 18 run in worker processes (a lower
+scheduling priority than this process, save fig12's run in 18) beside
+3, 8-12, 15, 16 and 17 (a)-(b) here; once every worker is joined, the
+shapes they launched are checked and every kernel is timed (7, 12 and
+15's timings), with no other process on the card:
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit;
   2. build the CUDA kernels from the sources in the checkout (one nvcc per
      source, all at once) and print the build time and ptxas report, and
@@ -31,7 +36,7 @@ Phases (any failure exits non-zero, without the final result line):
      were given in 4 and 5 is then checked as in 3, with every k;
   6. replay a small scale of both Sizey paths on the card and on the CPU
      through the port and compare the decisions;
-  7. (after 13 and 18, with no other process on the card) time each
+  7. (after every worker is joined) time each
      kernel, its plain version and a library yardstick with CUDA events,
      beside the least time the card could take; K1 and K2 at every
      shape the replays launched and K3 at four M and at every M the
@@ -62,7 +67,8 @@ Phases (any failure exits non-zero, without the final result line):
      width in bf16 (prefill and 8 decode steps) and compare the logits;
  11. serve zamba2-7b at full width cut to 6 layer positions in fp32 on the
      card and on the CPU: equal greedy tokens, logits within a tolerance;
- 12. time K4-K6 at their most launched full-width shapes beside their plain
+ 12. (after every worker is joined) time K4-K6 at their most launched
+     full-width shapes beside their plain
      versions, PyTorch's scaled_dot_product_attention (K4, K5) and bounds
      (K5 also on the cache cast to e4m3, beside the library call on it
      widened to bf16, and its log-sum-exp variant, beside the
@@ -70,14 +76,15 @@ Phases (any failure exits non-zero, without the final result line):
      with K4's achieved TFLOP/s, K5's and K6's GB/s and K6's largest
      difference from its plain version there, in bf16 and from the fp32
      kernel fed the same values (the bf16 one at most twice the fp32).
- 13. (run after 6; 7's timings run after 13, 14 and 18) the cluster engine:
+ 13. the cluster engine:
      (a) ``SizeyMethod`` and (b) ``sizey_temporal`` on
      ``simulate_cluster`` (methylseq at scales 0.35 and 1.0 on 8 nodes,
      Poisson root arrivals, (b) with node crashes), the counters zeroed
      before each: wastage and failures within twice the reference's
      spread, K1 and K2 once per predictor dispatch, K3 once per boundary
      fit, predict dispatches at most waves x pools and fewer than phase
-     4's, RESIZE waves counted; (c) (in a worker process beside the
+     4's (held once 4 is joined), RESIZE waves counted; (c) (in a worker
+     process beside the
      others) a journaled peak run with node crashes, bitwise its
      unjournaled twin, killed at 4 seeded bytes of its journal before its
      last model-sized wave, repaired and resumed, each resumed run bitwise
@@ -86,8 +93,7 @@ Phases (any failure exits non-zero, without the final result line):
      card and on the CPU, with equal integer choices, waves, events and
      dispatches; every K1, K2 and K3 shape launched that 3-5 did not
      check is checked as in 3, and K1 and K2 are timed at them.
- 14. (in a worker process from after 4 to after 13 and 18, before 7)
-     the risk-priced path: (a) ``SizeyMethod(risk=True,
+ 14. the risk-priced path: (a) ``SizeyMethod(risk=True,
      failure_strategy="auto", quality=True)`` and (b)
      ``sizey_risk_temporal`` (auto) on phase 13's traffic with node
      crashes, counters zeroed before each: K1 and K2 once per dispatch, K3
@@ -114,43 +120,47 @@ Phases (any failure exits non-zero, without the final result line):
      width cut in depth, K6's forward and backward counted; card vs CPU at
      the reduced configs; phi3.5-moe and internvl2-26b cut in depth; both
      backward kernels timed at every training shape, and the two models'
-     step wall and tokens/s.
+     step wall and tokens/s (beside the workers: a card shared with the
+     replays).
  16. the distributed layer on a 1-device nccl mesh: the sharded train
      step bitwise the unsharded one, compressed_psum over the group
      bitwise the one-device round trip, the elastic controller unchanged;
      (b) two processes on the card, a (1, 2) gloo mesh: the reduced
      granite-3-2b and mamba2-780m steps tensor-parallel over "model"
-     within the CPU tests' limits of the one-device step, K4's and K6's
-     launches per rank the one-device step's; then the serve through
+     within the CPU tests' limits of the one-device step, then at full
+     width (2 layers, bf16) without and with ``seq_shard`` (the residual
+     stream each rank's half of the sequence), each rank's
+     ``max_memory_allocated`` printed for both, K4's and K6's launches per
+     rank the one-device step's; then the serve through
      ``launch.dryrun.serve_step`` (the cache as ``cache_specs`` lays it
      out, K5's log-sum-exp variant on each rank's slice), reduced
      granite-3-2b and zamba2-7b at the CPU tests' limits and zamba2-7b at
      full width, 3 layer positions, bf16, against one device; K5's
      variants checked at a rank's slice of the production meshes' decode.
- 17. (last) the dry run (``repro_torch.launch.dryrun``) in a process of
-     its own: (a) phase 15's granite-3-2b and mamba2-780m steps traced on
-     fake CUDA tensors over a (1, 1) fake mesh, through K4-K6's fake
-     kernels, the predicted peak per card within 25 % of phase 15's
-     ``max_memory_allocated`` and the traced FLOPs over the measured step
-     wall printed as a share of the bf16 tensor rate; (b) in processes
-     beside it, every train cell (each architecture at train_4k) and the
-     reference test's decode cells (granite-3-2b, decode_32k) on 256 and
-     512 fake ranks, every row ok, each train cell's peak per card, FLOPs
-     and collective bytes printed beside those before the step became
-     tensor-parallel (``results/dryrun_train_zero3.jsonl``), grok-1-314b's
-     peak on 256 ranks more than 10 times lower; beside them (c) methylseq
-     0.05 serially through ``SizeyPredictor(fused=False)`` (the per-model
-     loop) and the fused path on the card: integer choices equal,
-     allocations within phase 6's tolerance, K1 and K2 once per model call
-     of the loop.
- 18. (from the build to after 13, before 7) the paper's evaluation
+ 17. (after 15, beside 16) the dry run (``repro_torch.launch.dryrun``) in
+     a process of its own: (a) phase 15's granite-3-2b and mamba2-780m
+     steps traced on fake CUDA tensors over a (1, 1) fake mesh, through
+     K4-K6's fake kernels, the predicted peak per card within 25 % of
+     phase 15's ``max_memory_allocated`` and the traced FLOPs over the
+     measured step wall printed as a share of the bf16 tensor rate; (b) in
+     processes beside it, every train cell (each architecture at train_4k)
+     and the reference test's decode cells (granite-3-2b, decode_32k) on
+     256 and 512 fake ranks, every row ok, each train cell's peak per
+     card, FLOPs and collective bytes printed beside those before the step
+     became tensor-parallel (``results/dryrun_train_zero3.jsonl``),
+     grok-1-314b's peak on 256 ranks more than 10 times lower, and lower
+     again traced with ``--seq-shard``; (c) methylseq 0.05 serially
+     through ``SizeyPredictor(fused=False)`` (the per-model loop) and the
+     fused path on the card: integer choices equal, allocations within
+     phase 6's tolerance, K1 and K2 once per model call of the loop.
+ 18. the paper's evaluation
      through the port (``repro_torch.workflow.paper``, the figures built
      by ``tools/port_paper.py``) at the reference's ``--smoke`` settings,
      scale 0.05 and ttf 1.0: the six workflows through
      ``benchmarks/run.py``'s methods, fig9's incremental run,
      fig10's alpha sweep, fig11's argmax runs and fig12's mag run at 0.3,
-     in worker processes (one a workflow, fig12's run on its own) beside
-     phases 3-6 and 13, joined before any kernel is timed; every figure
+     in worker processes (two workflows each, fig12's run on its own);
+     every figure
      held to ``tools/port_paper_reference.json`` (the numpy baselines
      equal, Sizey within twice the reference's spread), and so is each
      job's wastage, time-integrated wastage, failures and runtime (the
@@ -980,6 +990,24 @@ def card_vs_cpu(name: str, alloc_rtol: float, w_rtol: float,
         _fail(f"{name}: card and CPU disagree beyond the stated tolerance")
 
 
+def peak_phases() -> dict:
+    """Phases 4 and 6 of the peak path, in a worker from the build on:
+    the replay at MAIN_SCALE, then card vs CPU at SMALL_SCALE."""
+    main = main_path()
+    card_vs_cpu("sizey", ALLOC_RTOL, WASTAGE_RTOL)
+    return {"main": {**main, "shapes": _shapes_json(main["shapes"])}}
+
+
+def temporal_phases() -> dict:
+    """Phases 5 and 6 of the temporal path and KS+, in a worker from the
+    build on."""
+    temporal = temporal_path()
+    ks_plus = ks_plus_path()
+    card_vs_cpu("sizey_temporal", T_ALLOC_RTOL, T_TW_RTOL, T_APART)
+    return {name: {**run, "shapes": _shapes_json(run["shapes"])}
+            for name, run in (("temporal", temporal), ("ks_plus", ks_plus))}
+
+
 # ----------------------------------------------------------- phase 7
 def _time_ms(fn, reps: int = 60, inner: int = 10) -> float:
     """Median over ``reps`` CUDA-event windows of ``inner`` back-to-back
@@ -1407,21 +1435,19 @@ def _cluster_drive(label: str, name: str, scale: float, arrivals, engine,
             "model_at": [at for _q, at in waves]}
 
 
-def _check_waves(label: str, run: dict, serial_predicts: int,
-                 refresh: bool = False) -> None:
+def _check_waves(label: str, run: dict, refresh: bool = False) -> None:
     """The dispatch-count bound: at most one predict dispatch per pool per
-    ready wave, and fewer than the serial replay's one per model-sized
-    task. One sizing call a wave, and with ``refresh`` (a method that
-    re-sizes crash-interrupted tasks under ``retry_scaled``) those
-    re-sizing calls besides."""
+    ready wave (fewer than the serial replay's one per model-sized task is
+    :func:`check_serial`'s, once phase 4 is joined). One sizing call a
+    wave, and with ``refresh`` (a method that re-sizes crash-interrupted
+    tasks under ``retry_scaled``) those re-sizing calls besides."""
     res, disp = run["res"], run["disp"]
     pools = len({(t.task_type, t.machine) for t in run["trace"].tasks})
     bound = res.cluster.n_waves * pools
     n = disp["predict_pool"]
     print(f"[{label}] predict dispatches {n} (bound: {res.cluster.n_waves} "
-          f"waves x {pools} pools = {bound}; the serial replay of phase 4: "
-          f"{serial_predicts}, {serial_predicts / max(n, 1):.3f}x as many)")
-    if not 0 < n <= bound or n >= serial_predicts:
+          f"waves x {pools} pools = {bound})")
+    if not 0 < n <= bound:
         _fail(f"{label}: {n} predict dispatches break the bound")
     extra = res.cluster.n_size_calls - res.cluster.n_waves
     if refresh:
@@ -1429,6 +1455,17 @@ def _check_waves(label: str, run: dict, serial_predicts: int,
               f"wave and {extra} re-sizing crash-interrupted tasks")
     if extra < 0 or (extra and not refresh):
         _fail(f"{label}: more than one sizing call a wave")
+
+
+def check_serial(waves, serial_predicts: int) -> None:
+    """Each engine run's predict dispatches below the serial replay's."""
+    for label, n in waves:
+        print(f"[{label}] predict dispatches {n}; the serial replay of "
+              f"phase 4: {serial_predicts}, "
+              f"{serial_predicts / max(n, 1):.3f}x as many")
+        if n >= serial_predicts:
+            _fail(f"{label}: {n} predict dispatches, not fewer than the "
+                  f"serial replay's {serial_predicts}")
 
 
 def cluster_durability(build) -> None:
@@ -1507,7 +1544,7 @@ def cluster_durability(build) -> None:
           f"{base.n_failures} OOM kills in the run)")
 
 
-def cluster_phase(serial_predicts: int) -> dict:
+def cluster_phase() -> dict:
     """Phase 13: the cluster engine on the card. (a) the peak path at
     CLUSTER_A_SCALE and (b) the temporal path at CLUSTER_SCALE on
     CLUSTER_NODES nodes, each held to twice the reference's spread; (c) a
@@ -1523,7 +1560,7 @@ def cluster_phase(serial_predicts: int) -> dict:
               "segment_dp": Counter()}
     worker = _start_worker("cluster_durability")
     try:
-        a, b = _cluster_ab(serial_predicts)
+        a, b = _cluster_ab()
         # (d) card vs CPU on the engine
         card_vs_cpu("sizey", ALLOC_RTOL, WASTAGE_RTOL, engine=PARITY_ENGINE,
                     label="cluster d")
@@ -1544,7 +1581,7 @@ def cluster_phase(serial_predicts: int) -> dict:
     return {"a": a, "b": b, "shapes": shapes, "wall_s": wall}
 
 
-def _cluster_ab(serial_predicts: int) -> tuple:
+def _cluster_ab() -> tuple:
     """Phase 13 (a) and (b)."""
     engine = {"n_nodes": CLUSTER_NODES, "policy": "backfill"}
     a = _cluster_drive("cluster a", "sizey", CLUSTER_A_SCALE,
@@ -1553,7 +1590,7 @@ def _cluster_ab(serial_predicts: int) -> tuple:
                    REF_C_WASTAGE_RTOL, a["res"].n_failures, REF_C_FAILURES,
                    REF_C_FAILURES_TOL, "wastage_gbh")
     _check_sizey_launches("cluster peak", a["launches"], a["disp"])
-    _check_waves("cluster a", a, serial_predicts)
+    _check_waves("cluster a", a)
     b = _cluster_drive("cluster b", "sizey_temporal", CLUSTER_SCALE,
                        CLUSTER_ARRIVALS, dict(engine, **CLUSTER_FAILS))
     _within_spread("cluster b", b["res"].temporal_wastage_gbh,
@@ -1561,7 +1598,7 @@ def _cluster_ab(serial_predicts: int) -> tuple:
                    REF_CT_FAILURES, REF_CT_FAILURES_TOL,
                    "temporal_wastage_gbh")
     _check_sizey_launches("cluster temporal", b["launches"], b["disp"])
-    _check_waves("cluster b", b, serial_predicts)
+    _check_waves("cluster b", b)
     if b["launches"].get("segment_dp", 0) != b["fits"] or not b["fits"]:
         _fail(f"segment_dp launched {b['launches'].get('segment_dp', 0)} "
               f"times on the engine, expected one per boundary fit "
@@ -1645,12 +1682,16 @@ RISK_CFG = {}
 # named here (run one after another, phase 14 would take the smoke to
 # ~1,300 s of its 1,200 s limit)
 RISK_WORKERS = ("risk_durability:risk", "risk_durability:risk_auto",
-                "service_phase", "risk_card_vs_cpu:sizey_risk",
-                "risk_card_vs_cpu:sizey_risk_temporal")
-# phase 14 itself runs in a worker beside phases 5, 6, 13 and 18 (after
-# them, the smoke took 1,275.8 s of its 1,200 s limit on one machine);
-# the longest it may still run once they are done
-RISK_TIMEOUT = 900
+                "service_phase",
+                "risk_card_vs_cpu:sizey_risk,sizey_risk_temporal")
+# the workers' scheduling priority (nice): below the main process, whose
+# LM, training and distributed phases run beside them, and below the
+# longest job of phase 18
+WORKER_NICE = 10
+# the workers this process starts after the build, each with its phase
+HOST_WORKERS = (("peak", 4), ("temporal", 5), ("cluster_phase", 13),
+                ("risk_phase", 14), ("loop", 17))
+HOST_TIMEOUT = 900
 WORKER_SETTINGS = ("DEV", "CLUSTER_NODES", "CLUSTER_ARRIVALS",
                    "CLUSTER_FAILS", "RISK_CFG", "RISK_CHAOS_TRACE",
                    "RISK_CHAOS_ENGINE", "RISK_CHAOS_CFG", "RISK_KILLS",
@@ -1710,7 +1751,7 @@ def _timed_residual_reads():
     return times, restore
 
 
-def _risk_drive(label: str, method, serial_predicts: int) -> dict:
+def _risk_drive(label: str, method) -> dict:
     """One run of phase 13's traffic with crashes through a risk method on
     the card, counters zeroed just before: K1 and K2 once per dispatch,
     predict dispatches at most waves x pools, at least one risk row and
@@ -1742,7 +1783,7 @@ def _risk_drive(label: str, method, serial_predicts: int) -> dict:
     print(f"[{label}] wall {run['wall_s']:.3f} s, {n / run['wall_s']:.3f} "
           f"tasks/s")
     _check_sizey_launches(label, run["launches"], run["disp"])
-    _check_waves(label, run, serial_predicts, refresh=True)
+    _check_waves(label, run, refresh=True)
     if not rows:
         _fail(f"{label}: the risk path repriced nothing")
     if not set(strategies) - {"retry_same"}:
@@ -2040,17 +2081,28 @@ def risk_card_vs_cpu(name: str) -> None:
         _fail(f"{name}: card and CPU allocations beyond the tolerance")
 
 
-def _start_worker(task: str) -> subprocess.Popen:
-    """Run a check (phase 14 itself or one of its checks (c)-(e), phase
-    13 (c), a group of phase 18's jobs) in a process of its own, with this
-    process's settings of it; the process is stopped when this one exits,
-    whatever ends it."""
+def _start_worker(task: str, nice: int = None) -> subprocess.Popen:
+    """Run a check (a phase or one of its parts, a group of phase 18's
+    jobs) in a process of its own, with this process's settings of it, at
+    the scheduling priority ``nice`` (WORKER_NICE unless given: the host
+    has fewer cores than the smoke has processes, and the main process
+    and the longest worker go first); the process is stopped when this
+    one exits, whatever ends it."""
     import atexit
     settings = {k: globals()[k] for k in WORKER_SETTINGS}
-    proc = subprocess.Popen(
-        [sys.executable, str(REPO / "chip_smoke.py"), "--worker", task,
-         json.dumps(settings)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    nice = WORKER_NICE if nice is None else nice
+    # its output goes to a file, read when it is joined: a pipe would
+    # stall it once full
+    log = REPO / "build" / "workers" / f"{task.replace(':', '_')}.log"
+    log.parent.mkdir(parents=True, exist_ok=True)
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--worker", task,
+             json.dumps(settings)], stdout=out, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.setpriority(
+                os.PRIO_PROCESS, 0, max(nice, os.getpriority(
+                    os.PRIO_PROCESS, 0))))
+    proc.log = log
     atexit.register(_stop_worker, proc)
     return proc
 
@@ -2061,22 +2113,50 @@ def _stop_worker(proc: subprocess.Popen) -> None:
         proc.wait()
 
 
+def _shapes_json(shapes: dict) -> dict:
+    return {k: [[list(sh), n] for sh, n in c.items()]
+            for k, c in shapes.items()}
+
+
+def _shapes_load(obj: dict) -> dict:
+    from collections import Counter
+    return {k: Counter({tuple(sh): n for sh, n in pairs})
+            for k, pairs in obj.items()}
+
+
 def _worker_main(task: str, settings: str) -> int:
     """A worker: run ``task`` (``check:argument``) with the parent's
-    settings, then print the kernel shapes it launched as the last line
-    (``SHAPES`` and JSON; for phase 14, those of its own workers too)."""
+    settings, then print what the parent needs of it (``RESULT`` and
+    JSON) and the kernel shapes it launched as the last line (``SHAPES``
+    and JSON; for phases 13 and 14, those the phase returns)."""
     import torch
     globals().update(json.loads(settings))
     torch.set_num_threads(1)       # one core each: the host runs several
     build = REPO / "build"
     build.mkdir(exist_ok=True)
     check, _, arg = task.partition(":")
+    t0 = time.perf_counter()
     shapes, restore = _recording_shapes()
+    result: dict = {}
     try:
         if check == "paper":
             paper_worker(int(arg))
-        elif check == "risk_phase":
-            shapes = risk_phase(int(arg))["shapes"]
+        elif check == "peak":
+            result = peak_phases()
+        elif check == "temporal":
+            result = temporal_phases()
+        elif check in ("cluster_phase", "risk_phase"):
+            phase, label = {"cluster_phase": (cluster_phase, "cluster"),
+                            "risk_phase": (risk_phase, "risk")}[check]
+            out = phase()
+            shapes = out["shapes"]
+            result = {"waves": [(f"{label} {k}",
+                                 out[k]["disp"]["predict_pool"])
+                                for k in ("a", "b")],
+                      **{f"shapes_{k}": _shapes_json(out[k]["shapes"])
+                         for k in ("a", "b")}}
+        elif check == "loop":
+            shapes = loop_vs_fused()
         elif check == "cluster_durability":
             cluster_durability(build)
         elif check == "risk_durability":
@@ -2084,36 +2164,40 @@ def _worker_main(task: str, settings: str) -> int:
         elif check == "service_phase":
             service_phase(build)
         else:
-            risk_card_vs_cpu(arg)
+            for name in arg.split(","):
+                risk_card_vs_cpu(name)
     finally:
         restore()
-    print("SHAPES " + json.dumps({k: [[list(sh), n] for sh, n in c.items()]
-                                  for k, c in shapes.items()}))
+    print(f"[worker] {task} wall {time.perf_counter() - t0:.1f} s")
+    print("RESULT " + json.dumps(result))
+    print("SHAPES " + json.dumps(_shapes_json(shapes)))
     return 0
 
 
 def _join_worker(task: str, proc: subprocess.Popen, shapes: dict,
                  timeout: float, records: dict | None = None,
-                 phase: int = 14) -> None:
+                 phase: int = 14, results: dict | None = None) -> None:
     """Wait for a worker, print its lines, add the kernel shapes it
-    launched to ``shapes`` (and the job records of a phase 18 worker to
-    ``records``) and fail if it failed."""
-    out, _ = proc.communicate(timeout=timeout)
-    lines = out.splitlines()
+    launched to ``shapes`` (the job records of a phase 18 worker to
+    ``records``, and its RESULT to ``results``) and fail if it failed."""
+    proc.wait(timeout=timeout)
+    lines = proc.log.read_text().splitlines()
     for line in lines:
         if line.startswith("SHAPES "):
-            for k, pairs in json.loads(line[7:]).items():
-                for sh, n in pairs:
-                    shapes[k][tuple(sh)] += n
+            for k, c in _shapes_load(json.loads(line[7:])).items():
+                shapes[k].update(c)
         elif line.startswith("PAPER ") and records is not None:
             records.update(json.loads(line[6:]))
+        elif line.startswith("RESULT "):
+            if results is not None:
+                results.update(json.loads(line[7:]))
         else:
             print(line)
     if proc.returncode != 0:
         _fail(f"phase {phase} {task} failed (exit {proc.returncode})")
 
 
-def risk_phase(serial_predicts: int) -> dict:
+def risk_phase() -> dict:
     """Phase 14: the risk-priced path on the card. (a) SizeyMethod(risk,
     auto, quality) and (b) sizey_risk_temporal on phase 13's traffic with
     crashes, each held to twice the reference's spread; meanwhile, in
@@ -2129,7 +2213,7 @@ def risk_phase(serial_predicts: int) -> dict:
     try:
         a = _risk_drive("risk a", SizeyMethod(
             risk=RiskConfig(**RISK_CFG), failure_strategy="auto",
-            quality=True, name="sizey_risk", device=DEV), serial_predicts)
+            quality=True, name="sizey_risk", device=DEV))
         _within_spread("risk a", a["res"].wastage_gbh, REF_R_WASTAGE_GBH,
                        REF_R_WASTAGE_RTOL, a["res"].n_failures,
                        REF_R_FAILURES, REF_R_FAILURES_TOL, "wastage_gbh")
@@ -2137,7 +2221,7 @@ def risk_phase(serial_predicts: int) -> dict:
             _fail("risk a: not one quality row per task")
         b = _risk_drive("risk b", make_method(
             "sizey_risk_temporal", failure_strategy="auto",
-            risk=RiskConfig(**RISK_CFG), device=DEV), serial_predicts)
+            risk=RiskConfig(**RISK_CFG), device=DEV))
         _within_spread("risk b", b["res"].temporal_wastage_gbh,
                        REF_RT_TW_GBH, REF_RT_TW_RTOL, b["res"].n_failures,
                        REF_RT_FAILURES, REF_RT_FAILURES_TOL,
@@ -2152,7 +2236,7 @@ def risk_phase(serial_predicts: int) -> dict:
         if not c.n_resizes:
             _fail("the risk-priced temporal path ran no RESIZE")
         for task, proc in workers.items():
-            _join_worker(task, proc, shapes, timeout=900)
+            _join_worker(task, proc, shapes, timeout=HOST_TIMEOUT)
         print(f"[risk] (c)-(e) in {len(workers)} worker processes, done "
               f"{time.perf_counter() - t_start:.1f} s into the phase")
     finally:
@@ -2176,14 +2260,18 @@ PAPER_TIMEOUT = 900
 
 
 def paper_groups() -> list:
-    """The jobs of phase 18 in worker groups: one a workflow, and fig12's
-    mag run at 0.3 (~1,500 tasks, the longest) on its own."""
+    """The jobs of phase 18 in worker groups: two workflows a group (the
+    i-th with the i-th from the end), and fig12's mag run at 0.3 (~1,500
+    tasks, the longest) on its own. Every process on the card slows the
+    others' launches, so the short groups share processes."""
     from repro_torch.workflow import paper
     jobs = paper.jobs(PAPER_SCALE, tuple(PAPER_TTFS))
     big = [j for j in jobs if j[1] != PAPER_SCALE]
     wfs = list(dict.fromkeys(j[0] for j in jobs))
-    return [[j for j in jobs if j[0] == wf and j not in big]
-            for wf in wfs] + [big]
+    by_wf = [[j for j in jobs if j[0] == wf and j not in big] for wf in wfs]
+    n = len(by_wf)
+    return [by_wf[i] + (by_wf[n - 1 - i] if n - 1 - i != i else [])
+            for i in range((n + 1) // 2)] + [big]
 
 
 def paper_worker(group: int) -> None:
@@ -2196,10 +2284,14 @@ def paper_worker(group: int) -> None:
 
 
 def paper_start() -> dict:
-    """Start phase 18's workers; they run beside phases 3-6 and 13."""
+    """Start phase 18's workers; they run beside every phase up to 17.
+    The last group, fig12's mag run and the smoke's longest job, keeps
+    this process's priority."""
+    n = len(paper_groups())
     return {"t0": time.perf_counter(),
-            "procs": {f"paper:{i}": _start_worker(f"paper:{i}")
-                      for i in range(len(paper_groups()))}}
+            "procs": {f"paper:{i}": _start_worker(
+                f"paper:{i}", nice=0 if i == n - 1 else None)
+                for i in range(n)}}
 
 
 def paper_phase(started: dict) -> dict:
@@ -3139,9 +3231,11 @@ def time_lm_kernels(k4_shape, k5_shape, k6_shape) -> dict:
     return rows
 
 
-def lm_phases() -> dict:
+def lm_phases() -> tuple[list, object]:
     """Phases 8-12 of the LM serving slice; returns its JSON rows (K5's
-    log-sum-exp variant's launches are phase 16 (b)'s, filled in there)."""
+    log-sum-exp variant's launches are phase 16 (b)'s, filled in there)
+    and phase 12, the kernels' timing, as a function that completes the
+    rows, to be called once nothing else runs on the card."""
     import torch
     errors = check_lm_kernels(K4_SHAPES, K5_SHAPES, K6_SHAPES)
     errors.update(check_k5_variants(K5_SHAPES))
@@ -3167,10 +3261,6 @@ def lm_phases() -> dict:
     k4s, k5key, k6s = (heaviest("flash_attention"), heaviest("flash_decode"),
                        heaviest("ssd_scan"))
     pos = sorted(positions[k5key])[len(positions[k5key]) // 2]
-    timings = time_lm_kernels(k4s, (*k5key, pos), k6s)
-    print(f"[time] LM JSON rows at the most launched full-width shapes "
-          f"(ties to the largest): flash_attention {k4s}, flash_decode "
-          f"{k5key} at the median launched pos {pos}, ssd_scan {k6s}")
     src = {"flash_attention": ("flash_attention", 70),
            "flash_decode": ("flash_decode", 61),
            "flash_decode_fp8": ("flash_decode", 61),
@@ -3178,12 +3268,20 @@ def lm_phases() -> dict:
            "ssd_scan": ("ssd_scan", 71)}
     launches = {**serve["launches"], "flash_decode_fp8":
                 fp8["launches"]["flash_decode_fp8"], "flash_decode_lse": 0}
-    return [{"name": name, "route": "cuda",
+    rows = [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/{pkg}/kernel.cu",
              "replaces": f"src/repro/kernels/{pkg}/kernel.py:{line}",
-             "launches": launches[name],
-             "max_abs_err": errors[name], **timings[name]}
+             "launches": launches[name], "max_abs_err": errors[name]}
             for name, (pkg, line) in src.items()]
+
+    def time_rows():
+        timings = time_lm_kernels(k4s, (*k5key, pos), k6s)
+        print(f"[time] LM JSON rows at the most launched full-width shapes "
+              f"(ties to the largest): flash_attention {k4s}, flash_decode "
+              f"{k5key} at the median launched pos {pos}, ssd_scan {k6s}")
+        for row in rows:
+            row.update(timings[row["name"]])
+    return rows, time_rows
 
 
 # ----------------------------------------------------------- phase 15
@@ -4045,10 +4143,12 @@ def time_k6_backward(shape) -> dict:
             "library_ms": None}
 
 
-def train_phase() -> tuple[list, dict]:
+def train_phase() -> tuple[list, dict, object]:
     """Phase 15: training on the card. Returns the JSON rows of K4's and
-    K6's backward, and the card's peak and median step wall of (b)'s
-    granite-3-2b and (f)'s mamba2-780m for phase 17."""
+    K6's backward, the card's peak and median step wall of (b)'s
+    granite-3-2b and (f)'s mamba2-780m for phase 17, and the backward
+    kernels' timing as a function that completes the rows, as
+    :func:`lm_phases` does."""
     import gc
     import shutil
     import torch
@@ -4087,11 +4187,6 @@ def train_phase() -> tuple[list, dict]:
                                      label="bwd launched"))
     k4s = max(full["shapes"]["flash_attention"].items(),
               key=lambda kv: (kv[1], kv[0]))[0]
-    row = time_k4_backward(k4s)
-    for s in sorted(launched - {k4s}):
-        time_k4_backward(s)
-    row6 = time_k6_backward(K6_TRAIN_SHAPES[0])
-    row6z = time_k6_backward(K6_TRAIN_SHAPES[1])
     wall = time.perf_counter() - t_start
     print(f"[train] step wall (median): granite-3-2b {full['step_s']:.4f} s "
           f"({8 * 256 / full['step_s']:.1f} tokens/s), mamba2-780m "
@@ -4101,21 +4196,30 @@ def train_phase() -> tuple[list, dict]:
     torch.cuda.empty_cache()
     measured = {"granite": {k: full[k] for k in ("peak", "step_s")},
                 "mamba2": {k: ssm["ssm"][k] for k in ("peak", "step_s")}}
-    return [{"name": "flash_attention_bwd", "route": "cuda",
+    rows = [{"name": "flash_attention_bwd", "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/kernel.cu",
              "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
              "launches": full["launches"].get("flash_attention_bwd_dq", 0),
-             "max_abs_err": err, **row},
+             "max_abs_err": err},
             {"name": "ssd_scan_bwd", "route": "cuda",
              "source": "src/repro_torch/kernels/ssd_scan/kernel.cu",
              "replaces": "src/repro/kernels/ssd_scan/kernel.py:71",
              "launches": ssm["ssm"]["launches"].get("ssd_scan_bwd", 0),
-             "max_abs_err": err6, **row6},
+             "max_abs_err": err6},
             {"name": "ssd_scan_bwd_zamba2", "route": "cuda",
              "source": "src/repro_torch/kernels/ssd_scan/kernel.cu",
              "replaces": "src/repro/kernels/ssd_scan/kernel.py:71",
              "launches": ssm["hybrid"]["launches"].get("ssd_scan_bwd", 0),
-             "max_abs_err": err6, **row6z}], measured
+             "max_abs_err": err6}]
+
+    def time_rows():
+        rows[0].update(time_k4_backward(k4s))
+        for shape in sorted(launched - {k4s}):
+            time_k4_backward(shape)
+        rows[1].update(time_k6_backward(K6_TRAIN_SHAPES[0]))
+        rows[2].update(time_k6_backward(K6_TRAIN_SHAPES[1]))
+        torch.cuda.empty_cache()
+    return rows, measured, time_rows
 
 
 # ----------------------------------------------------------- phase 16
@@ -4151,8 +4255,13 @@ def train_phase() -> tuple[list, dict]:
 # embedding's rows of tokens not in the batch); the others, whose update
 # a gradient's bf16 rounding may flip, counted and reported. Launches
 # per rank, both runs: phase 15's count (_train_launches) for the loss
-# and gradients, equal to the one-device call's. No multi-GPU number is
-# measured here.
+# and gradients, equal to the one-device call's. The full-width steps run
+# again with cfg.seq_shard (sequence parallelism: the residual stream each
+# rank's half of the sequence, gathered into each block and reduce-
+# scattered out of it, each an all-to-all of CUDA tensors), at the same
+# limits and launches; each rank prints torch.cuda.max_memory_allocated
+# over its sharded loss and gradients with and without it. No multi-GPU
+# number is measured here.
 DIST_BATCH, DIST_SEQ = 4, 64
 DIST_TP_ARCHS = ("granite-3-2b", "mamba2-780m")
 DIST_TP_LAYERS, DIST_TP_BATCH, DIST_TP_SEQ, DIST_TP_LR = 2, 8, 256, 3e-4
@@ -4354,6 +4463,9 @@ def tp_rank(rank: int, store: str) -> int:
     reduced (fp32, the CPU tests' inputs and limits) and at full width
     (DIST_TP_LAYERS deep, bf16), one device then tensor-parallel over the
     (1, 2) mesh, held shard by shard; exit 1 on a fault."""
+    import dataclasses
+    import gc
+
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4392,11 +4504,12 @@ def tp_rank(rank: int, store: str) -> int:
             """Each leaf's shard on this rank, as param_specs places it."""
             return tree_flatten_with_path(local_tree(distribute(
                 tree, mesh, param_specs(tree, mesh))))[1]
-        for full in (False, True):
+        for full, seq in ((False, False), (True, False), (True, True)):
             for arch in DIST_TP_ARCHS:
                 t0 = time.perf_counter()
                 if full:
-                    cfg = _tp_config(arch)
+                    cfg = dataclasses.replace(_tp_config(arch),
+                                              seq_shard=seq)
                     shape, lr = (DIST_TP_BATCH, DIST_TP_SEQ), DIST_TP_LR
                     params = build_model(cfg).init(LM_SEED, device=DEV)
                 else:
@@ -4421,8 +4534,22 @@ def tp_rank(rank: int, store: str) -> int:
                 with axis_rules(mesh):
                     dp = distribute(params, mesh, param_specs(params, mesh))
                     db = distribute(batch, mesh, batch_specs(batch, mesh))
+                    if DEV != "cpu":
+                        # the one-device step's garbage, collected now, not
+                        # inside the step measured
+                        gc.collect()
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        held = torch.cuda.memory_allocated()
                     (_, g_tp), k_tp = counted(
                         lambda: step_mod._sharded(grads_of, mesh)(dp, db))
+                    peak = ""
+                    if DEV != "cpu":
+                        top = torch.cuda.max_memory_allocated()
+                        peak = (f"; max_memory_allocated over the sharded "
+                                f"loss and gradients {top / 2**30:.3f} GiB, "
+                                f"{(top - held) / 2**30:.3f} GiB over the "
+                                f"{held / 2**30:.3f} GiB held before")
                     m, dp, _ = step_mod.make_train_step(cfg, opt, mesh=mesh)(
                         dp, opt.init(local_tree(dp)), db)
                     want_g, want_p = shards(g_ref), shards(ref)
@@ -4448,7 +4575,8 @@ def tp_rank(rank: int, store: str) -> int:
                     fault = near > near_tol
                 want_k = _train_launches(cfg)
                 path = {n: k for n, k in k_tp.items() if k}
-                kind = "at full width" if full else "reduced"
+                kind = ("at full width" if full else "reduced") \
+                    + (", seq_shard" if seq else "")
                 print(f"{cfg.name} {kind}, "
                       f"{cfg.n_layers} layers, {cfg.compute_dtype}, remat "
                       f"{cfg.remat}, {shape[0]} x {shape[1]} tokens, tensor-"
@@ -4460,7 +4588,7 @@ def tp_rank(rank: int, store: str) -> int:
                       f"{far:.3e} lr apart where the gradients fix the update "
                       f"(tol 0.05), {what}; launches per rank {path}, one "
                       f"device {dict((n, k) for n, k in k_ref.items() if k)}"
-                      f", phase 15's count {want_k}; "
+                      f", phase 15's count {want_k}{peak}; "
                       f"{time.perf_counter() - t0:.1f} s", flush=True)
                 if max(worst.values()) > grad_tol or far > 0.05 or fault \
                         or k_tp != k_ref or k_tp != want_k:
@@ -4614,7 +4742,9 @@ def _bf16_moves(got_p, want_p, got_g, want_g, lr):
 # became tensor-parallel (DRY_BEFORE: the ZeRO-3 step that gathered every
 # weight whole, traced by the dry run of the commit before it on an H100's
 # machine), and grok-1-314b's peak on 256 ranks at least DRY_GROK_FALL
-# times lower;
+# times lower; and grok-1-314b's train cell on 256 ranks again with
+# --seq-shard (sequence parallelism), in a process of its own, its peak
+# below the same run's row without it;
 # (c) methylseq at SMALL_SCALE serially through the per-model loop
 # (fused=False) and the fused path on the card, counters zeroed before
 # each: integer choices and failures equal, allocations within ALLOC_RTOL,
@@ -4665,6 +4795,15 @@ def _dry_worker(arg: str) -> int:
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
             atexit.register(_stop_worker, procs[-1][1])
+    seq_out = outs / "dry_single_seq.jsonl"
+    seq_out.unlink(missing_ok=True)
+    procs.append((seq_out, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "grok-1-314b", "--shape", "train_4k", "--mesh", "single",
+         "--seq-shard", "--device", DEV, "--out", str(seq_out)],
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    atexit.register(_stop_worker, procs[-1][1])
     steps = {"granite": (get_config(TRAIN_ARCH), 8, 256),
              "mamba2": (scaled_config(get_config(SSM_ARGV[1]), SSM_ARGV[3]),
                         int(SSM_ARGV[7]), int(SSM_ARGV[9]))}
@@ -4692,7 +4831,7 @@ def _dry_worker(arg: str) -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         ok = ok and rel <= DRY_PEAK_RTOL
     t0 = time.perf_counter()
-    rows = []
+    rows, seq_rows = [], []
     for out, proc in procs:
         try:
             log, _ = proc.communicate(timeout=DRY_TIMEOUT)
@@ -4702,8 +4841,9 @@ def _dry_worker(arg: str) -> int:
         if proc.returncode != 0:
             print(log)
             ok = False
-        rows += [json.loads(line) for line in open(out)] \
+        got = [json.loads(line) for line in open(out)] \
             if out.exists() else []
+        (seq_rows if out == seq_out else rows).extend(got)
     before = {(r["arch"], r["mesh"]): r for r in map(
         json.loads, open(REPO / DRY_BEFORE))}
     for r in rows:
@@ -4737,6 +4877,28 @@ def _dry_worker(arg: str) -> int:
                 and was["peak_gb"] < DRY_GROK_FALL * mem["peak_gb"]:
             print(f"[dry b] grok-1-314b's peak fell less than "
                   f"{DRY_GROK_FALL:g} times")
+            ok = False
+    tp_row = [r for r in rows if (r["arch"], r["mesh"], r["shape"]) == (
+        "grok-1-314b", "single", "train_4k") and r["status"] == "ok"]
+    if len(seq_rows) != 1 or seq_rows[0]["status"] != "ok" or not tp_row:
+        print(f"[dry b] grok-1-314b train_4k with --seq-shard: {seq_rows}")
+        ok = False
+    else:
+        r, t = seq_rows[0], tp_row[0]
+        m, mt = r["memory"], t["memory"]
+        kinds = ", ".join(f"{k} {v:.4e}" for k, v in
+                          r["collectives"]["bytes_by_kind"].items() if v)
+        print(f"[dry b] grok-1-314b train_4k on {r['chips']} ranks with "
+              f"--seq-shard, traced in {r['trace_s']} s: a card, without -> "
+              f"with: peak {mt['peak_gb']:.2f} -> {m['peak_gb']:.2f} GiB "
+              f"(arguments {mt['argument_gb']:.2f} -> {m['argument_gb']:.2f}"
+              f", temporaries {mt['temp_gb']:.2f} -> {m['temp_gb']:.2f}), "
+              f"{t['cost']['flops']:.4e} -> {r['cost']['flops']:.4e} FLOP, "
+              f"{t['cost']['collective_bytes']:.4e} -> "
+              f"{r['cost']['collective_bytes']:.4e} collective bytes "
+              f"({kinds})")
+        if m["peak_gb"] >= mt["peak_gb"]:
+            print("[dry b] grok-1-314b's peak did not fall with --seq-shard")
             ok = False
     n_cells = 2 * (len(",".join(a for a, _ in DRY_GROUPS).split(",")) + 1)
     ok = ok and len(rows) == n_cells \
@@ -4839,31 +5001,32 @@ def dryrun_start(measured: dict):
     with open(log, "w") as out:
         proc = subprocess.Popen(
             [sys.executable, str(REPO / "chip_smoke.py"), "--dry",
-             json.dumps(measured)], stdout=out, stderr=subprocess.STDOUT)
+             json.dumps(measured)], stdout=out, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.setpriority(os.PRIO_PROCESS, 0, max(
+                WORKER_NICE, os.getpriority(os.PRIO_PROCESS, 0))))
     atexit.register(_stop_worker, proc)
     return proc, log, time.perf_counter()
 
 
-def dryrun_phase(started) -> dict:
-    """Phase 17: (c) here while the dry-run process that ``dryrun_start``
-    started finishes (a) and (b). Returns the K1 and K2 shapes (c)
-    launched."""
+def dryrun_phase(started) -> None:
+    """Phase 17: wait for the dry-run process that ``dryrun_start``
+    started ((a) and (b)); (c) runs in a worker of its own."""
     proc, log, t0 = started
     t_here = time.perf_counter()
     try:
-        shapes = loop_vs_fused()
-    finally:
-        try:
-            proc.wait(timeout=DRY_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            _stop_worker(proc)
-        print(log.read_text(), end="")
+        proc.wait(timeout=DRY_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        _stop_worker(proc)
+    print(log.read_text(), end="")
     print(f"[dry] phase 17 wall {time.perf_counter() - t0:.1f} s since its "
           f"process started, {time.perf_counter() - t_here:.1f} s after "
           f"phase 16")
     if proc.returncode != 0:
         _fail(f"phase 17: the dry run failed (exit {proc.returncode})")
-    return shapes
+
+
+def _stamp(t_start: float, what: str) -> None:
+    print(f"[t] {time.perf_counter() - t_start:.1f} s: {what}")
 
 
 def main() -> int:
@@ -4892,10 +5055,12 @@ def main() -> int:
     build_kernels()
     if sys.argv[1:2] == ["--train-only"]:
         # phases 1, 2, 15, 16 and 17 alone, for work on the training slice
-        rows, measured = train_phase()
+        rows, measured, time_rows = train_phase()
+        time_rows()
         dry = dryrun_start(measured)
         errors, _ = distributed_phase()
-        errors.update(check_loop_shapes(dryrun_phase(dry)))
+        errors.update(check_loop_shapes(loop_vs_fused()))
+        dryrun_phase(dry)
         for row in rows:
             if row["name"] in errors:
                 row["max_abs_err"] = max(row["max_abs_err"],
@@ -4903,17 +5068,58 @@ def main() -> int:
         print(json.dumps({"kernels": rows}))
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
-    # phase 18 runs in worker processes beside phases 3-6 and 13
+    # the replays (phases 4-6, 13, 14, 17 (c) and 18) are bound by the
+    # host: each runs in a worker from here on, beside phase 3 and the
+    # LM, training and distributed phases in this process; every worker
+    # is joined before any kernel is timed
     paper_started = paper_start()
+    workers = {task: _start_worker(task) for task, _ in HOST_WORKERS}
+    _stamp(t_start, f"{len(workers) + len(paper_started['procs'])} "
+                    f"workers started")
     errors = check_kernels()
     errors["segment_dp"] = max(check_segment_dp(),
                                check_segment_dp(K3_EDGES))
-    main = main_path()
-    # phase 14 runs in a worker process (with its own (c)-(e)) beside 5, 6,
-    # 13 and 18 from here, once phase 4's dispatch count is known
-    risk_proc = _start_worker(f"risk_phase:{main['disp']['predict_pool']}")
-    temporal = temporal_path()
-    ks_plus = ks_plus_path()
+    _stamp(t_start, "phase 3 done")
+    kernels_lm, time_lm = lm_phases()
+    _stamp(t_start, "phases 8-12 done")
+    # phase 15: training on the card, K4's and K6's backward
+    train_rows, measured, time_train = train_phase()
+    _stamp(t_start, "phase 15 done")
+    # phase 17's dry run (a)-(b) traces from here on, beside phase 16
+    dry = dryrun_start(measured)
+    # phase 16: the distributed layer on a 1-device mesh, and (b) tensor
+    # parallelism on a (1, 2) gloo mesh with K4 and K6 at per-rank shapes
+    # (K5's log-sum-exp variant runs on its tensor-parallel decode)
+    errors16, serve_launches = distributed_phase()
+    dryrun_phase(dry)
+    _stamp(t_start, "phases 16 and 17 done")
+    kinds = ("ensemble_mlp", "knn_predict", "segment_dp")
+    results, w_shapes = {}, {}
+    for task, phase in HOST_WORKERS:
+        results[task] = {}
+        w_shapes[task] = {k: Counter() for k in kinds}
+        try:
+            _join_worker(task, workers[task], w_shapes[task], HOST_TIMEOUT,
+                         phase=phase, results=results[task])
+        finally:
+            _stop_worker(workers[task])
+    _stamp(t_start, "phases 4-6, 13, 14 and 17 (c) joined")
+    main = dict(results["peak"]["main"])
+    main["shapes"] = _shapes_load(main["shapes"])
+    temporal = dict(results["temporal"]["temporal"])
+    temporal["shapes"] = _shapes_load(temporal["shapes"])
+    ks_plus = {"shapes": _shapes_load(
+        results["temporal"]["ks_plus"]["shapes"])}
+    cluster = {"shapes": w_shapes["cluster_phase"],
+               **{k: {"shapes": _shapes_load(
+                   results["cluster_phase"][f"shapes_{k}"])}
+                  for k in ("a", "b")}}
+    r_shapes = w_shapes["risk_phase"]
+    # phases 13 and 14: each engine run's predict dispatches below the
+    # serial replay's of phase 4
+    check_serial(results["cluster_phase"]["waves"]
+                 + results["risk_phase"]["waves"],
+                 main["disp"]["predict_pool"])
     # every shape the two paths launched is held against the plain version
     seen = {k: set(main["shapes"][k]) | set(temporal["shapes"][k])
             for k in ("ensemble_mlp", "knn_predict")}
@@ -4929,17 +5135,12 @@ def main() -> int:
     if k3_seen:
         errors["segment_dp"] = max(errors["segment_dp"],
                                    check_segment_dp(k3_seen))
-    card_vs_cpu("sizey", ALLOC_RTOL, WASTAGE_RTOL)
-    card_vs_cpu("sizey_temporal", T_ALLOC_RTOL, T_TW_RTOL, T_APART)
-    # phase 13: the cluster engine; every K1 and K2 shape it launched that
-    # the lists lack is held to its plain version and timed if not yet,
-    # and every K3 shape checked
-    cluster = cluster_phase(main["disp"]["predict_pool"])
     c_shapes = cluster["shapes"]
     # phase 18 (the paper's grid, in workers since the build) is joined
     # here, before any kernel is timed; every K1 and K2 shape it launched
     # that phases 3-5 did not check is held to its plain version as in 3
     p_shapes = paper_phase(paper_started)
+    _stamp(t_start, "phase 18 joined")
     k1_paper = sorted(s for s in p_shapes["ensemble_mlp"]
                       if s not in K1_SHAPES and s not in seen["ensemble_mlp"])
     k2_paper = sorted(s for s in p_shapes["knn_predict"]
@@ -4949,13 +5150,9 @@ def main() -> int:
     if k1_paper or k2_paper:
         more = check_kernels(k1_paper, k2_paper)
         errors = {k: max(v, more.get(k, 0.0)) for k, v in errors.items()}
-    # phase 14 (the risk-priced path, the service and the chaos cell) is
-    # joined here too, before any kernel is timed
-    r_shapes = {k: Counter() for k in p_shapes}
-    t_wait = time.perf_counter()
-    _join_worker("risk_phase", risk_proc, r_shapes, RISK_TIMEOUT)
-    print(f"[risk] {time.perf_counter() - t_wait:.1f} s waited for phase 14 "
-          f"after phase 18")
+    # phase 17 (c): every K1 and K2 shape the per-model loop launched that
+    # phase 3 did not check
+    errors16.update(check_loop_shapes(w_shapes["loop"]))
     # phase 7
     # K1 and K2 at every shape the replays launched; their JSON rows at the
     # shape the peak path launched most; K3's is the launch-weighted mean
@@ -5039,19 +5236,12 @@ def main() -> int:
          "launches": temporal["launches"]["segment_dp"],
          "max_abs_err": errors["segment_dp"], **k3},
     ]
-    kernels += lm_phases()
-    # phase 15: training on the card, K4's backward
-    rows, measured = train_phase()
-    kernels += rows
-    # phase 17's dry run (a)-(b) traces from here on, beside phase 16
-    dry = dryrun_start(measured)
-    # phase 16: the distributed layer on a 1-device mesh, and (b) tensor
-    # parallelism on a (1, 2) gloo mesh with K4 and K6 at per-rank shapes
-    # (K5's log-sum-exp variant runs on its tensor-parallel decode)
-    errors, serve_launches = distributed_phase()
-    # phase 17: the dry run beside the per-model loop; every K1 and K2
-    # shape the loop launched that phase 3 did not check is checked now
-    errors.update(check_loop_shapes(dryrun_phase(dry)))
+    # phases 8-12 and 15: the LM and backward kernels timed now that the
+    # card runs nothing else
+    time_lm()
+    time_train()
+    kernels += kernels_lm + train_rows
+    errors = errors16
     for row in kernels:
         if row["name"] in errors:
             row["max_abs_err"] = max(row["max_abs_err"], errors[row["name"]])

@@ -21,7 +21,15 @@ argument's own numbers (no collective, no copy).
     gathered again for its backward;
   * ``copy_to_tp`` (identity forward, all-reduce backward) and
     ``reduce_from_tp`` (all-reduce forward, identity backward): Megatron's
-    pair around a column-parallel and a row-parallel product;
+    pair around a column-parallel and a row-parallel product; with
+    ``seq=True`` (``cfg.seq_shard``, Megatron's sequence parallelism) the
+    residual stream between them is each rank's slice of the sequence:
+    ``copy_to_tp`` gathers the slices (forward; reduce-scatter backward)
+    and ``reduce_from_tp`` reduce-scatters the partial sums onto them
+    (forward; gather backward), each an all-to-all (``_gather_seq``,
+    ``_scatter_seq``); ``use_once`` counts once the gradient of a value
+    every rank computes alike (the MoE load-balance loss), and
+    ``check_seq`` refuses a sequence that does not split;
   * ``take`` / ``take_replicated``: the rank's columns of a "model"-sharded
     or replicated weight when they are not its own shard (whole heads, a
     KV head shared by neighbouring ranks, Mamba2's packed projection),
@@ -200,6 +208,40 @@ def _all_to_all(x, outs, ins, group):
                                            group.group_name))
 
 
+# The sequence pair (``copy_to_tp``/``reduce_from_tp`` with ``seq``) moves
+# activations in all-to-alls only: the card's gloo crashed in an all-gather
+# of CUDA tensors, and a reduce-scatter sums each element in an order set by
+# the library's algorithm and the element's place in its buffer, where
+# here each rank adds the pieces it receives in rank order (as
+# ``merge_heads`` does), the same numbers on every backend. Each moves the
+# bytes of the all-gather or reduce-scatter it stands for.
+def _gather_seq(x, dim, group):
+    """``x`` of every rank of ``group`` concatenated along ``dim``: ``x``
+    sent to every rank in one all-to-all. Contiguous, for the products it
+    feeds."""
+    m = group.size()
+    x = x.contiguous()
+    n = x.shape[0]
+    out = _all_to_all(x.unsqueeze(0).expand(m, *x.shape).flatten(0, 1),
+                      [n] * m, [n] * m, group)
+    return out.unflatten(0, (m, n)).movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _scatter_seq(x, dim, group):
+    """The sum over ``group`` of ``x``, this rank's chunk along ``dim``:
+    chunk t sent to rank t in one all-to-all, the chunks received added in
+    rank order."""
+    m = group.size()
+    parts = x.unflatten(dim, (m, -1)).movedim(dim, 0)
+    n = parts.shape[1]
+    got = _all_to_all(parts.flatten(0, 1), [n] * m, [n] * m,
+                      group).unflatten(0, (m, n))
+    out = got[0].clone()
+    for r in range(1, m):
+        out += got[r]
+    return out
+
+
 class _Copy(torch.autograd.Function):
     """Identity forward; the gradient summed over ``group``."""
 
@@ -244,22 +286,81 @@ class _Gather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.dim, ctx.group), None, None
 
 
-def copy_to_tp(x):
+class _Seq(torch.autograd.Function):
+    """The sequence pair along ``dim``: the gather (``gather`` True) or
+    the reduce-scatter forward, the other backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, gather):
+        ctx.dim, ctx.group, ctx.gather = dim, group, gather
+        return (_gather_seq if gather else _scatter_seq)(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = _scatter_seq if ctx.gather else _gather_seq
+        return back(g, ctx.dim, ctx.group), None, None, None
+
+
+class _Once(torch.autograd.Function):
+    """Identity forward; the gradient on "model" rank 0, zero on the
+    others."""
+
+    @staticmethod
+    def forward(ctx, x, first):
+        ctx.first = first
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
+def copy_to_tp(x, seq: bool = False):
     """Enter a tensor-parallel region: ``x`` as it is, its gradient summed
-    over "model" (each rank's products add to it)."""
+    over "model" (each rank's products add to it). With ``seq`` (Megatron's
+    sequence parallelism, ``cfg.seq_shard``) ``x`` (B, S / model, ...) is
+    the rank's slice of the sequence: every rank's slice gathered along
+    dim 1, the gradient reduce-scattered back onto the slice."""
     ctx = _ctx()
     if ctx is None or ctx.model is None:
         return x
+    if seq:
+        return _Seq.apply(x, 1, ctx.model.group, True)
     return _Copy.apply(x, (ctx.model.group,))
 
 
-def reduce_from_tp(x):
+def reduce_from_tp(x, seq: bool = False):
     """Leave a tensor-parallel region: the ranks' partial sums added over
-    "model"; the gradient as it is."""
+    "model"; the gradient as it is. With ``seq``, only this rank's slice
+    of the sequence (dim 1) of the sum (a reduce-scatter), the gradient
+    gathered along the sequence."""
     ctx = _ctx()
     if ctx is None or ctx.model is None:
         return x
+    if seq:
+        return _Seq.apply(x, 1, ctx.model.group, False)
     return _Reduce.apply(x, ctx.model.group, False)
+
+
+def use_once(x):
+    """``x``, which every "model" rank computes alike, where the gradients
+    around it are each rank's part of a sum over "model" (the MoE
+    load-balance loss under ``cfg.seq_shard``): its gradient kept on rank
+    0 only, so that the sum adds it once. ``x`` itself with no "model"
+    ranks."""
+    ctx = _ctx()
+    if ctx is None or ctx.model is None:
+        return x
+    return _Once.apply(x, ctx.model.rank == 0)
+
+
+def check_seq(s: int) -> None:
+    """Refuse a sequence of ``s`` positions that does not split evenly
+    over the "model" ranks (under ``cfg.seq_shard``)."""
+    m = model_size()
+    if s % m:
+        raise ValueError(f"seq_shard: a sequence of {s} positions does not "
+                         f"split over {m} 'model' ranks")
 
 
 def _fsdp_dim(name: str, t, ctx: _Context):
@@ -486,18 +587,27 @@ def ssm_shard(params, d_inner: int, n_state: int, n_heads: int):
 
 
 # ----------------------------------------------------------------- vocab
-def embed_lookup(table, tokens):
-    """``table[tokens]``; under TP ``table`` is the rank's rows of the
-    vocab: the rows it owns looked up, the others zero, summed over
-    "model" (each token's row comes from its owner, exactly)."""
+def embed_lookup(table, tokens, prefix=None, seq: bool = False):
+    """``table[tokens]``, after ``prefix`` (B, P, d) along the sequence
+    where given; under TP ``table`` is the rank's rows of the vocab: the
+    rows it owns looked up, the others zero, summed over "model" (each
+    token's row comes from its owner, exactly). With ``seq`` the sum is
+    reduce-scattered onto this rank's slice of the sequence, ``prefix``
+    added in by rank 0 alone."""
+    def after(rows):
+        return rows if prefix is None else torch.cat([prefix, rows], 1)
     if model_size() == 1:
-        return table[tokens]
+        return after(table[tokens])
     v = table.shape[0]
     local = tokens - model_rank() * v
     inside = (local >= 0) & (local < v)
     rows = table[local.clamp(0, v - 1)]
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
-    return reduce_from_tp(rows)
+    if not seq:
+        return after(reduce_from_tp(rows))
+    if prefix is not None and model_rank():
+        prefix = torch.zeros_like(prefix)
+    return reduce_from_tp(after(rows), seq=True)
 
 
 def vocab_offset(local_vocab: int) -> int:

@@ -28,7 +28,10 @@ divides (not at ``long_500k``'s B = 1), and the cache as the reference's
 ``cache_specs`` lays it out: K/V sequence, SSM state heads and the
 convolution tail's channels over "model". Decode runs K5's log-sum-exp
 variant on each rank's slice of the cache and merges the slices across
-"model".
+"model". With ``--seq-shard`` the train and prefill cells carry the
+residual stream between the blocks as each "model" rank's slice of the
+sequence (``cfg.seq_shard``: gathered into each block, reduce-scattered
+out of it, each an all-to-all).
 
 Per card, each row records:
 
@@ -169,7 +172,15 @@ class LiveMode(_Books, TorchDispatchMode):
     """``TraceMode``'s books of live storages over a real run: ``live``
     starts with the storages of the local tensors in ``tree`` (the step's
     arguments), and each storage an op returns is added until it dies.
-    DTensors pass on to their local ops."""
+    DTensors pass on to their local ops.
+
+    A collective runs on copies of its inputs and is waited for here, and
+    the step gets a copy of its result: a process group's worker thread
+    holds the tensors of the work it ran until some time after the wait
+    returns, so a storage the step handed to it or got from it would die
+    there, late, by a time the scheduler sets. The books see only the
+    step's own tensors, which die where the step drops them, as the fake
+    process group's do in ``TraceMode``."""
 
     def __init__(self, tree=()):
         super().__init__()
@@ -181,9 +192,22 @@ class LiveMode(_Books, TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
+
+        from repro_torch.analysis.collectives import kind_of
         if DTensor in types:
             return NotImplemented
-        out = func(*args, **(kwargs or {}))
+        if kind_of(func) is not None and not func._schema.is_mutable:
+            def mine(t):
+                return t.clone() if isinstance(t, torch.Tensor) else t
+            done = pytree.tree_map(
+                lambda t: torch.ops._c10d_functional.wait_tensor(t)
+                if isinstance(t, torch.Tensor) else t,
+                func(*pytree.tree_map(mine, args),
+                     **pytree.tree_map(mine, kwargs or {})))
+            out = pytree.tree_map(mine, done)
+            del done
+        else:
+            out = func(*args, **(kwargs or {}))
         for t in pytree.tree_leaves(out):
             if isinstance(t, torch.Tensor):
                 self._hold(t)
@@ -538,7 +562,9 @@ def main(argv=None) -> None:
     ap.add_argument("--infer-tp", action="store_true",
                     help="TP-only weights for prefill/decode cells")
     ap.add_argument("--seq-shard", action="store_true",
-                    help="sequence-parallel residual annotations")
+                    help="sequence parallelism (cfg.seq_shard): the "
+                         "residual stream each 'model' rank's slice of the "
+                         "sequence in the train and prefill cells")
     ap.add_argument("--microbatches", type=int, default=1,
                     help="gradient-accumulation splits (train cells)")
     ap.add_argument("--out", default="results/dryrun_torch.jsonl")

@@ -86,16 +86,21 @@ def attention_block(params, x, cfg: ModelConfig, positions):
 
     Under TP (``distributed.tp``) ``wq`` is column-parallel over the
     rank's query heads and ``wo`` row-parallel, and K4 runs on those heads
-    and the KV heads they use (``tp.attention_shard``)."""
+    and the KV heads they use (``tp.attention_shard``). Under
+    ``cfg.seq_shard`` ``x`` is the rank's slice of the sequence: gathered
+    before the projections, and the output reduce-scattered back onto the
+    slice (K/V and ``positions`` are the whole sequence's)."""
     params = tp.attention_shard(params, cfg.n_heads, cfg.n_kv, cfg.head_dim)
-    q, k, v = _project_qkv(params, tp.copy_to_tp(x), cfg, positions)
+    x = tp.copy_to_tp(x, cfg.seq_shard)
+    q, k, v = _project_qkv(params, x, cfg, positions)
     q = shard(q, ("batch", None, "heads", None))
     k = shard(k, ("batch", None, "heads", None))
     v = shard(v, ("batch", None, "heads", None))
     o = causal_attention(q, k, v, cfg)
     b, s = x.shape[:2]
     o = o.reshape(b, s, -1)
-    return tp.reduce_from_tp(o @ as_type(params["wo"], x.dtype)), (k, v)
+    return (tp.reduce_from_tp(o @ as_type(params["wo"], x.dtype),
+                              cfg.seq_shard), (k, v))
 
 
 def decode_attention_block(params, x, cfg: ModelConfig, k_cache, v_cache,

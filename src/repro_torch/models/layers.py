@@ -87,14 +87,17 @@ def mlp_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
     }
 
 
-def mlp(params, x: torch.Tensor, compute_dtype):
+def mlp(params, x: torch.Tensor, compute_dtype, seq: bool = False):
     """SwiGLU; under TP ``w_gate``/``w_up`` are the rank's ``ff`` columns
-    and ``w_down`` its rows (column- then row-parallel)."""
-    x = tp.copy_to_tp(x)
+    and ``w_down`` its rows (column- then row-parallel). With ``seq``
+    (``cfg.seq_shard``) ``x`` and the output are the rank's slice of the
+    sequence (``tp.copy_to_tp``, ``tp.reduce_from_tp``)."""
+    x = tp.copy_to_tp(x, seq)
     h = F.silu(x @ as_type(params["w_gate"], compute_dtype)) \
         * (x @ as_type(params["w_up"], compute_dtype))
     h = shard(h, ("batch", None, "ff"))
-    return tp.reduce_from_tp(h @ as_type(params["w_down"], compute_dtype))
+    return tp.reduce_from_tp(h @ as_type(params["w_down"], compute_dtype),
+                             seq)
 
 
 # -------------------------------------------------------------- embeddings
@@ -105,15 +108,22 @@ def embedding_params(gen, cfg: ModelConfig, dtype):
     }
 
 
-def embed_tokens(params, tokens: torch.Tensor, compute_dtype):
-    """The tokens' rows of ``embed`` (vocab-parallel under TP)."""
-    return tp.embed_lookup(as_type(params["embed"], compute_dtype), tokens)
+def embed_tokens(params, tokens: torch.Tensor, compute_dtype,
+                 prefix: torch.Tensor | None = None, seq: bool = False):
+    """The tokens' rows of ``embed`` (vocab-parallel under TP), after
+    ``prefix`` (B, P, d) along the sequence where given; with ``seq``
+    (``cfg.seq_shard``) the rank's slice of that sequence
+    (``tp.embed_lookup``)."""
+    return tp.embed_lookup(as_type(params["embed"], compute_dtype), tokens,
+                           prefix, seq)
 
 
-def logits_fn(params, x: torch.Tensor, cfg: ModelConfig):
+def logits_fn(params, x: torch.Tensor, cfg: ModelConfig, seq: bool = False):
     """Final logits in fp32 with the padded-vocab tail set to -1e9; under
-    TP the rank's vocab columns (B, S, V / model)."""
-    logits = (tp.copy_to_tp(x) @ as_type(params["lm_head"], x.dtype)).float()
+    TP the rank's vocab columns (B, S, V / model). With ``seq`` ``x`` is
+    the rank's slice of the sequence, gathered before ``lm_head``."""
+    logits = (tp.copy_to_tp(x, seq)
+              @ as_type(params["lm_head"], x.dtype)).float()
     logits = shard(logits, ("batch", None, "vocab"))
     tail = cfg.vocab - tp.vocab_offset(logits.shape[-1])
     if cfg.padded_vocab != cfg.vocab and tail < logits.shape[-1]:

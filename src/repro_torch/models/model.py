@@ -35,7 +35,15 @@ for its backward (each block is recomputed whatever ``cfg.remat`` says
 when there are FSDP ranks to gather from); ``embed``, ``lm_head`` and
 ``ln_f`` are gathered once. The blocks compute tensor-parallel over
 "model", and the logits ``forward`` returns are the rank's vocab
-columns. Under the sharded serve steps (``launch.dryrun.serve_step``)
+columns. With ``cfg.seq_shard`` (the reference's ``"seq_sp"``
+annotations, Megatron's sequence parallelism) the residual stream between
+the blocks is each "model" rank's slice of the sequence, in ``forward``
+and ``prefill``: the embedding's sum is reduce-scattered onto it, the
+norms act on it, each block gathers it where it enters the tensor-parallel
+region (inside the recompute function, so only the slice is kept between
+layers) and reduce-scatters its output back, and the head gathers it
+before ``lm_head``; decode keeps the whole position. Under the sharded
+serve steps (``launch.dryrun.serve_step``)
 ``prefill`` and ``decode_step`` run the same way on the cache's shards,
 laid out as the reference's ``cache_specs`` lays them out, and return
 whole-vocab logits.
@@ -100,16 +108,26 @@ def _attn_mlp_block_params(gen, cfg: ModelConfig, dtype, n: tuple = (),
     return p
 
 
+def _norm(x, scale, cfg: ModelConfig):
+    """``rmsnorm`` of the residual stream; under ``cfg.seq_shard`` on the
+    rank's slice of the sequence, the scale's gradient summed over
+    "model" (each rank's tokens add to it)."""
+    return rmsnorm(x, tp.copy_to_tp(scale) if cfg.seq_shard else scale)
+
+
 def _attn_mlp_block(params, x, cfg: ModelConfig, positions, use_moe: bool):
-    """Pre-norm transformer block. Returns (x, (k, v), aux)."""
-    h = rmsnorm(x, params["ln1"])
+    """Pre-norm transformer block. Returns (x, (k, v), aux). Under
+    ``cfg.seq_shard`` ``x`` is the rank's slice of the sequence, which the
+    norms and the residual keep; the attention and the MLP gather it."""
+    seq = cfg.seq_shard
+    h = _norm(x, params["ln1"], cfg)
     a, kv = attn.attention_block(params["attn"], h, cfg, positions)
     x = x + a
-    h = rmsnorm(x, params["ln2"])
+    h = _norm(x, params["ln2"], cfg)
     if use_moe:
-        m, aux = moe_mod.moe_block(params["moe"], h, cfg)
+        m, aux = moe_mod.moe_block(params["moe"], h, cfg, seq)
     else:
-        m, aux = mlp(params["mlp"], h, dtype_of(cfg.compute_dtype)), 0.0
+        m, aux = mlp(params["mlp"], h, dtype_of(cfg.compute_dtype), seq), 0.0
     x = shard(x + m, ("batch", "seq_sp" if cfg.seq_shard else None,
                       "embed"))
     return x, kv, aux
@@ -136,7 +154,7 @@ def _ssm_block_params(gen, cfg: ModelConfig, dtype, n: tuple = ()):
 
 
 def _ssm_block(params, x, cfg: ModelConfig, return_cache: bool = False):
-    h = rmsnorm(x, params["ln"])
+    h = _norm(x, params["ln"], cfg)
     if not return_cache:
         return shard(x + ssm_mod.ssm_block(params["ssm"], h, cfg),
                      ("batch", "seq_sp" if cfg.seq_shard else None,
@@ -235,25 +253,27 @@ def cast_weights(params: dict, cfg: ModelConfig) -> dict:
 
 # ---------------------------------------------------------------- forward
 def _inputs_to_h(params, batch, cfg: ModelConfig):
-    """Embed tokens (+ prepend stub-frontend patch embeddings for VLM)."""
+    """Embed tokens (+ prepend stub-frontend patch embeddings for VLM).
+    Returns (h, positions (B, S)); under ``cfg.seq_shard`` h is this
+    rank's slice of the sequence (refused where S does not split over
+    "model"), the positions the whole sequence's."""
     cd = dtype_of(cfg.compute_dtype)
-    h = embed_tokens(params, batch["tokens"].long(), cd)
-    if cfg.family == "vlm":
-        h = torch.cat([batch["patch_embeds"].to(cd), h], dim=1)
-    return shard(h, ("batch", None, "embed"))
-
-
-def _positions(h):
-    b, s, _ = h.shape
-    return torch.arange(s, device=h.device)[None, :].expand(b, s)
+    tokens = batch["tokens"].long()
+    prefix = batch["patch_embeds"].to(cd) if cfg.family == "vlm" else None
+    b, s = tokens.shape
+    s += 0 if prefix is None else prefix.shape[1]
+    if cfg.seq_shard:
+        tp.check_seq(s)
+    h = embed_tokens(params, tokens, cd, prefix, cfg.seq_shard)
+    positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
+    return shard(h, ("batch", None, "embed")), positions
 
 
 def forward(params, batch, cfg: ModelConfig):
     """Full-sequence forward -> (logits fp32 (B, S, V), aux_loss)."""
     _check_family(cfg)
     params = _whole_vocab_params(params)
-    h = _inputs_to_h(params, batch, cfg)
-    positions = _positions(h)
+    h, positions = _inputs_to_h(params, batch, cfg)
     use_moe = cfg.family == "moe"
     attn_layers, ssm_layers = _stack(params, cfg)
 
@@ -273,8 +293,8 @@ def forward(params, batch, cfg: ModelConfig):
         else:
             h, a = attn_step(attn_layers[i], h)
             aux = aux + a
-    h = rmsnorm(h, params["ln_f"])
-    return logits_fn(params, h, cfg), aux
+    h = _norm(h, params["ln_f"], cfg)
+    return logits_fn(params, h, cfg, cfg.seq_shard), aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
@@ -343,10 +363,9 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None):
     gathered over the vocab."""
     _check_family(cfg)
     params = _whole_vocab_params(params)
-    h = _inputs_to_h(params, batch, cfg)
-    b, s, _ = h.shape
+    h, positions = _inputs_to_h(params, batch, cfg)
+    b, s = positions.shape
     max_seq = max_seq or s
-    positions = _positions(h)
     cache = init_cache(cfg, b, max_seq, h.device)
     cd = dtype_of(cfg.compute_dtype)
     attn_layers, ssm_layers = _stack(params, cfg)
@@ -364,8 +383,10 @@ def prefill(params, batch, cfg: ModelConfig, max_seq: int | None = None):
             cache["ssm"]["conv"][i] = tp.conv_to_cache(
                 conv.to(cd), cfg.d_inner, cfg.ssm_state)
     cache["pos"].fill_(s)
-    h = rmsnorm(h, params["ln_f"])
-    return tp.gather_vocab(logits_fn(params, h[:, -1:, :], cfg)), cache
+    h = rmsnorm(h, params["ln_f"])[:, -1:, :]
+    if cfg.seq_shard:      # the last position is the last rank's
+        h = tp.copy_to_tp(h, seq=True)[:, -1:, :]
+    return tp.gather_vocab(logits_fn(params, h, cfg)), cache
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig):

@@ -52,9 +52,17 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def router(params, x, cfg: ModelConfig):
-    """x: (T, d) -> top-k (idx (T,k), weights (T,k) fp32, aux loss)."""
-    logits = x.float() @ params["w_router"]
+def router(params, x, cfg: ModelConfig, seq: bool = False):
+    """x: (T, d) -> top-k (idx (T,k), weights (T,k) fp32, aux loss).
+
+    With ``seq`` (``cfg.seq_shard``) ``x`` is the gathered sequence and
+    the block's output is summed over "model" only after the combine, so
+    the gradients reaching the router are each rank's part: ``w_router``'s
+    is summed over "model", and the load-balance loss, which every rank
+    computes alike, passes its gradient on rank 0 alone
+    (``tp.use_once``)."""
+    w = tp.copy_to_tp(params["w_router"]) if seq else params["w_router"]
+    logits = x.float() @ w
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = top_k(probs, cfg.top_k)
     top_w = top_w / torch.clamp_min(torch.sum(top_w, -1, keepdim=True), 1e-9)
@@ -65,7 +73,7 @@ def router(params, x, cfg: ModelConfig):
                                   dim=0))                       # routed
     pe = tp.batch_mean(torch.mean(probs, dim=0))                # router mass
     aux = e * torch.sum(me * pe)
-    return top_i, top_w, aux
+    return top_i, top_w, tp.use_once(aux) if seq else aux
 
 
 def _positions_flat(flat_e, e):
@@ -89,30 +97,36 @@ def _positions_rowwise(top_i, b, s, e, k):
                         rows.reshape(-1)[:, None])[:, 0]
 
 
-def _experts(params, buf, cd, spec: str, logical: tuple):
+def _experts(params, buf, cd, spec: str, logical: tuple, seq: bool):
     """Expert SwiGLU over a capacity buffer (``spec`` names its leading
     dims: "e" or "be"; ``logical`` the hidden's logical axes, ff sharded
     over "model"). Under TP ``we_gate``/``we_up`` are the rank's ``ff``
     columns and ``we_out`` its rows, the buffer built from
-    ``tp.copy_to_tp`` of the tokens; the experts' sum over "model"."""
+    ``tp.copy_to_tp`` of the tokens; the experts' sum over "model", or,
+    with ``seq``, the rank's partial sum (the block reduce-scatters the
+    combined tokens instead: they are fewer than the buffer's rows)."""
     g = F.silu(torch.einsum(f"{spec}cd,edf->{spec}cf", buf,
                             as_type(params["we_gate"], cd)))
     u = torch.einsum(f"{spec}cd,edf->{spec}cf", buf,
                      as_type(params["we_up"], cd))
     h = shard(g * u, logical)
-    return tp.reduce_from_tp(torch.einsum(f"{spec}cf,efd->{spec}cd", h,
-                                          as_type(params["we_out"], cd)))
+    out = torch.einsum(f"{spec}cf,efd->{spec}cd", h,
+                       as_type(params["we_out"], cd))
+    return out if seq else tp.reduce_from_tp(out)
 
 
-def moe_block(params, x, cfg: ModelConfig):
-    """x: (B, S, d) -> (y, aux_loss). Dispatch mode per cfg.moe_dispatch."""
+def moe_block(params, x, cfg: ModelConfig, seq: bool = False):
+    """x: (B, S, d) -> (y, aux_loss). Dispatch mode per cfg.moe_dispatch.
+    With ``seq`` (``cfg.seq_shard``) ``x`` and ``y`` are the rank's slice
+    of the sequence; the router and dispatch see the gathered sequence."""
     if cfg.moe_dispatch == "grouped":
-        return _moe_block_grouped(params, x, cfg)
-    b, s, d = x.shape
+        return _moe_block_grouped(params, x, cfg, seq)
+    xe = tp.copy_to_tp(x, seq)
+    b, s, d = xe.shape
     cd = x.dtype
     t = b * s
-    xf = x.reshape(t, d)
-    top_i, top_w, aux = router(params, xf, cfg)
+    top_i, top_w, aux = router(params, (xe if seq else x).reshape(t, d),
+                               cfg, seq)
 
     k = cfg.top_k
     e = cfg.n_experts
@@ -133,28 +147,30 @@ def moe_block(params, x, cfg: ModelConfig):
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
     buf = torch.zeros((e, cap, d), dtype=cd, device=x.device)
     buf = buf.index_put((flat_e, safe_pos.long()),
-                        tp.copy_to_tp(xf)[tok_idx] * keep[:, None].to(cd),
+                        xe.reshape(t, d)[tok_idx] * keep[:, None].to(cd),
                         accumulate=True)
     buf = shard(buf, ("experts", "batch", None))
-    out = _experts(params, buf, cd, "e", ("experts", "batch", "ff"))
+    out = _experts(params, buf, cd, "e", ("experts", "batch", "ff"), seq)
 
     # combine: gather each (token, slot) row back, weight, and sum slots
     y = out[flat_e, safe_pos.long()] * flat_w[:, None]
-    y = torch.sum(y.reshape(t, k, d), dim=1)
-    return y.reshape(b, s, d), aux
+    y = torch.sum(y.reshape(t, k, d), dim=1).reshape(b, s, d)
+    return (tp.reduce_from_tp(y, seq=True) if seq else y), aux
 
 
-def _moe_block_grouped(params, x, cfg: ModelConfig):
+def _moe_block_grouped(params, x, cfg: ModelConfig, seq: bool):
     """Grouped dispatch: capacity is per sequence row (the GShard/Switch
     "group" = batch row), so every scatter and gather stays within a row;
     the buffer is (B, E, C_row, d)."""
-    b, s, d = x.shape
+    xe = tp.copy_to_tp(x, seq)
+    b, s, d = xe.shape
     cd = x.dtype
     k, e = cfg.top_k, cfg.n_experts
     # at least k slots per row: single-token decode (s=1) must never drop
     cap = max(ceil_div(int(cfg.capacity_factor * k * s), e), k)
 
-    top_i, top_w, aux = router(params, x.reshape(b * s, d), cfg)
+    top_i, top_w, aux = router(params, (xe if seq else x).reshape(b * s, d),
+                               cfg, seq)
     rows_e = top_i.reshape(b, s * k)                  # expert per (tok,slot)
     rows_w = top_w.reshape(b, s * k).to(cd)
 
@@ -171,11 +187,12 @@ def _moe_block_grouped(params, x, cfg: ModelConfig):
     bidx = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
     buf = torch.zeros((b, e, cap, d), dtype=cd, device=x.device)
     buf = buf.index_put((bidx, rows_e, safe_pos),
-                        tp.copy_to_tp(x)[:, tok_idx] * keep[..., None].to(cd),
+                        xe[:, tok_idx] * keep[..., None].to(cd),
                         accumulate=True)
     buf = shard(buf, ("batch", "experts", None, None))
-    out = _experts(params, buf, cd, "be", ("batch", "experts", None, "ff"))
+    out = _experts(params, buf, cd, "be", ("batch", "experts", None, "ff"),
+                   seq)
 
     y = out[bidx, rows_e, safe_pos] * rows_w[..., None]   # (B, S*k, d)
     y = torch.sum(y.reshape(b, s, k, d), dim=2)
-    return y, aux
+    return (tp.reduce_from_tp(y, seq=True) if seq else y), aux

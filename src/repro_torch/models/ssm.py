@@ -74,8 +74,12 @@ def ssm_block(params, x, cfg: ModelConfig, return_cache: bool = False):
     Under TP (``distributed.tp``) the rank computes its heads: its z, x
     and dt columns of ``in_proj`` and all of B and C (``tp.ssm_shard``),
     K6 on its heads, the gated norm's sum of squares over "model", and
-    ``out_proj`` row-parallel.
+    ``out_proj`` row-parallel. Under ``cfg.seq_shard`` ``x`` and the
+    output are the rank's slice of the sequence: gathered before
+    ``in_proj`` (the convolution and the scan run over all of it), the
+    output reduce-scattered.
     """
+    x = tp.copy_to_tp(x, cfg.seq_shard)
     b, s, _ = x.shape
     n, p = cfg.ssm_state, cfg.ssm_head_dim
     params, h = tp.ssm_shard(params, cfg.d_inner, n, cfg.ssm_heads)
@@ -85,7 +89,7 @@ def ssm_block(params, x, cfg: ModelConfig, return_cache: bool = False):
     if s % q:
         raise ValueError(f"seq {s} not divisible by chunk {q}")
 
-    z, xbc_raw, dt = _split_proj(params, tp.copy_to_tp(x), di, n)
+    z, xbc_raw, dt = _split_proj(params, x, di, n)
     xbc = _causal_conv(params, xbc_raw, cfg)
     xc, bmat, cmat = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
     dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
@@ -98,7 +102,8 @@ def ssm_block(params, x, cfg: ModelConfig, return_cache: bool = False):
     y = y.reshape(b, s, di).to(cd)
 
     y = tp.rmsnorm(y * F.silu(z), params["norm_scale"])
-    out = tp.reduce_from_tp(y @ as_type(params["out_proj"], cd))
+    out = tp.reduce_from_tp(y @ as_type(params["out_proj"], cd),
+                            cfg.seq_shard)
     if return_cache:
         return out, final_state, xbc_raw[:, s - (cfg.ssm_conv - 1):, :]
     return out

@@ -492,7 +492,7 @@ def test_chip_smoke_cluster_phase_runs_on_the_cpu(monkeypatch):
             KERNEL_LAUNCHES[_name] += 1
             return _fn(*a, **k)
         monkeypatch.setattr(module, attr, counted)
-    out = m.cluster_phase(serial_predicts=10 ** 6)
+    out = m.cluster_phase()
     a, b = out["a"], out["b"]
     assert a["disp"]["predict_pool"] >= 1
     assert b["fits"] >= 1 and b["res"].cluster.n_resizes > 0

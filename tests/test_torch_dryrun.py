@@ -11,8 +11,13 @@ traced prefill and decode FLOPs are the count over the unsharded step on
 real CPU tensors at the per-rank batch, and every step's on a one-rank
 mesh at the whole batch; the collective bytes are what ``param_specs``
 and the shapes imply. On a real one-rank gloo mesh the sharded prefill
-and decode are bitwise the unsharded steps.
+and decode are bitwise the unsharded steps. With ``cfg.seq_shard``
+(``--seq-shard``) the same holds of the train step's FLOPs and peak
+against a real (2, 2) run with the flag, the peak is below the step's
+without it, and each activation all-reduce over "model" becomes a gather
+and a reduce-scatter of the sequence (each one all-to-all).
 """
+import dataclasses
 import json
 import logging
 import os
@@ -27,7 +32,7 @@ torch.set_num_threads(1)
 
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.distributed.sharding import param_specs  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -93,19 +98,31 @@ def _real_flops(kind, batch):
     return fc.get_total_flops()
 
 
-def _trace(kind, world, shape=(2, 2)):
+SEQ_CFG = dataclasses.replace(CFG, seq_shard=True)
+
+
+def _trace(kind, world, shape=(2, 2), cfg=CFG):
     with dryrun.fake_world(world):
         mesh = make_test_mesh(*shape, device_type="cpu")
-        return dryrun.trace_cell(CFG, SHAPES[kind], mesh, device="cpu")
+        return dryrun.trace_cell(cfg, SHAPES[kind], mesh, device="cpu")
+
+
+def _real(tmp_path_factory, check):
+    """The (2, 2) cells run for real on 4 gloo ranks (``check`` of
+    ``torch_dist_worker``): each rank's FLOPs, peak and argument GiB."""
+    tmp = tmp_path_factory.mktemp(check.replace(":", "_"))
+    run_ranks(check, 4, tmp, timeout=240)
+    return [json.load(open(tmp / f"dry_{r}.json")) for r in range(4)]
 
 
 @pytest.fixture(scope="module")
 def real_train(tmp_path_factory):
-    """The (2, 2) train cell run for real on 4 gloo ranks: each rank's
-    FLOPs, peak and argument GiB."""
-    tmp = tmp_path_factory.mktemp("dry_real")
-    run_ranks("dry_real", 4, tmp, timeout=240)
-    return [json.load(open(tmp / f"dry_{r}.json")) for r in range(4)]
+    return _real(tmp_path_factory, "dry_real")
+
+
+@pytest.fixture(scope="module")
+def real_train_seq(tmp_path_factory):
+    return _real(tmp_path_factory, "dry_real:seq")
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
@@ -131,6 +148,31 @@ def test_traced_peak_of_the_train_cell_is_the_real_runs_per_rank(
     for r in real_train:
         assert mem["argument_gb"] == r["argument_gb"], (mem, r)
         assert mem["peak_gb"] == r["peak_gb"], (mem, r)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_seq_shard_traced_flops_are_the_real_count_per_rank(kind,
+                                                            real_train_seq):
+    """The same steps with ``cfg.seq_shard``: each traced count is the real
+    run's, and the same as without the flag (the blocks compute on the
+    gathered sequence, the norms on the slice count no FLOPs)."""
+    got = _trace(kind, 4, cfg=SEQ_CFG)
+    key = "flops" if kind == "train" else f"flops_{kind}"
+    assert all(got["flops"] == r[key] for r in real_train_seq), \
+        real_train_seq
+    assert got["flops"] == _trace(kind, 4)["flops"]
+
+
+def test_seq_shard_traced_peak_of_the_train_cell_is_the_real_runs_per_rank(
+        real_train_seq):
+    """The train step with ``cfg.seq_shard``: the traced arguments and
+    peak are the real run's books per rank, and the peak is below the
+    step's without it (each layer saves the rank's slice of its input)."""
+    mem = _trace("train", 4, cfg=SEQ_CFG)["memory"]
+    for r in real_train_seq:
+        assert mem["argument_gb"] == r["argument_gb"], (mem, r)
+        assert mem["peak_gb"] == r["peak_gb"], (mem, r)
+    assert mem["peak_gb"] < _trace("train", 4)["memory"]["peak_gb"]
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
@@ -189,6 +231,63 @@ def test_collective_bytes_are_what_param_specs_imply():
     want = data_sums + model_sums
     assert want <= by_kind["all-reduce"] <= want + 64, (by_kind, want)
     assert by_kind["all-to-all"] == 0     # (2, 2): heads and KV heads align
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_reduced_config_traces_with_seq_shard(arch):
+    """Each family's reduced config (the VLM's patches prepended before the
+    sequence is cut, MoE, Mamba2, the hybrid, qwen1.5-32b's uneven heads)
+    traced on a fake (1, 4) mesh with ``cfg.seq_shard``: the same FLOPs as
+    without it, and no higher a peak."""
+    cfg = get_config(arch).reduced()
+    seq = dataclasses.replace(cfg, seq_shard=True)
+    got = [_trace("train", 4, (1, 4), c) for c in (cfg, seq)]
+    assert got[1]["flops"] == got[0]["flops"]
+    assert got[1]["memory"]["peak_gb"] <= got[0]["memory"]["peak_gb"]
+    assert got[1]["collectives"]["bytes_by_kind"]["all-to-all"] > 0
+
+
+def test_seq_shard_collective_bytes_are_what_the_shapes_imply():
+    """The train and prefill cells of ``test_collective_bytes_are_what_
+    param_specs_imply`` and ``_serve_bytes`` with ``cfg.seq_shard``,
+    activations act = (2, 64, d) fp32 a rank, L layers:
+
+      * the FSDP all-gathers and reduce-scatters of the weights as without
+        the flag;
+      * every activation all-reduce over "model" gone: in their place,
+        all-to-alls (the sequence pair: a gather's result the gathered
+        act, a reduce-scatter's the m pieces received, act too). Train:
+        the embedding's reduce-scatter and its gather in the backward; in
+        each block a gather and a reduce-scatter at the attention's and
+        the MLP's entry and exit (4), their recompute up to the MLP's
+        gather (3) and each one's adjoint in the backward (4); the head's
+        gather and its reduce-scatter in the backward: act x (11 L + 4).
+        Prefill: the embedding's and each block's 4, and the last
+        position of each slice gathered for the logits ((2, 2, d)), beside
+        the K/V and vocab all-to-alls of ``_serve_bytes``;
+      * all-reduce over "model" (train): the norms' scale gradients (each
+        rank's tokens add to them: ln1 and ln2 a layer, ln_f, d fp32 each)
+        and the cross-entropy's three (2, 64) fp32; over "data" the
+        gradients of the leaves with no FSDP dim, and a few scalars."""
+    train = _trace("train", 4, cfg=SEQ_CFG)["collectives"]
+    base = _trace("train", 4)["collectives"]
+    b, s, d, n = 2, SHAPES["train"].seq_len, CFG.d_model, CFG.n_layers
+    act = b * s * d * 4
+    got, was = train["bytes_by_kind"], base["bytes_by_kind"]
+    for kind in ("all-gather", "reduce-scatter"):
+        assert got[kind] == was[kind] > 0
+        assert train["counts"][kind] == base["counts"][kind]
+    assert was["all-to-all"] == 0
+    assert got["all-to-all"] == act * (11 * n + 4)
+    assert train["counts"]["all-to-all"] == 11 * n + 4
+    model_sums = act * (1 + 5 * n + 1)      # the flag's all-reduces gone
+    assert got["all-reduce"] == was["all-reduce"] - model_sums \
+        + (2 * n + 1) * d * 4
+    prefill = _trace("prefill", 4, cfg=SEQ_CFG)["collectives"]
+    want, _ = _serve_bytes("prefill", False)
+    want["all-to-all"] += act * (1 + 4 * n) + b * 2 * d * 4
+    want["all-reduce"] = 0
+    assert prefill["bytes_by_kind"] == want, (prefill, want)
 
 
 def test_sharded_serve_is_bitwise_on_one_rank(tmp_path):

@@ -60,7 +60,8 @@ def test_lm_phases_run_on_the_cpu_with_plain_kernels(monkeypatch):
             (mlp, "mlp_predict", "ensemble_mlp"),
             (knn, "knn_predict", "knn_predict")):
         _counting(monkeypatch, module, attr, name)
-    rows = m.lm_phases()
+    rows, time_rows = m.lm_phases()
+    time_rows()
     assert [r["name"] for r in rows] == ["flash_attention", "flash_decode",
                                          "flash_decode_fp8",
                                          "flash_decode_lse", "ssd_scan"]

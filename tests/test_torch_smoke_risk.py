@@ -43,7 +43,7 @@ def test_chip_smoke_risk_phase_runs_on_the_cpu(monkeypatch):
             KERNEL_LAUNCHES[_name] += 1
             return _fn(*a, **k)
         monkeypatch.setattr(module, attr, counted)
-    out = m.risk_phase(serial_predicts=10 ** 6)
+    out = m.risk_phase()
     a, b = out["a"], out["b"]
     assert a["rows"] and b["rows"]
     assert len(a["quality"]) == len(a["trace"].tasks)

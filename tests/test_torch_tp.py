@@ -15,7 +15,19 @@ own spread under 1-ulp moves of the weights where that is larger,
 the one-device count plus the products every rank computes
 (``torch_dist_worker.tp_unit``, ``tp_step``). One
 ``tests/torch_dist_worker.py`` process a rank, 4 ranks a test, ~10 s.
+
+With ``cfg.seq_shard`` (sequence parallelism: the residual stream between
+the blocks each "model" rank's slice of the sequence, gathered where a
+block enters its tensor-parallel region and reduce-scattered where it
+leaves it) the same steps are held to the same one-device step at the same
+limits, a (1, 1) mesh is bitwise the unsharded step, the pair itself is
+held to one device on 4 ranks (``tp_unit:seq``), the live peak of each
+rank's step on (1, 4) is below the step's without it
+(``torch_dist_worker.tp_seq_peak``), and a sequence that does not split
+over "model" is refused.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -27,7 +39,7 @@ torch.set_num_threads(1)
 TIMEOUT = 240
 
 
-@pytest.mark.parametrize("piece", ["vocab", "mlp", "gqa", "uneven"])
+@pytest.mark.parametrize("piece", ["vocab", "mlp", "gqa", "uneven", "seq"])
 def test_tp_piece_on_4_ranks_is_one_device(piece, tmp_path):
     outs = run_ranks(f"tp_unit:{piece}", 4, tmp_path, TIMEOUT)
     assert all(f"OK {piece}" in o for o in outs)
@@ -45,10 +57,51 @@ def test_one_rank_mesh_step_is_bitwise_the_unsharded_step(tmp_path):
     assert outs[0].count("bitwise on a one-rank mesh") == len(TP_ARCHS)
 
 
+@pytest.mark.parametrize("mesh", sorted(TP_MESHES))
+@pytest.mark.parametrize("arch", sorted(TP_ARCHS))
+def test_seq_shard_train_step_is_the_single_device_step(arch, mesh,
+                                                         tmp_path):
+    outs = run_ranks(f"tp_step:{arch}/{mesh}/seq", 4, tmp_path, TIMEOUT)
+    assert all(" of one device)" in o for o in outs)
+
+
+def test_one_rank_mesh_seq_shard_step_is_bitwise_the_unsharded_step(
+        tmp_path):
+    outs = run_ranks("tp_one_rank:seq", 1, tmp_path, TIMEOUT)
+    assert outs[0].count("bitwise on a one-rank mesh") == len(TP_ARCHS)
+
+
+def test_seq_shard_lowers_the_live_peak_on_1x4(tmp_path):
+    outs = run_ranks("tp_seq_peak", 4, tmp_path, TIMEOUT)
+    assert all("OK rank" in o for o in outs)
+
+
+def test_a_sequence_that_does_not_split_over_model_is_refused():
+    """30 positions over 4 "model" ranks, under ``seq_shard``: refused
+    before any collective, naming the flag, the sequence and the size."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(),
+                              seq_shard=True)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = torch.zeros((2, 30), dtype=torch.int32)
+    with dryrun.fake_world(4):
+        mesh = make_test_mesh(1, 4, device_type="cpu")
+        with tp.sharded(mesh), pytest.raises(
+                ValueError, match="seq_shard: a sequence of 30 positions "
+                                  "does not split over 4 'model' ranks"):
+            model.loss(params, {"tokens": tokens})
+    tp.check_seq(30)                       # no "model" ranks: no split
+
+
 def test_without_a_sharded_context_every_function_is_the_identity():
     x = torch.randn(2, 4, 8)
     tree = {"wq": torch.randn(8, 8), "ln1": torch.ones(8)}
     assert tp.copy_to_tp(x) is x and tp.reduce_from_tp(x) is x
+    assert tp.copy_to_tp(x, seq=True) is x
+    assert tp.reduce_from_tp(x, seq=True) is x and tp.use_once(x) is x
     assert tp.gather_layer(tree) is tree and tp.batch_mean(x) is x
     assert tp.model_size() == 1 and not tp.gathers()
     assert tp.attention_shard(tree, 4, 2, 2) is tree

@@ -13,7 +13,9 @@ steps' (or twice the JAX reference's own spread under 1-ulp moves of the
 weights where that is larger: 8.7e-7 on the logits and 1.27e-6 on the
 cache at most, ``tools/port_tp_serve_spread.py``), the greedy tokens
 equal, and each cache shard the shape that ``cache_specs`` gives it
-(``torch_dist_worker.tp_serve``; ~7 s a test). On a one-rank mesh every
+(``torch_dist_worker.tp_serve``; ~7 s a test); the same with
+``cfg.seq_shard``, the prefill's residual stream each rank's slice of the
+prompt. On a one-rank mesh every
 number is the unsharded steps', bitwise. Measured: 2.6e-7 to 1.01e-6 of
 the largest (zamba2-7b's logits the farthest: the row-parallel products'
 partial sums and the slices' merge round at other places). Each rank's
@@ -103,6 +105,27 @@ def test_tp_prefill_and_decode_are_the_single_device_steps(
 def test_one_rank_mesh_serve_is_bitwise_the_unsharded_steps(ref_params,
                                                             tmp_path):
     outs = run_ranks("tp_serve_one_rank", 1,
+                     _with_params(ref_params, tmp_path), TIMEOUT)
+    assert outs[0].count("bitwise") == len(TP_ARCHS), outs[0]
+
+
+@pytest.mark.parametrize("mesh", sorted(TP_MESHES))
+@pytest.mark.parametrize("arch", sorted(TP_ARCHS))
+def test_seq_shard_prefill_and_decode_are_the_single_device_steps(
+        arch, mesh, ref_params, tmp_path):
+    """The prefill with ``cfg.seq_shard`` (the residual stream each "model"
+    rank's slice of the prompt, K/V and the scan on the gathered prompt,
+    the cache laid out as without it) and the decode steps after it, at
+    the same limits against one device and the reference."""
+    outs = run_ranks(f"tp_serve:{arch}/{mesh}/seq", 4,
+                     _with_params(ref_params, tmp_path), TIMEOUT)
+    for out in outs:
+        assert out.count("greedy tokens equal") == 2, out
+
+
+def test_one_rank_mesh_seq_shard_serve_is_bitwise_the_unsharded_steps(
+        ref_params, tmp_path):
+    outs = run_ranks("tp_serve_one_rank:seq", 1,
                      _with_params(ref_params, tmp_path), TIMEOUT)
     assert outs[0].count("bitwise") == len(TP_ARCHS), outs[0]
 

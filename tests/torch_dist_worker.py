@@ -10,6 +10,7 @@ Imports torch and the port only. ``run_ranks`` starts the ranks for a
 test.
 """
 import collections
+import dataclasses
 import os
 import subprocess
 import sys
@@ -209,7 +210,9 @@ def _replicated_flops(cfg, tokens, n_model, recompute):
 
 def tp_step(rank, world, out, arg):
     """The reduced ARCH train step on a MESH ("data", "model") gloo mesh
-    (``ARG`` = "arch/mesh", of ``TP_ARCHS`` and ``TP_MESHES``), tensor-
+    (``ARG`` = "arch/mesh", of ``TP_ARCHS`` and ``TP_MESHES``, or
+    "arch/mesh/seq": with ``cfg.seq_shard``, the residual stream a slice
+    of the sequence on each "model" rank), tensor-
     parallel over "model" with each layer's weights gathered over "data",
     against the single-device step from the same parameters: the loss, the
     gradient norm and every gradient within 1e-6 of the largest |value|,
@@ -219,8 +222,6 @@ def tp_step(rank, world, out, arg):
     each rank's FLOPs (``FlopCounterMode`` over its loss and gradients) at
     most 1 / model of the single-device step's on its batch shard plus the
     replicated products (``_replicated_flops``)."""
-    import dataclasses
-
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config
@@ -233,9 +234,11 @@ def tp_step(rank, world, out, arg):
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.step import make_train_step
     from repro_torch.utils.misc import tree_flatten_with_path, tree_map
-    arch, mesh_name = arg.split("/")
+    arch, mesh_name, *seq = arg.split("/")
     n_data, n_model = TP_MESHES[mesh_name]
     cfg = get_config(TP_ARCHS[arch]).reduced()
+    if seq == ["seq"]:
+        cfg = dataclasses.replace(cfg, seq_shard=True)
     model = build_model(cfg)
     params = model.init(0, device="cpu")
     tokens = np.random.default_rng(0).integers(0, cfg.vocab,
@@ -292,11 +295,11 @@ def tp_step(rank, world, out, arg):
           f"({got_flops / want_flops:.4f} of one device)")
 
 
-def tp_one_rank(rank, world, out):
+def tp_one_rank(rank, world, out, arg=""):
     """Each of ``TP_ARCHS``' reduced train steps on a one-rank (1, 1) mesh
     bitwise the unsharded step: the loss, the gradient norm and every
     parameter after AdamW (a group of one gathers nothing and sums
-    nothing)."""
+    nothing); with ``ARG`` "seq", both with ``cfg.seq_shard``."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import (axis_rules, batch_specs,
                                                   distribute, local_tree,
@@ -308,7 +311,8 @@ def tp_one_rank(rank, world, out):
     from repro_torch.utils.misc import tree_flatten_with_path, tree_map
     mesh = make_test_mesh(1, 1, device_type="cpu")
     for arch in TP_ARCHS.values():
-        cfg = get_config(arch).reduced()
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  seq_shard=arg == "seq")
         params = build_model(cfg).init(0, device="cpu")
         tokens = np.random.default_rng(0).integers(0, cfg.vocab,
                                                    (TP_BATCH, TP_SEQ))
@@ -549,7 +553,8 @@ def serve_distance(cfg, got, want):
 
 def tp_serve(rank, world, out, arg):
     """The reduced ARCH's prefill and SERVE_STEPS greedy decode steps on a
-    MESH ("data", "model") gloo mesh (``ARG`` = "arch/mesh"), tensor-
+    MESH ("data", "model") gloo mesh (``ARG`` = "arch/mesh", or
+    "arch/mesh/seq": the prefill with ``cfg.seq_shard``), tensor-
     parallel over "model" with the cache laid out by ``cache_specs``,
     weights by ``param_specs`` in both its modes (ZeRO-3: each layer
     gathered over "data"; "inference": "model" only), from the reference's
@@ -563,9 +568,11 @@ def tp_serve(rank, world, out, arg):
     within ``reference_limits``."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_test_mesh
-    arch, mesh_name = arg.split("/")
+    arch, mesh_name, *seq = arg.split("/")
     n_data, n_model = TP_MESHES[mesh_name]
     cfg = get_config(TP_ARCHS[arch]).reduced()
+    if seq == ["seq"]:
+        cfg = dataclasses.replace(cfg, seq_shard=True)
     params = load_params(f"{out}/params_{arch}.npz")
     prompt = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32))
@@ -602,15 +609,17 @@ def tp_serve(rank, world, out, arg):
               f"(tol {ref_limits[0]:.3e} and {ref_limits[1]:.3e})")
 
 
-def tp_serve_one_rank(rank, world, out):
+def tp_serve_one_rank(rank, world, out, arg=""):
     """Each of ``TP_ARCHS``' reduced prefill and SERVE_STEPS decode steps
     through ``dryrun.serve_step`` on a one-rank (1, 1) mesh bitwise the
-    unsharded steps: every step's logits and the caches."""
+    unsharded steps: every step's logits and the caches; with ``ARG``
+    "seq", both with ``cfg.seq_shard``."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_test_mesh
     mesh = make_test_mesh(1, 1, device_type="cpu")
     for arch in TP_ARCHS:
-        cfg = get_config(TP_ARCHS[arch]).reduced()
+        cfg = dataclasses.replace(get_config(TP_ARCHS[arch]).reduced(),
+                                  seq_shard=arg == "seq")
         params = load_params(f"{out}/params_{arch}.npz")
         prompt = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32))
@@ -666,7 +675,12 @@ def tp_unit(rank, world, out, arg):
       * gqa: attention with 2 KV heads over 4 ranks (with biases);
       * uneven: 10 query heads on 10 KV heads over 4 ranks (2 or 3 whole
         heads a rank, as qwen1.5-32b's 40 over 16; a head's columns split
-        across two ranks' shards).
+        across two ranks' shards);
+      * seq: the sequence-parallel pair (``seq=True``) around the SwiGLU,
+        the rank's slice of a 12-position sequence in and out, and the
+        embedding reduce-scattered onto the slice after a prefix of 4
+        positions (the VLM's patches; bitwise), each gradient from a fixed
+        weighting of the rank's slice of the output.
 
     The attention checks hold each tensor to the larger of 1e-6 and twice
     the one-device step's own spread: the same block with its heads in
@@ -724,6 +738,41 @@ def tp_unit(rank, world, out, arg):
                    ("d w_gate", g2[1], cols(g1[1])),
                    ("d w_up", g2[2], cols(g1[2])),
                    ("d w_down", g2[3], cols(g1[3], 0))]
+    elif arg == "seq":
+        import contextlib
+
+        from repro_torch.launch.mesh import make_test_mesh
+        mesh = make_test_mesh(1, m, device_type="cpu")
+        x, wg, wu, wd = rnd(2, 12, 16), rnd(16, 64), rnd(16, 64), rnd(64, 16)
+        table, prefix = rnd(64, 16), rnd(2, 4, 16)
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, 64, (2, 8)))
+        wt, we = rnd(2, 12, 16), rnd(2, 12, 16)
+
+        def run(seq):
+            if seq:
+                args = [cols(x, 1), cols(wg), cols(wu), cols(wd, 0),
+                        cols(table, 0)]
+            else:
+                args = [x, wg, wu, wd, table]
+            args = [a.detach().requires_grad_() for a in args]
+            with tp.sharded(mesh) if seq else contextlib.nullcontext():
+                y = layers.mlp({"w_gate": args[1], "w_up": args[2],
+                                "w_down": args[3]}, args[0], torch.float32,
+                               seq)
+                e = layers.embed_tokens({"embed": args[4]}, tokens,
+                                        torch.float32, prefix, seq)
+            pick = (lambda t: cols(t, 1)) if seq else (lambda t: t)
+            ((y * pick(wt)).sum() + (e * pick(we)).sum()).backward()
+            return y.detach(), e.detach(), [a.grad for a in args]
+        y1, e1, g1 = run(False)
+        y2, e2, g2 = run(True)
+        assert torch.equal(e2, cols(e1, 1)), "the embedding is not bitwise"
+        checks += [("out", y2, cols(y1, 1)), ("dx", g2[0], cols(g1[0], 1)),
+                   ("d w_gate", g2[1], cols(g1[1])),
+                   ("d w_up", g2[2], cols(g1[2])),
+                   ("d w_down", g2[3], cols(g1[3], 0)),
+                   ("d embed", g2[4], cols(g1[4], 0))]
     elif arg in ("gqa", "uneven"):
         base = get_config("granite-3-2b").reduced()
         shapes = [(4, 2)] if arg == "gqa" else [(10, 10)]
@@ -779,9 +828,54 @@ def tp_unit(rank, world, out, arg):
           f"spread {max(spread.values(), default=0.0):.3e} at most")
 
 
-def dry_real(rank, world, out):
+def tp_seq_peak(rank, world, out):
+    """The reduced granite-3-2b, phi3.5-moe and mamba2-780m train steps on
+    a (1, 4) ("data", "model") gloo mesh, with and without
+    ``cfg.seq_shard``: ``dryrun.LiveMode``'s peak of live bytes over each
+    step, which must be lower with the residual stream a slice of the
+    sequence. Written to ``out``/seq_peak_<rank>.json."""
+    import json
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (axis_rules, batch_specs,
+                                                  distribute, local_tree,
+                                                  param_specs)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+    mesh = make_test_mesh(1, 4, device_type="cpu")
+    got = {}
+    for arch in ("granite", "phi", "mamba2"):
+        for seq in (False, True):
+            cfg = dataclasses.replace(get_config(TP_ARCHS[arch]).reduced(),
+                                      seq_shard=seq)
+            tokens = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                       (TP_BATCH, TP_SEQ))
+            with axis_rules(mesh):
+                params = init_params(cfg, 0, device="cpu")
+                params = distribute(params, mesh, param_specs(params, mesh))
+                opt = make_optimizer("adamw")
+                state = opt.init(local_tree(params))
+                batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+                batch = distribute(batch, mesh, batch_specs(batch, mesh))
+                args = (params, state, batch)
+                with dryrun.LiveMode(args) as live:
+                    make_train_step(cfg, opt, mesh=mesh)(*args)
+            got[f"{arch}/{'seq' if seq else 'tp'}"] = live.peak
+    with open(f"{out}/seq_peak_{rank}.json", "w") as f:
+        json.dump(got, f)
+    low = {a: got[f"{a}/seq"] < got[f"{a}/tp"] for a in ("granite", "phi",
+                                                         "mamba2")}
+    assert all(low.values()), got
+    print(f"OK rank {rank}: peaks {got}")
+
+
+def dry_real(rank, world, out, arg=""):
     """The dry run's (2, 2) cells of ``tests/test_torch_dryrun.py`` (the
-    reduced granite-3-2b, 4 x 64 tokens) run for real: each rank writes
+    reduced granite-3-2b, 4 x 64 tokens; with ``ARG`` "seq",
+    ``cfg.seq_shard``) run for real: each rank writes
     its ``FlopCounterMode`` count and ``dryrun.LiveMode``'s peak of live
     bytes over the AdamW train step, and its counts over the prefill and
     a decode step on a 64-position cache (to ``out``/dry_<rank>.json), for
@@ -799,7 +893,8 @@ def dry_real(rank, world, out):
     from repro_torch.models.model import init_params
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.step import make_train_step
-    cfg = get_config("granite-3-2b").reduced()
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(),
+                              seq_shard=arg == "seq")
     mesh = make_test_mesh(2, 2, device_type="cpu")
     tokens = np.random.default_rng(0).integers(0, cfg.vocab, (4, 64))
     with axis_rules(mesh):
