@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, without the final result line). After
-2, phases 4-6, 13, 14, 17 (c) and 18 run in worker processes (a lower
+2, phases 4-6, 13, 14, 17 (c), 18 and 19 run in worker processes (a lower
 scheduling priority than this process, save fig12's run in 18) beside
 3, 8-12, 15, 16 and 17 (a)-(b) here; once every worker is joined, the
 shapes they launched are checked and every kernel is timed (7, 12 and
@@ -168,6 +168,23 @@ shapes they launched are checked and every kernel is timed (7, 12 and
      predictor dispatch in every Sizey run, every K1/K2 shape launched
      that 3-5 did not check checked as in 3, fig9's milliseconds printed
      with the card's name and power limit, and the phase's wall.
+ 19. the examples' entry points as a user runs them: each
+     ``examples/port_*.py`` script (workflow_sim serially, on the engine
+     with the risk methods, quality rows, a span trace and the wastage
+     overlay, and on the ingested sample log; quality_report on that
+     quality CSV; quickstart; sizey_cluster on the committed dry-run rows,
+     its first 414 jobs; serve_lm with few requests and train_lm at its
+     e2e-100m width for 3 steps, both from weights drawn on the CPU) in a
+     process of its own (``chip_smoke.py --example NAME SIDE DEVICE``), on
+     the card and on the CPU, four at a time: the card held to the CPU
+     (the numpy baselines' and KS+'s rows equal, Sizey's within the CPU
+     tests' limits, spans, quality rows and overlay, the report; the
+     sizey_cluster allocations, NaN on the card only where the CPU has
+     it; the served tokens token for token, the losses), K1 and K2 once
+     per predictor dispatch in each script, K1-K5 each launched by some
+     script, every K1-K3 shape no earlier phase checked checked as in 3
+     and every K4 and K5 shape as in 9 and 15 (K4's backward too), each
+     script's walls and launches printed.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel, and ``{"ok": true, "device": {...}}``. Imports
@@ -1690,7 +1707,7 @@ RISK_WORKERS = ("risk_durability:risk", "risk_durability:risk_auto",
 WORKER_NICE = 10
 # the workers this process starts after the build, each with its phase
 HOST_WORKERS = (("peak", 4), ("temporal", 5), ("cluster_phase", 13),
-                ("risk_phase", 14), ("loop", 17))
+                ("risk_phase", 14), ("loop", 17), ("examples", 19))
 HOST_TIMEOUT = 900
 WORKER_SETTINGS = ("DEV", "CLUSTER_NODES", "CLUSTER_ARRIVALS",
                    "CLUSTER_FAILS", "RISK_CFG", "RISK_CHAOS_TRACE",
@@ -2157,6 +2174,8 @@ def _worker_main(task: str, settings: str) -> int:
                          for k in ("a", "b")}}
         elif check == "loop":
             shapes = loop_vs_fused()
+        elif check == "examples":
+            shapes, result = examples_phase()
         elif check == "cluster_durability":
             cluster_durability(build)
         elif check == "risk_durability":
@@ -2358,6 +2377,503 @@ def _port_paper():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+# ----------------------------------------------------------- phase 19
+# The examples' entry points (examples/port_*.py) as a user runs them, each
+# script in a process of its own, on the card and on the CPU at the CPU
+# tests' small arguments (tests/test_torch_examples_*.py); the card's runs
+# are held to the CPU's by the comparisons those tests hold the port's
+# runs to the reference's with (example_row_breaches and the others below)
+EXAMPLE_DIR = REPO / "build" / "phase19"
+EXAMPLE_TRACES = "src/repro_torch/data/sample_traces"
+EXAMPLE_SIM = ["--scale", "0.05", "--workflows", "methylseq", "--ttf", "1.0",
+               "--temporal"]
+# name -> (script, arguments; {out} is the run's own directory). train runs
+# at its entry point's e2e-100m width, 3 steps of 2 x 64 tokens
+EXAMPLES = {
+    "sizey_cluster": ("port_sizey_cluster.py",
+                      ["--dryrun", "results/dryrun_train_seq_shard.jsonl"]),
+    "sim_engine": ("port_workflow_sim.py", EXAMPLE_SIM + [
+        "--cluster", "4", "--arrival-rate", "5", "--risk", "--quality-out",
+        "{out}/quality.csv", "--trace-out", "{out}/trace.json",
+        "--plot-wastage", "{out}/overlay", "--out", "{out}/rows.csv"]),
+    "sim_serial": ("port_workflow_sim.py",
+                   EXAMPLE_SIM + ["--out", "{out}/rows.csv"]),
+    "sim_ingest": ("port_workflow_sim.py", [
+        "--cluster", "--trace", f"{EXAMPLE_TRACES}/sample_jobs_info.txt",
+        "--trace-nodes", f"{EXAMPLE_TRACES}/sample_nodes_info.txt",
+        "--time-compress", "10", "--out", "{out}/rows.csv"]),
+    "quickstart": ("port_quickstart.py", ["--scale", "0.05"]),
+    "serve": ("port_serve_lm.py", ["--requests", "4", "--max-new", "4"]),
+    "train": ("port_train_lm.py", [
+        "--steps", "3", "--batch", "2", "--seq", "64",
+        "--ckpt-dir", "{out}/ckpt"]),
+    # on the engine run's quality CSV (this device's)
+    "quality_report": ("port_quality_report.py", [
+        "{engine}/quality.csv", "--out", "{out}/report"]),
+}
+EXAMPLE_PROCS = 4            # example processes at once
+EXAMPLE_TIMEOUT = 900
+# sizey_cluster's first jobs only (its 600 take ~400 s on a card shared
+# with the other phases): the first 414 hold the first four jobs the
+# breaking pool sizes with NaN on the CPU (382, 401, 412 and 413; ROADMAP
+# queue 3)
+EXAMPLE_CLUSTER_JOBS = 414
+EXAMPLE_CLUSTER_POOL = "grok-1-314b/train@single"
+EXAMPLE_EXACT = ("witt_wastage", "witt_lr", "tovar_ppm", "witt_percentile",
+                 "workflow_presets", "ks_plus")
+# each Sizey method's path limits, relative: the peak and temporal paths'
+# of phases 4 and 5, and the risk methods' at methylseq 0.05 on 4 nodes at
+# 5 roots an hour (twice the reference's spread over 16 1-ulp moves,
+# tools/port_tolerance.py --method sizey_risk[_temporal] --cluster 4
+# --arrival-rate 5 --samples 16: wastage 3.004e-6 / 6.514e-6, allocations
+# 1.312e-3 / 4.136e-2; PERF.md §2); one allocation difference moves a
+# temporal method's wastage_gbh and tw_gbh by the same GB·h, so both take
+# the path's limit
+EXAMPLE_WASTE = {"sizey": WASTAGE_RTOL, "sizey_temporal": T_TW_RTOL,
+                 "sizey_risk": 6.008e-6, "sizey_risk_temporal": 1.303e-5}
+EXAMPLE_ALLOC = {"sizey": ALLOC_RTOL, "sizey_temporal": T_ALLOC_RTOL,
+                 "sizey_risk": 2.624e-3, "sizey_risk_temporal": 8.272e-2}
+EXAMPLE_ROUND = 0.01         # the CSV rounds both values to 2 places
+EXAMPLE_FLOATS = ("wastage_gbh", "tw_gbh", "runtime_h", "oom_gbh",
+                  "interruption_gbh", "makespan_h", "mean_util",
+                  "queue_delay_h")
+EXAMPLE_Q_GB = ("offset_gb", "agg_pred_gb", "alloc_gb", "peak_gb", "err_gb")
+
+
+class _EnoughJobs(Exception):
+    """Raised by the job sizer once EXAMPLE_CLUSTER_JOBS are sized."""
+
+
+def read_csv(path) -> list[dict]:
+    import csv
+    with open(path, newline="") as fh:
+        return list(csv.DictReader(fh))
+
+
+def example_close(got: float, want: float, rtol: float, slack: float
+                  ) -> bool:
+    return abs(got - want) <= rtol * abs(want) + slack
+
+
+def example_row_breaches(got: list[dict], want: list[dict]) -> list[str]:
+    """workflow_sim's CSV rows held to another run's: the same columns in
+    the same order and the same (workflow, method, ttf) cells; the numpy
+    baselines and KS+ equal in every column but ``wall_s``; each Sizey
+    method's GB·h, hour and utilisation columns within its path's
+    EXAMPLE_WASTE (plus EXAMPLE_ROUND, or 1e-3 for ``class_util``'s
+    rounding), every other column equal. Returns the breaches."""
+    if not want or list(got[0]) != list(want[0]) or \
+            [(r["workflow"], r["method"], r["ttf"]) for r in got] != \
+            [(r["workflow"], r["method"], r["ttf"]) for r in want]:
+        return ["the rows' columns or cells differ"]
+    out = []
+    for g, w in zip(got, want):
+        m = w["method"]
+        for key, val in w.items():
+            if key == "wall_s":
+                continue
+            if m in EXAMPLE_EXACT:
+                ok = g[key] == val
+            elif key in EXAMPLE_FLOATS:
+                ok = example_close(float(g[key]), float(val),
+                                   EXAMPLE_WASTE[m], EXAMPLE_ROUND)
+            elif key == "class_util":
+                gs, ws = ([p.split("=") for p in r.split("|")]
+                          for r in (g[key], val))
+                ok = [c for c, _ in gs] == [c for c, _ in ws] and all(
+                    example_close(float(a), float(b), EXAMPLE_WASTE[m], 1e-3)
+                    for (_, a), (_, b) in zip(gs, ws))
+            else:
+                ok = g[key] == val
+            if not ok:
+                out.append(f"{w['workflow']}/{m}/{w['ttf']} {key}: {g[key]} "
+                           f"against {val}")
+    return out
+
+
+def example_quality_breaches(got: list[dict], want: list[dict]) -> list[str]:
+    """Quality rows held to another run's: keys, strings and integers
+    equal (a preset row's empty model fields too); GB fields within the
+    path's allocation limit (EXAMPLE_ALLOC; T_APART for the temporal
+    path's pools that the reference itself moves that far) times the
+    row's ``alloc_gb``, ``err_frac`` within that over ``peak_gb``, ``raq``
+    within the limit. Returns the breaches."""
+    if not want or list(got[0]) != list(want[0]) or len(got) != len(want):
+        return ["the quality rows' columns or count differ"]
+    out = []
+    for g, w in zip(got, want):
+        m = w["method"]
+        rtol = T_APART.get(w["task_type"], EXAMPLE_ALLOC[m]) \
+            if m == "sizey_temporal" else EXAMPLE_ALLOC[m]
+        for key, val in w.items():
+            if val == "" or g[key] == "":
+                ok = g[key] == val
+            elif key in EXAMPLE_Q_GB:
+                ok = example_close(float(g[key]), float(val), 0.0,
+                                   rtol * float(w["alloc_gb"]))
+            elif key == "err_frac":
+                ok = example_close(float(g[key]), float(val), 0.0,
+                                   rtol * float(w["alloc_gb"])
+                                   / float(w["peak_gb"]))
+            elif key == "raq":
+                ok = example_close(float(g[key]), float(val), rtol, 0.0)
+            else:       # strings, integers, t_h, the model's name
+                ok = g[key] == val
+            if not ok:
+                out.append(f"quality row {w['seq']} of {m}: {key} {g[key]} "
+                           f"against {val}")
+    return out
+
+
+def example_spans(path) -> dict:
+    """A span trace's span names and counts."""
+    from collections import Counter
+    data = json.loads(pathlib.Path(path).read_text())
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    return dict(Counter(e["name"] for e in events if e.get("ph") == "X"))
+
+
+def example_overlay_breaches(got_path, want_path) -> list[str]:
+    """The wastage overlay CSV held to another run's: the header and every
+    event's timestamp equal, each column within the temporal path's
+    wastage limit plus 1e-4 for its rounding."""
+    import csv
+    with open(got_path) as fa, open(want_path) as fb:
+        got, want = list(csv.reader(fa)), list(csv.reader(fb))
+    if got[0] != want[0] or len(got) != len(want):
+        return ["the overlay's header or length differs"]
+    return [f"overlay at {w[0]}: {g} against {w}"
+            for g, w in zip(got[1:], want[1:])
+            if g[0] != w[0] or not all(
+                example_close(float(a), float(b), EXAMPLE_WASTE[
+                    "sizey_temporal"], 1e-4) for a, b in zip(g[1:], w[1:]))]
+
+
+def quickstart_breaches(got: str, want: str) -> list[str]:
+    """The quickstart's printed table held to another run's: the workflow
+    line and every baseline's line equal; Sizey's wastage, failures and
+    runtime within ``tools/port_paper_reference.json``'s job limits for
+    ``mag/sizey/ttf=1.0/scale=0.05`` (twice the reference's own spread
+    under 16 1-ulp moves of the MLP init), plus 0.01 for the printed
+    rounding of both values."""
+    names = ("sizey", "witt_wastage", "witt_lr", "tovar_ppm",
+             "witt_percentile", "workflow_presets")
+    g, w = ({ln.split()[0]: ln.split()[1:] for ln in text.splitlines()
+             if ln.split() and ln.split()[0] in names} for text in (got, want))
+    heads = [[ln for ln in text.splitlines() if ln.startswith("workflow:")]
+             for text in (got, want)]
+    out = [f"{n}: {g.get(n)} against {w.get(n)}" for n in names[1:]
+           if g.get(n) != w.get(n)]
+    if heads[0] != heads[1] or len(heads[1]) != 1:
+        out.append(f"workflow line {heads[0]} against {heads[1]}")
+    lim = json.loads(PAPER_REFERENCE.read_text())["scales"]["0.05"][
+        "job_limits"]
+    job = "mag/sizey/ttf=1.0/scale=0.05"
+    (gw, gf, gr), (ww, wf, wr) = g["sizey"], w["sizey"]
+    if abs(float(gw) - float(ww)) > lim[f"{job}/wastage_gbh"] + 0.01 \
+            or abs(int(gf) - int(wf)) > lim[f"{job}/n_failures"] \
+            or abs(float(gr) - float(wr)) > \
+            lim[f"{job}/total_runtime_h"] + 0.01:
+        out.append(f"sizey {g['sizey']} against {w['sizey']}")
+    return out
+
+
+def _example_args(name: str, side: str, device: str
+                  ) -> tuple[str, list[str], str]:
+    """The script, its arguments and the run's directory (``side`` is
+    "card" or "cpu")."""
+    script, args = EXAMPLES[name]
+    out = EXAMPLE_DIR / side / name
+    engine = EXAMPLE_DIR / side / "sim_engine"
+    args = [a.replace("{out}", str(out)).replace("{engine}", str(engine))
+            for a in args]
+    return str(REPO / "examples" / script), args + ["--device", device], \
+        str(out)
+
+
+def _cpu_draws() -> None:
+    """The LM's parameters drawn on the CPU and moved to the run's device,
+    so the card's run and the CPU's start from the same weights (a
+    generator on the card draws other numbers)."""
+    from repro_torch.models import model
+    from repro_torch.train import loop
+    from repro_torch.utils.misc import tree_map
+    draw = model.init_params
+
+    def init_params(cfg, seed=0, device=None):
+        return tree_map(lambda t: t.to(device), draw(cfg, seed, "cpu"))
+    model.init_params = loop.init_params = init_params
+
+
+def _example_main(name: str, side: str, device: str) -> int:
+    """``--example NAME SIDE DEVICE``: run one example script as ``__main__``
+    with the launch counters zeroed just before and the K1-K5 shapes
+    recorded; write its launches, predictor dispatches, shapes, wall,
+    stdout and what its launcher returned to ``record.json`` in its
+    directory. The LM's weights are drawn on the CPU; sizey_cluster stops
+    after EXAMPLE_CLUSTER_JOBS jobs."""
+    import contextlib
+    import io
+    import runpy
+    import shutil
+
+    import torch
+    from repro_torch.core import predictor as P
+    from repro_torch.kernels import KERNEL_LAUNCHES, reset_launch_counts
+    from repro_torch.launch import serve, sizing, train
+    from repro_torch.serving import engine
+    torch.set_num_threads(1)
+    script, args, out = _example_args(name, side, device)
+    # a fresh directory: the trainer resumes from any checkpoint in it
+    shutil.rmtree(out, ignore_errors=True)
+    pathlib.Path(out).mkdir(parents=True)
+    got: dict = {"jobs": [], "completions": []}
+    _cpu_draws()
+    # what the LM launchers return, the served completions, and the job
+    # sizer's first allocations
+    for mod in (serve, train):
+        def capture(argv=None, real=mod.main, **kw):
+            got["result"] = real(argv, **kw)
+            return got["result"]
+        mod.main = capture
+    serve_batch = engine.ServeEngine.serve
+
+    def served(self, requests):
+        done = serve_batch(self, requests)
+        got["completions"] += [[int(c.rid), [int(t) for t in c.tokens]]
+                               for c in done]
+        return done
+    engine.ServeEngine.serve = served
+    size_job = sizing.SizeyJobSizer.size_job
+
+    def recording(self, *a, **kw):
+        if name == "sizey_cluster" and \
+                len(got["jobs"]) == EXAMPLE_CLUSTER_JOBS:
+            raise _EnoughJobs
+        job = size_job(self, *a, **kw)
+        got["jobs"].append((job.sizing.task_type, job.sizing.machine,
+                            float(job.sizing.allocation_gb)))
+        return job
+    sizing.SizeyJobSizer.size_job = recording
+    shapes, restore = _recording_shapes()
+    lm_shapes, positions, lm_restore = _lm_shape_recorder()
+    reset_launch_counts()
+    d0 = dict(P.DISPATCH_COUNTS)
+    text = io.StringIO()
+    sys.argv = [script, *args]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(text):
+            runpy.run_path(script, run_name="__main__")
+    except _EnoughJobs:
+        pass
+    finally:
+        if device != "cpu":
+            torch.cuda.synchronize()
+        restore()
+        lm_restore()
+    record = {"wall_s": time.perf_counter() - t0,
+              "launches": dict(KERNEL_LAUNCHES),
+              "dispatches": {k: P.DISPATCH_COUNTS[k] - d0.get(k, 0)
+                             for k in ("predict_pool", "observe_pool",
+                                       "refresh_pool")},
+              "shapes": _shapes_json(shapes),
+              "lm_shapes": _shapes_json(lm_shapes),
+              "positions": [[list(k), sorted(v)]
+                            for k, v in positions.items()],
+              "stdout": text.getvalue(), "jobs": got["jobs"]}
+    r = got.get("result")
+    if name == "serve":
+        record["completions"] = got["completions"]
+        record["stats"] = {k: int(v) for k, v in r.stats.items()}
+        record["decisions"] = [[d.source, int(d.offset_idx),
+                                float(d.allocation_gb)]
+                               for d in r.sizer.decisions]
+    elif name == "train":
+        record["history"] = [[float(h["loss"]), float(h["grad_norm"])]
+                             for h in r.history]
+    pathlib.Path(out, "record.json").write_text(json.dumps(record))
+    return 0
+
+
+def _run_examples() -> dict:
+    """Every example on the card and on the CPU, EXAMPLE_PROCS processes at
+    once (the longest first, the quality report after the engine run);
+    returns each run's record by (name, side)."""
+    from concurrent.futures import ThreadPoolExecutor
+    sides = {"card": DEV, "cpu": "cpu"}
+
+    def one(name, side):
+        log = EXAMPLE_DIR / side / f"{name}.log"
+        log.parent.mkdir(parents=True, exist_ok=True)
+        with open(log, "w") as fh:
+            rc = subprocess.run(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--example",
+                 name, side, sides[side]], stdout=fh,
+                stderr=subprocess.STDOUT, timeout=EXAMPLE_TIMEOUT).returncode
+        if rc != 0:
+            print(log.read_text()[-3000:])
+            _fail(f"phase 19: {EXAMPLES[name][0]} on {sides[side]} exited "
+                  f"{rc}")
+        return json.loads((EXAMPLE_DIR / side / name / "record.json")
+                          .read_text())
+
+    names = [n for n in EXAMPLES if n != "quality_report"]
+    with ThreadPoolExecutor(EXAMPLE_PROCS) as pool:
+        runs = {(n, d): pool.submit(one, n, d) for n in names
+                for d in sides}
+        out = {k: f.result() for k, f in runs.items()}
+        out.update({("quality_report", d): f.result() for d, f in
+                    {d: pool.submit(one, "quality_report", d)
+                     for d in sides}.items()})
+    return out
+
+
+def _example_cluster(card: dict, cpu: dict) -> None:
+    """sizey_cluster, card against CPU: the same jobs; each first
+    allocation finite on both within ALLOC_RTOL; the card's non-finite
+    allocations a subset of the CPU's, all in the pool whose fp32
+    Cholesky breaks down (ROADMAP queue 3: the LAPACKs break down at
+    other counts, so the card is not held to the reference's totals)."""
+    ja, jb = card["jobs"], cpu["jobs"]
+    if [j[:2] for j in ja] != [j[:2] for j in jb] or \
+            len(ja) != EXAMPLE_CLUSTER_JOBS:
+        _fail("phase 19: sizey_cluster sized other jobs on the card")
+    fin = [(a[2], b[2]) for a, b in zip(ja, jb)
+           if a[2] == a[2] and b[2] == b[2]]
+    s_rel = max(abs(a - b) / b for a, b in fin)
+    nan = [{i for i, j in enumerate(js) if j[2] != j[2]} for js in (ja, jb)]
+    pools = {f"{jb[i][0]}@{jb[i][1]}" for i in nan[0] | nan[1]}
+    print(f"[examples] sizey_cluster, its first {len(ja)} jobs: {len(fin)} "
+          f"first allocations finite on both, card vs CPU {s_rel:.3e} apart "
+          f"(tol {ALLOC_RTOL:g}); non-finite on the card at jobs "
+          f"{sorted(nan[0])}, on the CPU at {sorted(nan[1])}, pools "
+          f"{sorted(pools)}")
+    if s_rel > ALLOC_RTOL or not nan[0] <= nan[1] or \
+            not pools <= {EXAMPLE_CLUSTER_POOL}:
+        _fail("phase 19: sizey_cluster's allocations on the card are not "
+              "the CPU's")
+
+
+def _example_lm(card: dict, cpu: dict) -> None:
+    """The LM wrappers, card against CPU from the same weights: serve's
+    completions token for token, its counts and the KV sizer's sources
+    equal and its allocations within ALLOC_RTOL (phase 6's); train's
+    losses and gradient norms within phase 15 (d)'s fp32 limit."""
+    sa, sb = card["serve"], cpu["serve"]
+    dec = list(zip(sa["decisions"], sb["decisions"]))
+    if sa["completions"] != sb["completions"] or not sb["completions"] or \
+            sa["stats"] != sb["stats"] or \
+            len(sa["decisions"]) != len(sb["decisions"]) or any(
+                a[:2] != b[:2] or abs(a[2] - b[2]) > ALLOC_RTOL * b[2]
+                for a, b in dec):
+        _fail(f"phase 19: serve on the card {sa['completions']} "
+              f"{sa['stats']} {sa['decisions']} against the CPU's "
+              f"{sb['completions']} {sb['stats']} {sb['decisions']}")
+    ha, hb = card["train"]["history"], cpu["train"]["history"]
+    t_rel = max(abs(a - b) / abs(b) for x, y in zip(ha, hb)
+                for a, b in zip(x, y))
+    if len(ha) != len(hb) or t_rel > CVC_TRAIN_RTOL[False]:
+        _fail(f"phase 19: train on the card {ha} against the CPU's {hb}")
+    print(f"[examples] serve: {sum(len(c[1]) for c in sa['completions'])} "
+          f"tokens equal token for token, {sa['stats']} and "
+          f"{len(dec)} KV sizing decisions on both; train (e2e-100m): "
+          f"losses {[h[0] for h in ha]} card, losses and gradient norms "
+          f"{t_rel:.3e} from the CPU's (tol {CVC_TRAIN_RTOL[False]:g})")
+
+
+def examples_phase() -> tuple[dict, dict]:
+    """Phase 19: each examples/port_*.py script on the card and on the CPU
+    in processes of their own; the card held to the CPU, K1-K5 launches
+    counted per script, K1 and K2 once per predictor dispatch. Returns
+    the K1-K3 shapes the card's runs launched, and their K4 shapes (the
+    serving call's and the training forward's) and K5 shapes (at the
+    first and last position) for ``main()`` to hold to the plain
+    versions."""
+    import shutil
+    from collections import Counter
+    t0 = time.perf_counter()
+    runs = _run_examples()
+    for side in ("card", "cpu"):      # the trainers' checkpoints, ~1.3 GB
+        shutil.rmtree(EXAMPLE_DIR / side / "train" / "ckpt",
+                      ignore_errors=True)
+    card = {n: runs[(n, "card")] for n in EXAMPLES}
+    cpu = {n: runs[(n, "cpu")] for n in EXAMPLES}
+    d_card, d_cpu = EXAMPLE_DIR / "card", EXAMPLE_DIR / "cpu"
+    bad, gap = {}, {}
+    for name in ("sim_serial", "sim_engine", "sim_ingest"):
+        rows = [read_csv(d / name / "rows.csv") for d in (d_card, d_cpu)]
+        bad[name] = example_row_breaches(*rows)
+        # the largest relative difference of a Sizey wastage column
+        gap[name] = max(abs(float(g[k]) - float(w[k]))
+                        / max(float(w[k]), 1e-9)
+                        for g, w in zip(*rows)
+                        if w["method"] not in EXAMPLE_EXACT
+                        for k in ("wastage_gbh", "tw_gbh") if k in w)
+    bad["quality"] = example_quality_breaches(
+        read_csv(d_card / "sim_engine" / "quality.csv"),
+        read_csv(d_cpu / "sim_engine" / "quality.csv"))
+    bad["overlay"] = example_overlay_breaches(
+        d_card / "sim_engine" / "overlay.csv",
+        d_cpu / "sim_engine" / "overlay.csv")
+    spans = [example_spans(d / "sim_engine" / "trace.json")
+             for d in (d_card, d_cpu)]
+    if spans[0] != spans[1]:
+        bad["spans"] = [f"{spans[0]} against {spans[1]}"]
+    # the quality report on each device's CSV: the same lines but the
+    # files' names
+    rep = [[ln for ln in r["quality_report"]["stdout"].splitlines()
+            if not ln.startswith("wrote ")] for r in (card, cpu)]
+    if rep[0] != rep[1] or not any(ln.startswith("pool") for ln in rep[0]):
+        bad["quality_report"] = [f"{rep[0]} against {rep[1]}"]
+    bad["quickstart"] = quickstart_breaches(card["quickstart"]["stdout"],
+                                            cpu["quickstart"]["stdout"])
+    for what, lines in bad.items():
+        for line in lines[:20]:
+            print(f"[examples] {what} on the card against the CPU: {line}")
+    if any(bad.values()):
+        _fail(f"phase 19: the card's outputs are not the CPU's in "
+              f"{[k for k, v in bad.items() if v]}")
+    _example_cluster(card["sizey_cluster"], cpu["sizey_cluster"])
+    _example_lm(card, cpu)
+    # the launches: K1 and K2 once per predictor dispatch; every kernel of
+    # the slice's path launched by some script
+    shapes = {k: Counter() for k in ("ensemble_mlp", "knn_predict",
+                                     "segment_dp")}
+    total = Counter()
+    for name, r in card.items():
+        if sum(r["dispatches"].values()):
+            _check_sizey_launches(f"examples {name}", r["launches"],
+                                  r["dispatches"])
+        total.update(r["launches"])
+        for k, c in _shapes_load(r["shapes"]).items():
+            shapes[k].update(c)
+        print(f"[examples] {name} ({EXAMPLES[name][0]}): card "
+              f"{r['wall_s']:.1f} s, CPU {cpu[name]['wall_s']:.1f} s; "
+              f"dispatches {r['dispatches']}; launches {r['launches']}"
+              + (f"; Sizey's wastage card vs CPU {gap[name]:.3e}"
+                 if name in gap else ""))
+    for k in ("ensemble_mlp", "knn_predict", "segment_dp", "flash_attention",
+              "flash_decode"):
+        if not any(n.startswith(k) for n in total if total[n]):
+            _fail(f"phase 19: no example launched {k}")
+    for kname, counts in shapes.items():
+        print(f"[examples] {kname} shapes, most launched first: "
+              + ", ".join(f"{s}x{c}" for s, c in counts.most_common()))
+    # the LM wrappers' K4 and K5 shapes; K5 at its first and last position
+    lm = {n: _shapes_load(card[n]["lm_shapes"]) for n in ("serve", "train")}
+    pos = {tuple(k): v for k, v in card["serve"]["positions"]}
+    k5 = sorted((*s, p) for s in lm["serve"]["flash_decode"]
+                for p in sorted({min(pos[s]), max(pos[s])}))
+    result = {"k4": sorted(set(lm["serve"]["flash_attention"])
+                           | set(lm["train"]["flash_attention"])),
+              "k4_bwd": sorted(lm["train"]["flash_attention"]), "k5": k5}
+    print(f"[examples] K4 shapes {result['k4']} (training {result['k4_bwd']})"
+          f", K5 {k5}; spans {spans[0]} on both; phase 19 wall "
+          f"{time.perf_counter() - t0:.1f} s; {gpu_line()}")
+    return shapes, result
 
 
 # ----------------------------------------------------------- phases 8-12
@@ -5037,6 +5553,8 @@ def main() -> int:
         return _worker_main(*sys.argv[2:4])
     if sys.argv[1:2] == ["--dry"]:
         return _dry_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--example"]:
+        return _example_main(*sys.argv[2:5])
     if sys.argv[1:2] == ["--tp-rank"]:
         return tp_rank(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
@@ -5103,7 +5621,7 @@ def main() -> int:
                          phase=phase, results=results[task])
         finally:
             _stop_worker(workers[task])
-    _stamp(t_start, "phases 4-6, 13, 14 and 17 (c) joined")
+    _stamp(t_start, "phases 4-6, 13, 14, 17 (c) and 19 joined")
     main = dict(results["peak"]["main"])
     main["shapes"] = _shapes_load(main["shapes"])
     temporal = dict(results["temporal"]["temporal"])
@@ -5219,6 +5737,37 @@ def main() -> int:
     if k3_more:
         errors["segment_dp"] = max(errors["segment_dp"],
                                    check_segment_dp(k3_more))
+    # phase 19 (joined above): every K1, K2 and K3 shape the examples
+    # launched that no earlier phase checked is held to its plain version
+    e_shapes = w_shapes["examples"]
+    done = {k: set(seen.get(k, ())) | set(c_shapes[k]) | set(r_shapes[k])
+            | (set(p_shapes[k]) if k in seen else set()) for k in kinds}
+    k1_ex = sorted(set(e_shapes["ensemble_mlp"]) - set(K1_SHAPES)
+                   - done["ensemble_mlp"])
+    k2_ex = sorted(set(e_shapes["knn_predict"]) - set(K2_SHAPES)
+                   - done["knn_predict"])
+    k3_ex = sorted(set(e_shapes["segment_dp"]) - listed - set(k3_seen)
+                   - done["segment_dp"])
+    print(f"[examples] shapes launched in phase 19 that no earlier phase "
+          f"checked, checked now: K1 {k1_ex}, K2 {k2_ex}, K3 {k3_ex}")
+    if k1_ex or k2_ex:
+        more = check_kernels(k1_ex, k2_ex)
+        errors = {k: max(v, more.get(k, 0.0)) for k, v in errors.items()}
+    if k3_ex:
+        errors["segment_dp"] = max(errors["segment_dp"],
+                                   check_segment_dp(k3_ex))
+    # and its K4 and K5 shapes (the LM wrappers: serve at musicgen-large's
+    # reduced width, train at e2e-100m), held to the plain versions as
+    # phases 9 and 15 hold theirs; K4's training shapes through its
+    # backward too
+    lm19 = {k: [tuple(s) for s in v] for k, v in results["examples"].items()}
+    e_err = check_lm_kernels(lm19["k4"], lm19["k5"], [],
+                             label="check examples")
+    e_err.update(check_k5_variants(lm19["k5"], label="check examples"))
+    e_err["flash_attention_bwd"] = check_k4_backward(lm19["k4_bwd"],
+                                                     label="bwd examples")
+    for k, v in e_err.items():
+        errors16[k] = max(errors16.get(k, 0.0), v)
     kernels = [
         {"name": "ensemble_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/ensemble_mlp/kernel.cu",

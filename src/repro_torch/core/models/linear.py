@@ -2,9 +2,14 @@
 
 X'X and X'y are kept in GB units and the (d+1)x(d+1) normal equations are
 solved by Cholesky. ``cholesky_ex`` and two triangular solves keep the
-solve free of error checks that would read the device from the host; the
-ridge term keeps the system positive definite. The online update is a
-rank-1 accumulation and a re-solve.
+solve free of error checks that would read the device from the host. The
+ridge term keeps the system positive definite in exact arithmetic, but
+not always in fp32: where every sample of a pool has the same features,
+X'X is rank one and its entries' rounding can exceed the ridge, and the
+factorization breaks down. The weights are then NaN, as the reference's
+``jnp.linalg.cholesky`` makes them (its factor is all NaN where LAPACK
+reports a breakdown), and not the partial factor ``cholesky_ex`` leaves.
+The online update is a rank-1 accumulation and a re-solve.
 """
 from __future__ import annotations
 
@@ -29,7 +34,10 @@ def _aug(xs: torch.Tensor) -> torch.Tensor:
 def _solve(xtx: torch.Tensor, xty: torch.Tensor, lam: float) -> torch.Tensor:
     a = xtx + lam * torch.eye(xtx.shape[0], dtype=xtx.dtype,
                               device=xtx.device)
-    l, _info = torch.linalg.cholesky_ex(a)
+    l, info = torch.linalg.cholesky_ex(a)
+    # a breakdown makes the whole factor NaN, as in the reference; the
+    # check stays on the device
+    l = torch.where(info == 0, l, float("nan"))
     z = torch.linalg.solve_triangular(l, xty[:, None], upper=False)
     return torch.linalg.solve_triangular(l.T, z, upper=True)[:, 0]
 

@@ -50,6 +50,15 @@ trace's machine cap, ``--policy``, with root arrivals at
 batched predicts, and the engine's waves and predict dispatches are
 printed too.
 
+``--sizey-cluster DRYRUN`` replays ``examples/sizey_cluster.py``'s job
+loop (600 LM jobs sized by ``SizeyJobSizer`` from a dry run's rows)
+instead of a workflow, recording each job's pool, first allocation and
+retry ladder, and prints the reference's OOM retries, its non-finite
+allocations and the first of them (job, pool and the pool's count), then
+the same for each move and the spread; ``--port`` adds
+``examples/port_sizey_cluster.py`` on the CPU, ``--jobs-out PATH`` writes
+every job of the unmoved replays as JSON.
+
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/port_tolerance.py \
         [--workflow methylseq] [--scale 0.05] [--method sizey] \
         [--failure-strategy auto] [--risk-min-samples 2 --risk-window 64] \
@@ -58,6 +67,9 @@ printed too.
         [--cluster 8 [--policy backfill] [--arrival-rate 30] \
         [--fail-rate 0.01 --fail-seed 7]] [--samples 4] \
         [--apart POOL] [--port]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/port_tolerance.py \
+        --sizey-cluster results/dryrun_train_seq_shard.jsonl [--samples 16] \
+        [--port] [--jobs-out OUT]
 
 The figures it printed on a CPU are quoted beside the assertions of
 tests/test_torch_slice.py, tests/test_torch_temporal.py and
@@ -67,6 +79,7 @@ and 1.0, serial and on the cluster engine, with and without risk).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 
 import numpy as np
@@ -262,10 +275,9 @@ def reference_fit_departures(workflow: str, scale: float,
     return len(fits), departs
 
 
-def _moved_replay(sample, workflow, scale, method_name, engine,
-                  failure_strategy=None, trace_kw=None, risk_kw=None,
-                  ttf=1.0, config=None, log_pool="prokka"):
-    """One replay of the reference with the MLP init moved (``sample``)."""
+@contextlib.contextmanager
+def _moved(sample: int):
+    """The reference with its MLP init moved (``sample``) inside."""
     import repro.core.models.mlp as mlp
     import repro.core.predictor as predictor
     init = mlp._init_params
@@ -274,14 +286,136 @@ def _moved_replay(sample, workflow, scale, method_name, engine,
                predictor._fused_refresh_all):
         fn.cache_clear()
     try:
+        yield
+    finally:
+        mlp._init_params = init
+        for fn in (predictor._fused_observe_all, predictor._fused_predict,
+                   predictor._fused_refresh_all):
+            fn.cache_clear()
+
+
+def _moved_replay(sample, workflow, scale, method_name, engine,
+                  failure_strategy=None, trace_kw=None, risk_kw=None,
+                  ttf=1.0, config=None, log_pool="prokka"):
+    """One replay of the reference with the MLP init moved (``sample``)."""
+    with _moved(sample):
         res, d1, b1, _n = replay(workflow, scale, method_name,
                                  engine=engine,
                                  failure_strategy=failure_strategy,
                                  trace_kw=trace_kw, risk_kw=risk_kw,
                                  ttf=ttf, config=config, log_pool=log_pool)
-    finally:
-        mlp._init_params = init
     return _summary(res), d1, b1
+
+
+def sizey_cluster_jobs(dryrun: str, port: bool = False):
+    """Run ``examples/sizey_cluster.py`` (``port``: the port's
+    ``examples/port_sizey_cluster.py`` on the CPU) on ``dryrun``'s rows,
+    recording each job's pool, machine, source, the pool's count, first
+    allocation and retry allocations; returns them and what the script
+    printed."""
+    import contextlib as cl
+    import io
+    import pathlib
+    import runpy
+    import sys
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    script = repo / "examples" / ("port_sizey_cluster.py" if port
+                                  else "sizey_cluster.py")
+    argv = [str(script), "--dryrun", dryrun]
+    if port:
+        import torch
+        torch.set_num_threads(1)
+        argv += ["--device", "cpu"]
+    g = runpy.run_path(str(script), run_name="sizey_cluster")["main"] \
+        .__globals__
+    jobs: list[dict] = []
+
+    class Recording(g["SizeyJobSizer"]):
+        def size_job(self, arch, cfg, shape, mesh, chips):
+            job = super().size_job(arch, cfg, shape, mesh, chips)
+            d = job.sizing
+            jobs.append({"pool": d.task_type, "machine": d.machine,
+                         "source": d.source,
+                         "count": int(self.predictor.db.pool(
+                             d.task_type, d.machine).count),
+                         "alloc": float(d.allocation_gb), "retries": []})
+            return job
+
+        def retry_allocation(self, job, attempt, last_alloc_gb):
+            alloc = super().retry_allocation(job, attempt, last_alloc_gb)
+            jobs[-1]["retries"].append(float(alloc))
+            return alloc
+
+    g["SizeyJobSizer"] = Recording
+    out, old = io.StringIO(), sys.argv
+    sys.argv = argv
+    try:
+        with cl.redirect_stdout(out):
+            g["main"]()
+    finally:
+        sys.argv = old
+    return jobs, out.getvalue()
+
+
+def sizey_cluster_summary(jobs: list[dict]) -> dict:
+    """OOM retries, non-finite allocations and the first of them."""
+    bad = [i for i, j in enumerate(jobs) if not np.isfinite(j["alloc"])]
+    first = None if not bad else {"job": bad[0], "pool": jobs[bad[0]]["pool"],
+                                  "machine": jobs[bad[0]]["machine"],
+                                  "count": jobs[bad[0]]["count"]}
+    return {"ooms": sum(len(j["retries"]) for j in jobs),
+            "n_nonfinite": len(bad), "first_nonfinite": first,
+            "nonfinite_pools": sorted({f"{jobs[i]['pool']}@"
+                                       f"{jobs[i]['machine']}"
+                                       for i in bad})}
+
+
+def sizey_cluster_compare(label: str, base: list[dict], jobs: list[dict]
+                          ) -> float:
+    """Print a run's summary beside the unmoved reference's; return the
+    largest relative difference of a first allocation finite in both."""
+    rel = max((abs(a["alloc"] - b["alloc"]) / a["alloc"]
+               for a, b in zip(base, jobs)
+               if np.isfinite(a["alloc"]) and np.isfinite(b["alloc"])),
+              default=0.0)
+    s = sizey_cluster_summary(jobs)
+    moved = sum(np.isfinite(a["alloc"]) != np.isfinite(b["alloc"])
+                for a, b in zip(base, jobs))
+    print(f"{label}: {s['ooms']} OOM retries, {s['n_nonfinite']} non-finite "
+          f"allocations in {s['nonfinite_pools']}, the first "
+          f"{s['first_nonfinite']}; finite in one run only: {moved} jobs; "
+          f"max alloc rel {rel:.3e}", flush=True)
+    return rel
+
+
+def sizey_cluster_main(args) -> None:
+    """``--sizey-cluster``: the reference's spread on the LM job loop."""
+    import json
+    import pathlib
+    base, text = sizey_cluster_jobs(args.sizey_cluster)
+    print(text.rstrip())
+    sizey_cluster_compare("reference", base, base)
+    ooms = [sizey_cluster_summary(base)["ooms"]]
+    worst = 0.0
+    for sample in range(args.samples):
+        with _moved(sample):
+            jobs, _text = sizey_cluster_jobs(args.sizey_cluster)
+        worst = max(worst, sizey_cluster_compare(move_label(sample), base,
+                                                 jobs))
+        ooms.append(sizey_cluster_summary(jobs)["ooms"])
+    if args.samples:
+        print(f"spread over {args.samples} moves: OOM retries "
+              f"{min(ooms)}..{max(ooms)}, allocation rel {worst:.3e}")
+    out = {"reference": base}
+    if args.port:
+        jobs, text = sizey_cluster_jobs(args.sizey_cluster, port=True)
+        print(text.rstrip())
+        sizey_cluster_compare("port on the CPU", base, jobs)
+        out["port"] = jobs
+    if args.jobs_out:
+        path = pathlib.Path(args.jobs_out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(out))
 
 
 def _summary(res):
@@ -371,7 +505,16 @@ def main() -> None:
                          "this pool's log")
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="write each replay's paper figures here")
+    ap.add_argument("--sizey-cluster", default=None, metavar="DRYRUN",
+                    help="replay examples/sizey_cluster.py's LM job loop "
+                         "on this dry run's rows instead of a workflow")
+    ap.add_argument("--jobs-out", default=None, metavar="PATH",
+                    help="with --sizey-cluster: write every job of the "
+                         "unmoved replays here")
     args = ap.parse_args()
+    if args.sizey_cluster:
+        sizey_cluster_main(args)
+        return
     engine = None
     if args.cluster:
         engine = {"n_nodes": args.cluster, "policy": args.policy,
